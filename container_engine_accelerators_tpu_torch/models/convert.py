@@ -1,0 +1,92 @@
+"""Carry weights across: the reference's flax TransformerLM param tree
+(nested dicts of numpy-convertible arrays) into the port's modules, and
+back.
+
+Names map as the flax module builds them: Embed_0/embedding -> embed,
+pos_emb, block_i/{LayerNorm_0 -> ln0, qkv, proj, LayerNorm_1 -> ln1,
+Dense_0 -> fc0, Dense_1 -> fc1}, LayerNorm_0 -> ln_f, lm_head ->
+head_kernel/head_bias.  Kernels stay (in, out); the qkv DenseGeneral
+kernel (dim, 3, heads, d_head) and bias (3, heads, d_head) flatten to
+(dim, 3 * dim) and (3 * dim,).  Only numpy crosses the boundary: this
+module imports no JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_LN = {"ln0": "LayerNorm_0", "ln1": "LayerNorm_1"}
+_DENSE = {"qkv": "qkv", "proj": "proj", "fc0": "Dense_0", "fc1": "Dense_1"}
+
+
+def _put(param, value):
+    arr = torch.from_numpy(np.asarray(value, np.float32).copy())
+    if tuple(arr.shape) != tuple(param.shape):
+        arr = arr.reshape(param.shape)
+    param.copy_(arr.to(param.dtype))
+
+
+def load_flax_params(model, params):
+    """Copy a flax param tree into `model` (a port TransformerLM) in
+    place; returns the model.  Raises KeyError on a foreign tree."""
+    n_blocks = len([k for k in params if k.startswith("block_")])
+    if n_blocks != model.depth:
+        raise ValueError(
+            f"param tree has {n_blocks} blocks, model depth {model.depth}"
+        )
+    with torch.no_grad():
+        _put(model.embed, params["Embed_0"]["embedding"])
+        _put(model.pos_emb, params["pos_emb"])
+        for i, blk in enumerate(model.blocks):
+            p = params[f"block_{i}"]
+            for mine, theirs in _LN.items():
+                _put(getattr(blk, mine).scale, p[theirs]["scale"])
+                _put(getattr(blk, mine).bias, p[theirs]["bias"])
+            for mine, theirs in _DENSE.items():
+                _put(getattr(blk, mine).kernel, p[theirs]["kernel"])
+                _put(getattr(blk, mine).bias, p[theirs]["bias"])
+        _put(model.ln_f.scale, params["LayerNorm_0"]["scale"])
+        _put(model.ln_f.bias, params["LayerNorm_0"]["bias"])
+        _put(model.head_kernel, params["lm_head"]["kernel"])
+        _put(model.head_bias, params["lm_head"]["bias"])
+    return model
+
+
+def to_flax_params(model):
+    """The inverse of load_flax_params: a flax-shaped tree of f32 numpy
+    arrays (qkv restored to its DenseGeneral shapes)."""
+    dim, heads = model.dim, model.heads
+    d_head = dim // heads
+
+    def np32(t):
+        return t.detach().float().cpu().numpy()
+
+    out = {
+        "Embed_0": {"embedding": np32(model.embed)},
+        "pos_emb": np32(model.pos_emb),
+        "LayerNorm_0": {
+            "scale": np32(model.ln_f.scale),
+            "bias": np32(model.ln_f.bias),
+        },
+        "lm_head": {
+            "kernel": np32(model.head_kernel),
+            "bias": np32(model.head_bias),
+        },
+    }
+    for i, blk in enumerate(model.blocks):
+        p = {}
+        for mine, theirs in _LN.items():
+            ln = getattr(blk, mine)
+            p[theirs] = {"scale": np32(ln.scale), "bias": np32(ln.bias)}
+        for mine, theirs in _DENSE.items():
+            dense = getattr(blk, mine)
+            p[theirs] = {
+                "kernel": np32(dense.kernel), "bias": np32(dense.bias),
+            }
+        p["qkv"]["kernel"] = p["qkv"]["kernel"].reshape(
+            dim, 3, heads, d_head
+        )
+        p["qkv"]["bias"] = p["qkv"]["bias"].reshape(3, heads, d_head)
+        out[f"block_{i}"] = p
+    return out

@@ -1,0 +1,328 @@
+"""LM decode seams in PyTorch: the port of
+container_engine_accelerators_tpu/models/generate.py for the paged
+serving path (`make_decoder` :36, `_sample` :122, the oracle
+`generate_prefill` :241, `init_decode_cache` :356, `prefill_chunk` :446,
+`init_paged_cache` :566, `paged_scatter_row` :595,
+`paged_preload_scratch` :627, `paged_prefill_finish` :702,
+`paged_decode_step` :757).
+
+Differences of idiom, not of math:
+  - parameters live in the model (an nn.Module), so no `params`
+    argument travels beside it;
+  - caches are lists of per-block dicts updated IN PLACE (the reference
+    returns new pytrees; the engine always replaced its reference
+    anyway);
+  - a `torch.Generator` on the model's device replaces the jax.random
+    key and advances in place, so seams return tokens, not keys.  The
+    two generators give different numbers: sampled rows are held to
+    the same keep mask, greedy rows to equal tokens;
+  - offsets that the reference traces (chunk start, preload length)
+    are host ints here, since PyTorch runs eagerly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .._device import resolve_device
+from .transformer import TransformerLM
+
+
+def make_decoder(vocab, dim, depth, heads, max_seq, dtype=torch.bfloat16,
+                 device="cuda") -> TransformerLM:
+    """The decode-mode twin of a TransformerLM config, on `device`
+    (raises without a card unless device="cpu").  Parameters are zeros
+    until loaded (convert.load_flax_params) or drawn (init_random)."""
+    return TransformerLM(
+        vocab=vocab, dim=dim, depth=depth, heads=heads, max_seq=max_seq,
+        dtype=dtype, decode=True, device=device,
+    )
+
+
+def _as(x, dtype, device):
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def keep_mask(scaled, top_k=None, top_p=None):
+    """(sorted_logits, sorted_idx, keep) of the top-k / top-p rule in
+    `_sample`: ranks below top_k, and the nucleus whose cumulative
+    probability before the token is below top_p (the best token always
+    stays).  top_k / top_p: scalars or per-row (b,)."""
+    b, vocab = scaled.shape
+    sorted_logits, sorted_idx = torch.sort(
+        scaled, dim=-1, descending=True, stable=True
+    )
+    keep = torch.ones((b, vocab), dtype=torch.bool, device=scaled.device)
+    ranks = torch.arange(vocab, device=scaled.device)[None, :]
+    if top_k is not None:
+        tk = _as(top_k, torch.int64, scaled.device)
+        tk = tk[:, None] if tk.ndim == 1 else tk
+        keep &= ranks < torch.clamp(tk, min=1)
+    if top_p is not None:
+        tp = _as(top_p, torch.float32, scaled.device)
+        tp = tp[:, None] if tp.ndim == 1 else tp
+        probs = torch.softmax(sorted_logits, dim=-1)
+        cum_before = torch.cumsum(probs, dim=-1) - probs
+        keep &= cum_before < torch.clamp(tp, 1e-6, 1.0)
+    return sorted_logits, sorted_idx, keep
+
+
+def _gumbel_argmax(logits, generator):
+    """A categorical draw without a host sync: argmax(logits + Gumbel)
+    with the noise from `generator`."""
+    e = torch.empty_like(logits).exponential_(generator=generator)
+    return torch.argmax(logits - torch.log(e), dim=-1)
+
+
+def _sample(logits, temperature, generator, top_k=None, top_p=None):  # hot-path
+    """Token choice per row: argmax at temperature 0, a categorical draw
+    at temperature > 0 (restricted by top_k / top_p when given).
+    temperature: scalar or per-row (b,).  Returns (b,) int32."""
+    temperature = _as(temperature, torch.float32, logits.device)
+    safe_t = torch.clamp(temperature, min=1e-6)
+    if safe_t.ndim == 1:
+        safe_t = safe_t[:, None]
+    scaled = logits / safe_t
+    if top_k is None and top_p is None:
+        sampled = _gumbel_argmax(scaled, generator)
+    else:
+        sorted_logits, sorted_idx, keep = keep_mask(scaled, top_k, top_p)
+        masked = torch.where(keep, sorted_logits, float("-inf"))
+        pick = _gumbel_argmax(masked, generator)
+        sampled = sorted_idx.gather(1, pick[:, None])[:, 0]
+    greedy = torch.argmax(logits, dim=-1)
+    return torch.where(temperature > 0.0, sampled, greedy).to(torch.int32)
+
+
+@torch.no_grad()
+def generate_prefill(  # hot-path
+    model: TransformerLM,
+    prompt,
+    prompt_len,
+    max_new: int,
+    temperature,
+    generator: torch.Generator,
+    top_k=None,
+    top_p=None,
+):
+    """The oracle: prefill the whole prompt bucket in one forward into a
+    contiguous cache, then decode `max_new` tokens one step at a time.
+    prompt (b, P) int; prompt_len / temperature scalars or per-row (b,).
+    The bucket tail [prompt_len, P) stays invisible; generated tokens
+    write slots P.. with their true positions prompt_len... Returns
+    (b, max_new) int32."""
+    if not model.decode:
+        raise ValueError("generate_prefill needs a decode=True model")
+    dev = model.device
+    prompt = _as(prompt, torch.int64, dev)
+    b, p_max = prompt.shape
+    if p_max < 1:
+        raise ValueError("prompt bucket must contain at least one column")
+    if max_new < 1:
+        raise ValueError(f"max_new must be >= 1, got {max_new}")
+    if p_max + max_new > model.max_seq:
+        raise ValueError(
+            f"prompt bucket ({p_max}) + max_new ({max_new}) exceeds the "
+            f"model's max_seq ({model.max_seq})"
+        )
+    plen = _as(prompt_len, torch.int64, dev)
+    temperature = _as(temperature, torch.float32, dev)
+    per_row = plen.ndim == 1
+    cache = init_decode_cache(model, b, device=dev)
+    slots = torch.arange(model.max_seq, device=dev)
+    if per_row:
+        kv_mask = (slots[None, :] < plen[:, None]) | (slots[None, :] >= p_max)
+    else:
+        kv_mask = (slots < plen) | (slots >= p_max)
+    hidden, head_k, head_b = model(
+        prompt, positions=torch.arange(p_max, device=dev), cache=cache,
+        kv_mask=kv_mask, write_pos=0, head_impl="chunked",
+    )
+    rows = (plen - 1).expand(b)
+    hidden_row = hidden[torch.arange(b, device=dev), rows]
+    tok = _sample(hidden_row @ head_k + head_b, temperature, generator,
+                  top_k, top_p)
+    toks = [tok]
+    for k in range(max_new - 1):
+        pos = plen + k
+        logits = model(
+            tok[:, None], positions=pos[:, None] if per_row else pos[None],
+            cache=cache, kv_mask=kv_mask, write_pos=p_max + k,
+        )
+        tok = _sample(logits[:, 0], temperature, generator, top_k, top_p)
+        toks.append(tok)
+    return torch.stack(toks, dim=1)
+
+
+def _kv_buffers(model, shape, device):
+    dev = resolve_device(device)
+    return [
+        {
+            "k": torch.zeros(shape, dtype=model.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=model.dtype, device=dev),
+        }
+        for _ in range(model.depth)
+    ]
+
+
+def init_decode_cache(model: TransformerLM, n_slots: int, device="cuda"):
+    """Zero contiguous KV buffers on `device`: per block {"k", "v"} of
+    (n_slots, max_seq, heads, d_head) in the model's dtype."""
+    if not model.decode:
+        raise ValueError("init_decode_cache needs a decode=True model")
+    shape = (n_slots, model.max_seq, model.heads, model.dim // model.heads)
+    return _kv_buffers(model, shape, device)
+
+
+@torch.no_grad()
+def prefill_chunk(model: TransformerLM, scratch, chunk, start: int):  # hot-path
+    """One fixed-width chunk (1, C) of a prompt prefilled into the batch-1
+    contiguous `scratch` at positions [start, start + C).  Returns the
+    scratch (updated in place)."""
+    if not model.decode:
+        raise ValueError("prefill_chunk needs a decode=True model")
+    chunk = _as(chunk, torch.int64, model.device)
+    if chunk.shape[0] != 1:
+        raise ValueError(
+            f"prefill_chunk prefills one request at a time, got batch "
+            f"{chunk.shape[0]}"
+        )
+    c = chunk.shape[1]
+    model(
+        chunk, positions=start + torch.arange(c, device=model.device),
+        cache=scratch, write_pos=start, head_impl="chunked",
+    )
+    return scratch
+
+
+def init_paged_cache(model: TransformerLM, n_pages: int, page_size: int,
+                     device="cuda"):
+    """Zero PAGED KV pools on `device`: per block {"k", "v"} of
+    (n_pages, page_size, heads, d_head).  Physical page 0 is the
+    reserved null page."""
+    if not model.decode:
+        raise ValueError("init_paged_cache needs a decode=True model")
+    if n_pages < 2 or page_size < 1:
+        raise ValueError(
+            f"paged cache needs n_pages >= 2 (page 0 is the null page) "
+            f"and page_size >= 1, got {n_pages}/{page_size}"
+        )
+    shape = (n_pages, page_size, model.heads, model.dim // model.heads)
+    return _kv_buffers(model, shape, device)
+
+
+def paged_scatter_row(cache, row, block_table, write_from: int):
+    """Scatter one row's contiguous (1, max_seq, ...) scratch into its
+    pool pages, in place: position p lands at slot p % page of physical
+    page block_table[p // page].  Positions below `write_from` (shared
+    prefix pages) and past the mapped view go to the null page 0, so an
+    admission never writes a shared page.  Generic over the leaves
+    (bf16 k/v and the int8 twin's value and scale pools).  Returns
+    `cache`."""
+    dev = cache[0]["k"].device
+    bt = _as(block_table, torch.int64, dev)
+    for pool_blk, row_blk in zip(cache, row):
+        for name, pool in pool_blk.items():
+            src = row_blk[name]
+            page = pool.shape[1]
+            max_seq = src.shape[1]
+            posn = torch.arange(max_seq, device=dev)
+            page_i = torch.clamp(posn // page, 0, bt.shape[0] - 1)
+            flat = torch.where(
+                (posn >= write_from) & (posn < bt.shape[0] * page),
+                bt[page_i] * page + posn % page,
+                0,
+            )
+            pool.view((-1,) + tuple(pool.shape[2:]))[flat] = src[0].to(
+                pool.dtype
+            )
+    return cache
+
+
+def paged_preload_scratch(cache, scratch, block_table, upto: int):  # hot-path
+    """Gather a row's prefix pages from the pool into positions
+    [0, upto) of its batch-1 contiguous scratch, in place (the
+    prefix-cache admission seam).  Returns the scratch."""
+    dev = cache[0]["k"].device
+    bt = _as(block_table, torch.int64, dev)
+    for pool_blk, scr_blk in zip(cache, scratch):
+        for name in ("k", "v"):
+            pool, scr = pool_blk[name], scr_blk[name]
+            view = pool[bt].reshape(
+                (1, bt.shape[0] * pool.shape[1]) + tuple(pool.shape[2:])
+            )
+            scr[:, :upto] = view[:, :upto]
+    return scratch
+
+
+@torch.no_grad()
+def paged_prefill_finish(  # hot-path
+    model: TransformerLM,
+    cache,
+    scratch,
+    chunk,
+    block_table,
+    start: int,
+    write_from: int,
+    prompt_len: int,
+    temperature,
+    generator: torch.Generator,
+    top_k=None,
+    top_p=None,
+):
+    """The final chunk of an admission: run it through the scratch,
+    sample tok0 from the last real prompt row (only that row pays the
+    vocab matmul), and scatter the scratch into the row's pool pages
+    from `write_from` on.  Returns (cache, tok0 (1,) int32)."""
+    if not model.decode:
+        raise ValueError("paged_prefill_finish needs a decode=True model")
+    chunk = _as(chunk, torch.int64, model.device)
+    if chunk.shape[0] != 1:
+        raise ValueError(
+            f"paged_prefill_finish admits one request at a time, got "
+            f"batch {chunk.shape[0]}"
+        )
+    c = chunk.shape[1]
+    hidden, head_k, head_b = model(
+        chunk, positions=start + torch.arange(c, device=model.device),
+        cache=scratch, write_pos=start, head_impl="chunked",
+    )
+    hidden_row = hidden[:, prompt_len - 1 - start]
+    tok0 = _sample(hidden_row @ head_k + head_b, temperature, generator,
+                   top_k, top_p)
+    paged_scatter_row(cache, scratch, block_table, write_from)
+    return cache, tok0
+
+
+@torch.no_grad()
+def paged_decode_step(  # hot-path
+    model: TransformerLM,
+    cache,
+    tok,
+    pos,
+    active,
+    block_tables,
+    temperature,
+    generator: torch.Generator,
+    top_k=None,
+    top_p=None,
+):
+    """Advance every active row one token over the paged pool.
+    Inactive rows clamp to position 0 AND get a zeroed block-table row
+    here, so their clamped write lands in the null page whatever the
+    scheduler staged (a stale table would write offset 0 of a prompt
+    page the prefix cache may share).  All tensors on the model's
+    device; block_tables int32.  Returns (cache, next_tok (B,) int32)."""
+    if not model.decode:
+        raise ValueError("paged_decode_step needs a decode=True model")
+    pos = torch.where(active, pos, 0)
+    bt = torch.where(active[:, None], block_tables, 0)
+    page = cache[0]["k"].shape[1]
+    slots = torch.arange(bt.shape[1] * page, device=pos.device)
+    kv_mask = slots[None, :] <= pos[:, None]
+    logits = model(
+        tok[:, None], positions=pos[:, None], cache=cache,
+        kv_mask=kv_mask, write_pos=pos, block_tables=bt,
+    )
+    nxt = _sample(logits[:, 0], temperature, generator, top_k, top_p)
+    return cache, nxt

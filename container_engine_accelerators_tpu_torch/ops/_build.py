@@ -1,0 +1,135 @@
+"""Build and bind the hand-written CUDA kernels (csrc/*.cu).
+
+Each source compiles with nvcc into its own shared library with a
+plain C interface, at first use, into `_kernels_build/` beside the
+package (listed in .gitignore).  The library's file name carries a
+hash of the source and the flags, so an edited source rebuilds and an
+unchanged one loads from disk.  `build_all()` starts one nvcc per
+source together and waits for all of them, so a cold start costs the
+slowest compile, not the sum.
+
+Binding is ctypes: pointers and the CUDA stream pass as c_void_p, ints
+as c_int, and every entry point returns cudaGetLastError() (checked by
+`check`).  Nothing here runs at import: the CPU tests import every
+module, and this box has neither nvcc nor a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_kernels_build")
+CUDA_HOME = "/usr/local/cuda"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures, one entry point per source.
+SIGNATURES = {
+    "paged_attention": (
+        "cea_paged_attention",
+        [_P] * 9 + [_I] * 8 + [_P],
+    ),
+    "quant_matmul": (
+        "cea_int8_matmul",
+        [_P] * 5 + [_I] * 6 + [_P],
+    ),
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, object] = {}  # name -> bound C entry point
+
+
+def nvcc() -> str:
+    """Path of nvcc; raises when the CUDA toolkit is absent."""
+    path = shutil.which("nvcc") or os.path.join(CUDA_HOME, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels build only where the CUDA "
+            "toolkit is installed"
+        )
+    return path
+
+
+def _target(name: str) -> str:
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
+
+
+def _compile_cmd(name: str, out: str):
+    return [nvcc(), *NVCC_FLAGS, "-o", out, os.path.join(CSRC, f"{name}.cu")]
+
+
+def build_all() -> float:
+    """Compile every missing library, one nvcc per source, all started
+    together.  Returns the wall seconds spent (0.0 when all were
+    cached).  Raises with nvcc's output on a failed compile."""
+    t0 = time.monotonic()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = []
+    for name in SIGNATURES:
+        out = _target(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        procs.append((name, out, tmp, subprocess.Popen(
+            _compile_cmd(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+        )))
+    errors = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return time.monotonic() - t0 if procs else 0.0
+
+
+def load(name: str):
+    """The bound C entry point of csrc/<name>.cu, building it first if
+    needed.  Bound once per process: later calls are one dict lookup."""
+    fn = _libs.get(name)
+    if fn is not None:
+        return fn
+    with _lock:
+        fn = _libs.get(name)
+        if fn is None:
+            if not os.path.exists(_target(name)):
+                build_all()
+            sym, argtypes = SIGNATURES[name]
+            fn = getattr(ctypes.CDLL(_target(name)), sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[name] = fn
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device, read once."""
+    import torch
+
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a C entry point reported a launch error."""
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed (code {rc})")

@@ -1,0 +1,1426 @@
+"""Continuous-batching decode engine on PyTorch: the port of
+container_engine_accelerators_tpu/serving/engine.py on its default
+path — the paged KV pool with the radix prefix cache, chunked prefill,
+and single-token decode steps, for the bf16 engine (quant=False) and
+the int8 weight + int8 KV engine (quant=True), with the one-step lag
+window (pipeline=True) or synchronous commits (pipeline=False).
+
+One engine owns a persistent decode batch of `n_slots` rows and a
+scheduler thread that, every iteration, advances admission by at most
+one prefill chunk and runs one pipeline turn: DISPATCH decode step N+1
+while step N's sampled tokens are still on the device (the in-flight
+device token array feeds straight back in through the `over` merge, so
+dispatch never reads anything back), then COMMIT step N at the one
+designed readback, `_commit_pending`.  Rows retire at commit
+(max_new, stop token, cancel) and free their slot and pages at once.
+
+The paged pool (serving/kvpool.py) maps each row's logical positions to
+physical pages through a per-row block table; the radix prefix cache
+(serving/prefix_cache.py) shares matched prompt pages by reference and
+adopts a partially matched page copy-on-write, so a divergent
+continuation never writes a page another row reads.  Decode attention
+walks the block tables in the paged-attention kernel and the int8
+engine's projections run through the int8 matmul kernel (ops/).
+
+Differences of idiom from the reference:
+  - every device seam updates the cache IN PLACE (the reference donates
+    and replaces it), so there is no donated-buffer loss to detect;
+  - host staging is double-buffered in pinned memory on the card and
+    copied with non_blocking=True: a set is rewritten only after the
+    step that read it has been committed, and the commit readback
+    waited for that step, copy included;
+  - a torch.Generator on the engine's device replaces the rng key; a
+    retried step draws fresh noise (greedy rows are unaffected).
+
+Options whose modules come in later slices raise NotImplementedError
+naming their ROADMAP item: paged=False (A2), mesh (A10), decode_steps
+> 1 (A5d), spec_k > 0 (A5e), host/disk KV tiers (A5f), observe=True
+(A5g).  With observe off the engine carries a null recorder.
+
+Failure semantics are the reference's: a failed admission fails only
+its ticket; a failed step retries with capped backoff, then fails the
+active rows (queued requests preserved) and crashes the scheduler for
+a supervisor (serving/supervisor.py) to revive with a fresh cache;
+`max_queue` bounds admission with QueueFullError.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import logging
+import threading
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..models import generate as G
+from ..models import quant_generate as QG
+from ..models.transformer import TransformerLM
+from . import kvpool
+from .errors import QueueFullError, StepFailure
+from .prefix_cache import RadixPrefixCache
+
+log = logging.getLogger(__name__)
+
+
+class _NullObservability:
+    """The engine's recorder while observability is off: every seam is
+    a no-op (the observe/otel port is ROADMAP A5g)."""
+
+    def attach_engine(self, engine):
+        pass
+
+    def admitted(self, seq, now):
+        pass
+
+    def chunk_done(self, seq, t0, t1, width, last):
+        pass
+
+    def first_token(self, seq, now):
+        pass
+
+    def token_committed(self, seq, now):
+        pass
+
+    def step_committed(self, n_rows, lag_s):
+        pass
+
+    def step_annotation(self, step_index):
+        return contextlib.nullcontext()
+
+    def retired(self, seq, now, reason="done"):
+        pass
+
+    def event(self, kind, **fields):
+        pass
+
+
+# state-machine: ticket field: state states: queued,admitted,streaming,done,failed terminal: done,failed
+class _Ticket:
+    """One submit() call: `rows` sequences that complete independently
+    (each retiring frees its slot) and resolve together.  `state` is
+    the lifecycle the fleet's re-route contract reads: queued ->
+    admitted -> streaming, with done and failed terminal; written under
+    the engine lock."""
+
+    __slots__ = (
+        "rows", "results", "done", "error", "cancelled",
+        "on_token_logged", "admitted_rows", "done_callbacks", "state",
+    )
+
+    def __init__(self, rows: int):
+        self.rows = rows
+        self.state = "queued"
+        self.results: List[Optional[list]] = [None] * rows
+        self.done = threading.Event()
+        self.error: Optional[BaseException] = None
+        self.cancelled = False
+        self.on_token_logged = False
+        self.admitted_rows = 0
+        self.done_callbacks: List[Callable[[], None]] = []
+
+    def resolve_fire(self) -> List[Callable[[], None]]:
+        """Detach the callbacks for firing (idempotent)."""
+        fired, self.done_callbacks = self.done_callbacks, []
+        return fired
+
+
+class SubmitHandle:
+    """The non-blocking half of submit(): wait(), cancel(),
+    cancel_if_queued(), `admitted` and add_done_callback(), as in the
+    reference."""
+
+    __slots__ = ("_engine", "_ticket")
+
+    def __init__(self, engine: "ContinuousBatchingEngine", ticket):
+        self._engine = engine
+        self._ticket = ticket
+
+    @property
+    def admitted(self) -> bool:
+        with self._engine._cv:
+            return self._ticket.admitted_rows > 0
+
+    @property
+    def rows(self) -> int:
+        return self._ticket.rows
+
+    @property
+    def error(self) -> Optional[BaseException]:
+        return self._ticket.error
+
+    def cancel(self, err: Optional[BaseException] = None) -> None:
+        """Withdraw the request (idempotent): queued rows are skipped at
+        admit, in-flight rows retire at the next commit boundary, and
+        wait() raises `err` (default RuntimeError)."""
+        self._engine._fail_ticket(
+            self._ticket, err or RuntimeError("request cancelled")
+        )
+
+    def cancel_if_queued(
+        self, err: Optional[BaseException] = None
+    ) -> bool:
+        """Withdraw only while no row has reached admission; atomic
+        against the admit pop.  Returns whether it cancelled."""
+        eng = self._engine
+        with eng._cv:
+            if self._ticket.admitted_rows:
+                return False
+            eng._fail_ticket(
+                self._ticket, err or RuntimeError("request cancelled")
+            )
+            return True
+
+    @property
+    def results(self) -> List[Optional[list]]:
+        return self._ticket.results
+
+    def add_done_callback(self, fn: Callable[[], None]) -> None:
+        """Fire fn() exactly once when the ticket resolves; fires on the
+        calling thread if it already has.  fn must be cheap and never
+        call back into the engine."""
+        t = self._ticket
+        with self._engine._cv:
+            t.done_callbacks.append(fn)
+        if t.done.is_set():
+            self._engine._fire_done_callbacks(t)
+
+    def wait(self, timeout: Optional[float] = None) -> List[list]:
+        """Block until every row retires; one token list per row.  On
+        timeout the request is cancelled and RuntimeError raises."""
+        t = self._ticket
+        if not t.done.wait(timeout=timeout):
+            t.cancelled = True
+            raise RuntimeError(
+                f"generation timed out after {timeout:.0f}s"
+            )
+        if t.error is not None:
+            raise t.error
+        return t.results
+
+
+class _Seq:
+    """One prompt row: the unit of slot occupancy."""
+
+    __slots__ = (
+        "ticket", "row_i", "prompt", "plen", "max_new", "temp",
+        "top_k", "top_p", "stop_token", "on_token", "tokens",
+        "next_tok", "pos", "page_refs", "page_wait",
+        "t_submit", "t_admit", "t_last_commit",
+    )
+
+    def __init__(self, ticket, row_i, prompt, max_new, temp, top_k,
+                 top_p, stop_token, on_token):
+        self.ticket = ticket
+        self.row_i = row_i
+        self.prompt = prompt  # np (plen,) int32
+        self.plen = int(prompt.shape[0])
+        self.max_new = int(max_new)
+        self.temp = float(temp)
+        self.top_k = top_k
+        self.top_p = top_p
+        self.stop_token = stop_token
+        self.on_token = on_token
+        self.tokens: list = []
+        self.next_tok = 0
+        self.pos = 0
+        # Pool-page references this row holds (shared prefix pages +
+        # private pages), released exactly once at retire/failure.
+        self.page_refs: list = []
+        # Optimistic page need recorded when admission requeued this
+        # row for lack of pages (0 = not waiting).
+        self.page_wait = 0
+        self.t_submit = time.monotonic()
+        self.t_admit = 0.0
+        self.t_last_commit = 0.0
+
+
+class _Pending:
+    """One dispatched-but-uncommitted decode step (the lag window): the
+    rows that rode it as (slot, seq, dispatched position) and the
+    still-in-flight device token array."""
+
+    __slots__ = ("rows", "nxt", "t_dispatch")
+
+    def __init__(self, rows, nxt, t_dispatch=0.0):
+        self.rows = rows
+        self.nxt = nxt
+        self.t_dispatch = t_dispatch
+
+
+class _Prefill:
+    """One in-progress chunked admission: the reserved slot, the
+    bucket-padded prompt, the (start, width) chunk plan, the batch-1
+    scratch cache, and the prefix-cache outcome (block-table row, the
+    page references it holds, resume/write boundaries)."""
+
+    __slots__ = ("seq", "slot", "padded", "plan", "pi", "scratch",
+                 "bt_row", "bt_pre", "write_from", "resume",
+                 "match_end", "donor", "shared_ids", "priv")
+
+    def __init__(self, seq, slot, padded, plan):
+        self.seq = seq
+        self.slot = slot
+        self.padded = padded  # np (1, p_bucket) int32
+        self.plan = plan      # [(start, width)] covering the prompt
+        self.pi = 0           # next plan index
+        self.scratch = None   # allocated lazily on the first chunk
+        self.bt_row = None    # np (pages_per_row,) int32
+        self.bt_pre = None    # preload variant (COW donor mapped in)
+        self.write_from = 0   # first position the finish scatter writes
+        self.resume = 0       # first position the chunk plan recomputes
+        self.match_end = 0    # prefix-cache matched tokens (preloaded)
+        self.donor = None     # COW donor page id (transient reference)
+        self.shared_ids: list = []  # shared prefix pages (row refs)
+        self.priv: list = []  # freshly allocated private pages
+
+
+class _StageSet:
+    """One set of host staging buffers for a dispatch: torch tensors
+    (pinned on the card, so the copy can be non_blocking) and numpy
+    views of the same memory for the scheduler to fill."""
+
+    def __init__(self, n_slots, pages_per_row, vocab, pin):
+        def mk(shape, dtype, fill):
+            return torch.full(shape, fill, dtype=dtype, pin_memory=pin)
+
+        self.t = {
+            "tok": mk((n_slots,), torch.int32, 0),
+            "pos": mk((n_slots,), torch.int32, 0),
+            "active": mk((n_slots,), torch.bool, False),
+            "temps": mk((n_slots,), torch.float32, 0.0),
+            "top_k": mk((n_slots,), torch.int32, vocab),
+            "top_p": mk((n_slots,), torch.float32, 1.0),
+            "over": mk((n_slots,), torch.bool, True),
+            "bt": mk((n_slots, pages_per_row), torch.int32, 0),
+        }
+        self.np = {k: v.numpy() for k, v in self.t.items()}
+
+    def to(self, device):
+        return {
+            k: v.to(device, non_blocking=True) for k, v in self.t.items()
+        }
+
+
+class ContinuousBatchingEngine:
+    """In-flight batching over a paged KV pool.
+
+    model: a decode=True TransformerLM (make_decoder) on `device`.
+    n_slots: resident decode batch size.  quant=True builds the int8
+    weight engine (int8 KV too with quant_kv, the default).
+    prompt_grid: smallest prompt bucket edge.  prefill_chunk:
+    chunked-prefill width (power of two, floored at the grid; 0 = one
+    chunk per admission).  pipeline: the one-step lag
+    window (False commits each step before the next dispatch — the
+    parity control).  page_size: tokens per page (power of two);
+    kv_pages: pool capacity in pages (default n_slots x pages per
+    max_seq row); prefix_cache: radix prefix reuse.  max_queue: bound on
+    queued prompt rows.  step_retries / retry_backoff_s /
+    retry_backoff_cap_s: transient step-failure absorption.  rng_seed
+    seeds the engine's sampling generator.  device: where the engine
+    runs (default the card; raises without one unless "cpu")."""
+
+    def __init__(
+        self,
+        model: TransformerLM,
+        n_slots: int,
+        *,
+        quant: bool = False,
+        quant_kv: bool = True,
+        mesh=None,
+        prompt_grid: int = 16,
+        prefill_chunk: int = 256,
+        pipeline: bool = True,
+        paged: bool = True,
+        page_size: int = 64,
+        kv_pages: Optional[int] = None,
+        prefix_cache: bool = True,
+        kv_host_bytes: int = 0,
+        kv_disk_dir: Optional[str] = None,
+        spec_k: int = 0,
+        decode_steps: int = 0,
+        rng_seed: int = 0,
+        max_queue: Optional[int] = None,
+        step_retries: int = 3,
+        retry_backoff_s: float = 0.05,
+        retry_backoff_cap_s: float = 2.0,
+        observe: bool = False,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        if not model.decode:
+            raise ValueError(
+                "ContinuousBatchingEngine needs a decode=True model "
+                "(make_decoder)"
+            )
+        if model.device != self.device:
+            raise ValueError(
+                f"model lives on {model.device}, engine on {self.device}"
+            )
+        if n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        for wanted, item in (
+            (not paged, "the contiguous-slot engine (paged=False), A2"),
+            (mesh is not None, "a device mesh, A10"),
+            (int(decode_steps) > 1, "fused multi-step decode, A5d"),
+            (int(spec_k) > 0, "speculative decoding, A5e"),
+            (int(kv_host_bytes) > 0 or kv_disk_dir,
+             "host/disk KV tiers, A5f"),
+            (observe, "serving observability, A5g"),
+        ):
+            if wanted:
+                raise NotImplementedError(
+                    f"{item.rsplit(', ', 1)[0]} is not ported yet "
+                    f"(ROADMAP {item.rsplit(', ', 1)[1]})"
+                )
+        self._model = model
+        self.n_slots = int(n_slots)
+        self.quant = bool(quant)
+        self._quant_kv = bool(quant_kv)
+        self._grid = max(1, int(prompt_grid))
+        self._pipeline = bool(pipeline)
+        chunk = int(prefill_chunk)
+        if chunk > 0:
+            # Power of two, floored at the grid: chunk edges tile the
+            # bucket ladder exactly.
+            edge = self._grid
+            while edge < chunk:
+                edge *= 2
+            chunk = edge
+        self._prefill_chunk = chunk
+        self._page = int(page_size)
+        if self._page < 1 or (self._page & (self._page - 1)):
+            raise ValueError(
+                f"page_size must be a power of two >= 1, got {page_size}"
+            )
+        self._pages_per_row = -(-model.max_seq // self._page)
+        total = (
+            int(kv_pages) if kv_pages
+            else self.n_slots * self._pages_per_row
+        )
+        if total < 1:
+            raise ValueError(f"kv_pages must be >= 1, got {kv_pages}")
+        self._pool = kvpool.PagePool(total)
+        self._prefix = RadixPrefixCache(self._page) if prefix_cache else None
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(rng_seed))
+        self._max_queue = max_queue
+        self._step_retries = max(0, int(step_retries))
+        self._retry_backoff_s = float(retry_backoff_s)
+        self._retry_backoff_cap_s = float(retry_backoff_cap_s)
+
+        # The device seams, as attributes so a fault injector can wrap
+        # them: the chunk seam (a non-final prefill chunk into the
+        # scratch), the final chunk (sample tok0, scatter the scratch
+        # into the row's pages), the decode step, and the prefix
+        # preload.  The int8 engine prefills through the model with
+        # DEQUANTIZED weights, so both engines run chunks on a float
+        # model.
+        self._prefill_chunk_fn = G.prefill_chunk
+        if self.quant:
+            self._qparams = QG.quantize_decode_params(model)
+            self._deq = QG.dequantize_decode_params(self._qparams, model)
+            qp, deq, heads = self._qparams, self._deq, model.heads
+
+            def prefill_fn(cache, scratch, chunk, bt, start, wfrom, plen,
+                           temp, gen, **kw):
+                return QG.quant_paged_prefill_finish(
+                    deq, qp, cache, scratch, chunk, bt, start, wfrom,
+                    plen, temp, gen, **kw
+                )
+
+            def decode_fn(cache, prev, tok, use, pos, act, bt, temp, gen,
+                          **kw):
+                return QG.quant_paged_engine_decode_step(
+                    qp, cache, torch.where(use, tok, prev), pos, act, bt,
+                    temp, gen, heads, **kw
+                )
+
+            self._preload_fn = QG.quant_paged_preload_scratch
+        else:
+            def prefill_fn(cache, scratch, chunk, bt, start, wfrom, plen,
+                           temp, gen, **kw):
+                return G.paged_prefill_finish(
+                    model, cache, scratch, chunk, bt, start, wfrom, plen,
+                    temp, gen, **kw
+                )
+
+            def decode_fn(cache, prev, tok, use, pos, act, bt, temp, gen,
+                          **kw):
+                return G.paged_decode_step(
+                    model, cache, torch.where(use, tok, prev), pos, act,
+                    bt, temp, gen, **kw
+                )
+
+            self._preload_fn = G.paged_preload_scratch
+        self._prefill_fn = prefill_fn
+        self._decode_fn = decode_fn
+        # The float model the chunk seam runs (dequantized for int8).
+        self._prefill_params = self._deq if self.quant else model
+        self._cache = self._build_cache()
+
+        self._cv = threading.Condition()
+        self._queue: "collections.deque[_Seq]" = collections.deque()  # guarded-by: _cv
+        self._slots: List[Optional[_Seq]] = [None] * self.n_slots  # guarded-by: _cv
+        # Canonical per-slot block tables (logical page -> physical
+        # page; 0 = the null page).  Written at admission finish,
+        # zeroed at retire and on every failure path; copied into the
+        # dispatch staging each step.
+        self._bt_master = np.zeros(  # guarded-by: _cv
+            (self.n_slots, self._pages_per_row), np.int32
+        )
+        self._pending: Optional[_Pending] = None  # guarded-by: _cv
+        self._prefilling: Optional[_Prefill] = None  # guarded-by: _cv
+        # Double-buffered host staging (module docstring): the set an
+        # in-flight step's copy reads is never rewritten before that
+        # step commits.  Scheduler-thread-private.
+        pin = self.device.type == "cuda"
+        self._stages = tuple(
+            _StageSet(self.n_slots, self._pages_per_row, model.vocab, pin)
+            for _ in range(2)
+        )
+        self._stage_i = 0
+        # The `prev` operand when no step is in flight: every row
+        # overrides it through the merge mask, only its shape matters.
+        self._last_nxt = self._zeros_tok()
+        self._closed = False  # guarded-by: _cv
+        self._dead: Optional[BaseException] = None  # guarded-by: _cv
+        # Crash handshake with serving/supervisor.py.
+        self._supervisor = None  # guarded-by: _cv
+        self._crashed = threading.Event()
+        self._crash_error: Optional[BaseException] = None  # guarded-by: _cv
+        self.stats = {  # guarded-by: _cv
+            "admitted": 0,
+            "retired": 0,
+            "prefill_chunks": 0,
+            "steps": 0,
+            "step_rows": 0,
+            "max_active": 0,
+            "queue_peak": 0,
+            "queue_rejected": 0,
+            "admit_failures": 0,
+            "step_retries": 0,
+            "step_failures": 0,
+            "rows_failed": 0,
+            "on_token_errors": 0,
+            "restarts": 0,
+            "prefix_hits": 0,
+            "prefix_misses": 0,
+            "prefix_hit_tokens": 0,
+            "prefix_lookup_tokens": 0,
+            "prefix_inserted_pages": 0,
+            "prefix_evictions": 0,
+            "cow_copies": 0,
+        }
+        self._obs = _NullObservability()
+        self._obs.attach_engine(self)
+        self._dispatch_count = 0
+        self._start_thread()
+
+    @property
+    def observability(self):
+        """The engine's recorder (the null recorder in this port)."""
+        return self._obs
+
+    def _zeros_tok(self):
+        return torch.zeros((self.n_slots,), dtype=torch.int32,
+                           device=self.device)
+
+    # -- public API ------------------------------------------------------
+    def submit(
+        self,
+        prompt,
+        max_new: int,
+        temperature: float = 0.0,
+        top_k=None,
+        top_p=None,
+        stop_token: Optional[int] = None,
+        timeout: Optional[float] = None,
+        on_token: Optional[Callable[[int, int], None]] = None,
+    ) -> List[list]:
+        """Blocking: enqueue one request ((rows, p_len) or (p_len,) int
+        prompt) and wait for every row to retire.  Returns one token
+        list per row: max_new tokens, or fewer when the row hit
+        `stop_token` (included last).  on_token(row, token) streams
+        committed tokens (one step behind dispatch under the lag
+        window).  On timeout the request is cancelled and RuntimeError
+        raises; QueueFullError when max_queue would overflow."""
+        return self.submit_nowait(
+            prompt, max_new, temperature, top_k=top_k, top_p=top_p,
+            stop_token=stop_token, on_token=on_token,
+        ).wait(timeout=timeout)
+
+    def submit_nowait(
+        self,
+        prompt,
+        max_new: int,
+        temperature: float = 0.0,
+        top_k=None,
+        top_p=None,
+        stop_token: Optional[int] = None,
+        on_token: Optional[Callable[[int, int], None]] = None,
+    ) -> SubmitHandle:
+        """Validate and enqueue; return a SubmitHandle."""
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.ndim == 1:
+            prompt = prompt[None]
+        if prompt.ndim != 2 or prompt.shape[0] < 1 or prompt.shape[1] < 1:
+            raise ValueError(
+                "prompt must be a non-empty (rows, p_len) int batch"
+            )
+        rows, p_len = prompt.shape
+        max_new = int(max_new)
+        if max_new < 1:
+            raise ValueError(f"max_new must be >= 1, got {max_new}")
+        if p_len + max_new > self._model.max_seq:
+            raise ValueError(
+                f"prompt ({p_len}) + max_new ({max_new}) exceeds the "
+                f"model's max_seq ({self._model.max_seq})"
+            )
+        if self._max_queue is not None and rows > self._max_queue:
+            raise ValueError(
+                f"batch rows ({rows}) exceed the admission queue bound "
+                f"({self._max_queue}); split the request or raise "
+                f"max_queue"
+            )
+        ticket = _Ticket(rows)
+        seqs = [
+            _Seq(ticket, i, prompt[i], max_new, temperature, top_k,
+                 top_p, stop_token, on_token)
+            for i in range(rows)
+        ]
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("engine is closed")
+            if self._dead is not None:
+                raise RuntimeError(
+                    f"engine failed permanently: {self._dead}"
+                )
+            if self._max_queue is not None:
+                queued = sum(
+                    1 for s in self._queue if not s.ticket.cancelled
+                )
+                if queued + rows > self._max_queue:
+                    self.stats["queue_rejected"] += 1
+                    raise QueueFullError(
+                        f"admission queue is full ({queued} queued "
+                        f"rows, bound {self._max_queue})"
+                    )
+            self._queue.extend(seqs)
+            self.stats["queue_peak"] = max(
+                self.stats["queue_peak"], len(self._queue)
+            )
+            self._cv.notify_all()
+        return SubmitHandle(self, ticket)
+
+    def snapshot(self) -> dict:
+        """Atomic copy of the counters plus queue/slot occupancy and the
+        pool gauges."""
+        with self._cv:
+            snap = dict(self.stats)
+            snap["active_rows"] = sum(
+                1 for s in self._slots if s is not None
+            )
+            snap["queue_depth"] = len(self._queue)
+        snap["kv_pages_total"] = self._pool.total
+        snap["kv_pages_in_use"] = self._pool.in_use
+        snap["prefix_cached_pages"] = (
+            self._prefix.page_count() if self._prefix else 0
+        )
+        return snap
+
+    @property
+    def queue_depth(self) -> int:
+        with self._cv:
+            return len(self._queue)
+
+    @property
+    def dead(self) -> Optional[BaseException]:
+        with self._cv:
+            return self._dead
+
+    @property
+    def crashed(self) -> bool:
+        return self._crashed.is_set()
+
+    def close(self):
+        """Stop the scheduler: queued and in-flight requests fail with
+        RuntimeError; later submits raise."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._thread.join(timeout=60)
+        if self._crashed.is_set() or not self._thread.is_alive():
+            self._fail_all(RuntimeError("engine closed"))
+            self._release_retained_prefixes()
+
+    @property
+    def active_rows(self) -> int:
+        with self._cv:
+            return sum(1 for s in self._slots if s is not None)
+
+    # -- supervision (serving/supervisor.py) -----------------------------
+    def attach_supervisor(self, supervisor) -> None:
+        with self._cv:
+            self._supervisor = supervisor
+
+    def revive(self) -> bool:
+        """Restart a crashed scheduler: active rows fail, the KV cache
+        is rebuilt, queued requests are preserved.  False when the
+        engine is closed or dead."""
+        with self._cv:
+            if self._closed or self._dead is not None:
+                return False
+            err = self._crash_error or RuntimeError(
+                "engine scheduler crashed"
+            )
+        self._fail_active_rows(err)
+        self._cache = self._build_cache()
+        self._reset_paged_state()
+        with self._cv:
+            self._crashed.clear()
+            self._crash_error = None
+            self.stats["restarts"] += 1
+            restarts = self.stats["restarts"]
+        log.warning(
+            "engine scheduler restarted (fresh cache, %d queued rows "
+            "preserved): %s", self.queue_depth, err,
+        )
+        self._obs.event("restart", n=restarts, err=repr(err)[:120])
+        self._start_thread()
+        return True
+
+    def kill(self, err: BaseException) -> None:
+        """Mark the engine permanently failed: everything queued or in
+        flight fails and later submits raise."""
+        with self._cv:
+            self._dead = err
+        self._obs.event("kill", err=repr(err)[:120])
+        self._fail_all(err)
+
+    # -- scheduler -------------------------------------------------------
+    def _build_cache(self):
+        """A fresh page pool (+ the reserved null page 0)."""
+        n_phys = self._pool.total + 1
+        if self.quant:
+            return QG.init_quant_paged_cache(
+                self._model, n_phys, self._page, quant_kv=self._quant_kv,
+                device=self.device,
+            )
+        return G.init_paged_cache(
+            self._model, n_phys, self._page, device=self.device
+        )
+
+    def _start_thread(self):
+        self._thread = threading.Thread(
+            target=self._loop, name="cb-engine", daemon=True
+        )
+        self._thread.start()
+
+    def _bucket(self, p_len: int) -> int:
+        """Powers of two from the grid, capped at max_seq."""
+        edge = self._grid
+        while edge < p_len:
+            edge *= 2
+        return min(edge, self._model.max_seq)
+
+    # -- paged-pool bookkeeping ------------------------------------------
+    # owns-pages
+    def _reset_paged_state(self):
+        """Host bookkeeping reset paired with every cache rebuild: after
+        it kv_pages_in_use == 0."""
+        self._pool.reset()
+        if self._prefix is not None:
+            self._prefix.clear()
+        with self._cv:
+            self._bt_master[:] = 0
+
+    # owns-pages
+    def _release_retained_prefixes(self):
+        """Give the trie's references back to the pool at close."""
+        if self._prefix is not None:
+            self._prefix.release_all(self._pool)
+
+    # owns-pages
+    def _release_seq_pages(self, seq):
+        """Drop a row's page references exactly once."""
+        with self._cv:
+            pages, seq.page_refs = seq.page_refs, []
+        for pid in pages:
+            self._pool.unref(pid)
+
+    # owns-pages
+    def _release_prefill(self, pf):
+        """Drop every page reference an in-progress admission holds."""
+        if pf.bt_row is None:
+            return
+        with self._cv:
+            shared, pf.shared_ids = pf.shared_ids, []
+            donor, pf.donor = pf.donor, None
+            priv, pf.priv = pf.priv, []
+        for pid in shared:
+            self._pool.unref(pid)
+        if donor is not None:
+            self._pool.unref(donor)
+        for pid in priv:
+            self._pool.unref(pid)
+
+    # owns-pages
+    def _alloc_private_pages(self, n):
+        """Allocate `n` pages, evicting LRU prefix pages under pressure;
+        None on exhaustion."""
+        if self._pool.free_count < n and self._prefix is not None:
+            released = self._prefix.evict_until(self._pool, n)
+            if released:
+                with self._cv:
+                    self.stats["prefix_evictions"] += released
+        try:
+            return self._pool.alloc(n)
+        except kvpool.PoolExhausted:
+            return None
+
+    def _loop(self):
+        torch.set_grad_enabled(False)  # thread-local: inference only
+        try:
+            while True:
+                with self._cv:
+                    while (
+                        not self._queue
+                        and self.active_rows == 0
+                        and self._pending is None
+                    ):
+                        if self._closed:
+                            return
+                        self._cv.wait()
+                    if self._closed:
+                        self._fail_all(RuntimeError("engine closed"))
+                        return
+                # One unit of admission work (at most one prefill
+                # chunk), then one pipeline turn.
+                self._admit()
+                self._step()
+        except Exception as e:  # pylint: disable=broad-except
+            self._on_crash(e)
+
+    def _on_crash(self, err):
+        """Unhandled scheduler failure: supervised, preserve the queue
+        and signal revive(); unsupervised, fail everything and mark the
+        engine dead."""
+        log.error("engine scheduler crashed: %r", err)
+        self._obs.event("crash", err=repr(err)[:120])
+        with self._cv:
+            self._crash_error = err
+            supervisor = self._supervisor
+        self._crashed.set()
+        if supervisor is None:
+            with self._cv:
+                self._dead = err
+            self._fail_all(err)
+
+    def _fail_ticket(self, ticket, err):
+        """Fail ONE request: queued rows are skipped at admit, active
+        rows retire at the next step boundary, the submitter wakes."""
+        with self._cv:
+            if ticket.state not in ("done", "failed"):
+                # transition: queued|admitted|streaming -> failed
+                ticket.state = "failed"
+        ticket.cancelled = True
+        if ticket.error is None:
+            ticket.error = err
+        ticket.done.set()
+        self._fire_done_callbacks(ticket)
+
+    def _fire_done_callbacks(self, ticket):
+        with self._cv:
+            fired = ticket.resolve_fire()
+        for cb in fired:
+            try:
+                cb()
+            except Exception:  # pylint: disable=broad-except
+                log.exception("submit done-callback failed")
+
+    def _drain_pending(self):
+        """Flush the lag window WITHOUT committing (failure paths):
+        wait for the in-flight step so nothing outlives a rebuild, and
+        reset `prev` so a poisoned output never feeds a later step."""
+        with self._cv:
+            pending, self._pending = self._pending, None
+        self._last_nxt = self._zeros_tok()
+        if pending is None:
+            return
+        try:
+            pending.nxt.cpu()
+        except Exception:  # pylint: disable=broad-except
+            pass  # the step died with the failure being handled
+
+    def _fail_active_rows(self, err) -> int:
+        """Retire every active row as failed (device state lost);
+        queued requests are untouched.  Drains the lag window first."""
+        self._drain_pending()
+        with self._cv:
+            pf, self._prefilling = self._prefilling, None
+            seqs = [s for s in self._slots if s is not None]
+            self._slots = [None] * self.n_slots
+            self._bt_master[:] = 0
+            self.stats["rows_failed"] += len(seqs)
+            self._cv.notify_all()
+        if pf is not None:
+            self._release_prefill(pf)
+        now = time.monotonic()
+        for s in seqs:
+            self._release_seq_pages(s)
+            self._obs.retired(s, now, reason="failed")
+        for t in {id(s.ticket): s.ticket for s in seqs}.values():
+            self._fail_ticket(t, err)
+        return len(seqs)
+
+    def _fail_all(self, err):
+        self._drain_pending()
+        with self._cv:
+            pf, self._prefilling = self._prefilling, None
+            seqs = [s for s in self._slots if s is not None]
+            seqs.extend(self._queue)
+            self._queue.clear()
+            self._slots = [None] * self.n_slots
+            self._bt_master[:] = 0
+        if pf is not None:
+            self._release_prefill(pf)
+        for s in seqs:
+            self._release_seq_pages(s)
+        for t in {id(s.ticket): s.ticket for s in seqs}.values():
+            self._fail_ticket(t, err)
+
+    def _plan_chunks(self, p_bucket: int, p_len: int,
+                     resume: int = 0) -> List[tuple]:
+        """(start, width) chunk plan covering [resume, >= p_len): the
+        last chunk contains the sampling row, the bucket tail past it is
+        skipped, and widths follow the buddy rule (largest power of two
+        dividing the start, capped at prefill_chunk)."""
+        c = self._prefill_chunk
+        if c <= 0:
+            return [(0, p_bucket)]
+        pos = resume
+        out = []
+        while pos < p_len:
+            if pos == 0:
+                w = min(c, p_bucket)
+            else:
+                w = min(pos & -pos, c, p_bucket - pos)
+            out.append((pos, w))
+            pos += w
+        return out
+
+    def _match_prefix(self, seq):
+        """Prefix-cache lookup: (shared_ids, donor, match_end, resume,
+        write_from) — see the reference's _match_prefix."""
+        page = self._page
+        if (
+            self._prefix is None
+            or self._prefill_chunk <= 0
+            or seq.plen < page
+        ):
+            return [], None, 0, 0, 0
+        full_ids, partial = self._prefix.match(seq.prompt[: seq.plen])
+        match_end = len(full_ids) * page + (partial[1] if partial else 0)
+        donor = None
+        shared_full = match_end // page
+        if match_end % page:
+            resume_cand = (
+                min(match_end, seq.plen - 1) // self._grid
+            ) * self._grid
+            if partial is not None and resume_cand > shared_full * page:
+                # Worth adopting copy-on-write: the copy skips real
+                # prefill compute.
+                donor = partial[0]
+            else:
+                match_end = shared_full * page  # drop the partial
+        shared_full = match_end // page
+        resume = 0
+        if match_end:
+            resume = (
+                min(match_end, seq.plen - 1) // self._grid
+            ) * self._grid
+        return (
+            full_ids[:shared_full], donor, match_end, resume,
+            shared_full * page,
+        )
+
+    # owns-pages
+    def _start_admission(self, seq, free) -> Optional[_Prefill]:
+        """Build the _Prefill for a newly popped request: bucketing,
+        prefix match, page allocation (evicting under pressure),
+        block-table construction.  None when the request cannot get
+        pages YET (requeued at the front) or EVER (ticket failed)."""
+        p_bucket = self._bucket(seq.plen)
+        padded = np.zeros((1, p_bucket), np.int32)
+        padded[0, : seq.plen] = seq.prompt
+        page = self._page
+        last_page = min(
+            (seq.plen + seq.max_new - 1) // page,
+            self._pages_per_row - 1,
+        )
+        trie_pages = (
+            self._prefix.page_count() if self._prefix is not None else 0
+        )
+        if (
+            seq.page_wait
+            and self._pool.free_count + trie_pages < seq.page_wait
+        ):
+            # A page-starved requeued head whose need nothing has moved
+            # yet: skip the re-match while something can still free.
+            with self._cv:
+                others = any(
+                    s is not None and s is not seq for s in self._slots
+                )
+                can_wait = others or self._pending is not None
+                if can_wait:
+                    self._queue.appendleft(seq)
+                    if self._slots[free] is seq:
+                        self._slots[free] = None
+                    self._cv.notify_all()
+            if can_wait:
+                return None
+        shared_ids, donor, match_end, resume, write_from = (
+            self._match_prefix(seq)
+        )
+        priv = None
+        for attempt in (0, 1):
+            if attempt == 1:
+                # Retry unshared before judging the request unadmittable:
+                # our own references may pin the pages we need.
+                if not shared_ids and donor is None:
+                    break
+                shared_ids, donor = [], None
+                match_end = resume = write_from = 0
+            # Reference the matched pages BEFORE any eviction can run.
+            for pid in shared_ids:
+                self._pool.ref(pid)
+            if donor is not None:
+                self._pool.ref(donor)
+            n_priv = last_page + 1 - len(shared_ids)
+            priv = self._alloc_private_pages(n_priv)
+            if priv is not None:
+                break
+            for pid in shared_ids:
+                self._pool.unref(pid)
+            if donor is not None:
+                self._pool.unref(donor)
+        shared_full = len(shared_ids)
+        if priv is None:
+            with self._cv:
+                others = sum(
+                    1 for s in self._slots
+                    if s is not None and s is not seq
+                )
+                waiting = others > 0 or self._pending is not None
+                if waiting:
+                    seq.page_wait = max(1, n_priv)
+                    self._queue.appendleft(seq)
+                if self._slots[free] is seq:
+                    self._slots[free] = None
+                self._cv.notify_all()
+            if not waiting:
+                err = RuntimeError(
+                    f"request needs {last_page + 1} KV pages but the "
+                    f"pool holds {self._pool.total} (free "
+                    f"{self._pool.free_count}); raise kv_pages or "
+                    f"shorten the request"
+                )
+                log.error("admission failed: %s", err)
+                self._fail_ticket(seq.ticket, err)
+            return None
+        seq.page_wait = 0
+        bt = np.zeros((self._pages_per_row,), np.int32)
+        bt[:shared_full] = shared_ids
+        bt[shared_full:last_page + 1] = priv
+        pf = _Prefill(
+            seq, free, padded,
+            self._plan_chunks(p_bucket, seq.plen, resume=resume),
+        )
+        pf.bt_row = bt
+        # Preload reads THROUGH the donor; the finish scatter writes the
+        # fresh private page at the same logical index.
+        pf.bt_pre = bt
+        if donor is not None:
+            pf.bt_pre = bt.copy()
+            pf.bt_pre[shared_full] = donor
+        pf.write_from = write_from
+        pf.resume = resume
+        pf.match_end = match_end
+        pf.donor = donor
+        pf.shared_ids = list(shared_ids)
+        pf.priv = list(priv)
+        with self._cv:
+            if self._prefix is not None:
+                self.stats["prefix_lookup_tokens"] += seq.plen
+                self.stats["prefix_hit_tokens"] += match_end
+                if match_end:
+                    self.stats["prefix_hits"] += 1
+                else:
+                    self.stats["prefix_misses"] += 1
+                if donor is not None:
+                    self.stats["cow_copies"] += 1
+        return pf
+
+    # owns-pages
+    def _admit(self):
+        """Advance admission by ONE unit of prefill work (at most one
+        chunk).  Non-final chunks touch only the scratch; the final
+        chunk samples tok0 and scatters into the row's pages.  A failed
+        prefill fails only its ticket."""
+        with self._cv:
+            pf = self._prefilling
+            seq = free = None
+            if pf is None:
+                free = next(
+                    (i for i, s in enumerate(self._slots) if s is None),
+                    None,
+                )
+                if free is not None:
+                    while self._queue:
+                        cand = self._queue.popleft()
+                        if cand.ticket.cancelled:
+                            continue
+                        seq = cand
+                        self._slots[free] = seq  # reserve before device work
+                        seq.ticket.admitted_rows += 1
+                        if seq.ticket.state == "queued":
+                            # transition: queued -> admitted
+                            seq.ticket.state = "admitted"
+                        break
+        if pf is None:
+            if seq is None:
+                return
+            pf = self._start_admission(seq, free)
+            if pf is None:
+                return
+            with self._cv:
+                self._prefilling = pf
+            seq.t_admit = time.monotonic()
+            self._obs.admitted(seq, seq.t_admit)
+        seq = pf.seq
+        if seq.ticket.cancelled:
+            with self._cv:
+                self._prefilling = None
+                if self._slots[pf.slot] is seq:
+                    self._slots[pf.slot] = None
+                self._cv.notify_all()
+            self._release_prefill(pf)
+            self._obs.retired(seq, time.monotonic(), reason="cancelled")
+            return
+        start, width = pf.plan[pf.pi]
+        last = pf.pi == len(pf.plan) - 1
+        chunk = torch.from_numpy(pf.padded[:, start: start + width]).to(
+            self.device
+        )
+        t_chunk = time.monotonic()
+        try:
+            if pf.scratch is None:
+                pf.scratch = G.init_decode_cache(
+                    self._prefill_params, 1, device=self.device
+                )
+                if pf.resume > 0:
+                    # Prefix preload: the matched pages' KV into the
+                    # scratch, so resumed chunks attend over them.
+                    pf.scratch = self._preload_fn(
+                        self._cache, pf.scratch, pf.bt_pre, pf.match_end
+                    )
+            if not last:
+                pf.scratch = self._prefill_chunk_fn(
+                    self._prefill_params, pf.scratch, chunk, start
+                )
+                pf.pi += 1
+                with self._cv:
+                    self.stats["prefill_chunks"] += 1
+                self._obs.chunk_done(
+                    seq, t_chunk, time.monotonic(), width, last=False
+                )
+                return
+            kwargs = {}
+            if seq.top_k is not None:
+                kwargs["top_k"] = int(seq.top_k)
+            if seq.top_p is not None:
+                kwargs["top_p"] = float(seq.top_p)
+            self._cache, tok0 = self._prefill_fn(
+                self._cache, pf.scratch, chunk, pf.bt_row, start,
+                pf.write_from, seq.plen, seq.temp, self._gen, **kwargs,
+            )
+            pf.scratch = None
+            tok0 = int(tok0[0])
+        except Exception as e:  # pylint: disable=broad-except
+            with self._cv:
+                self._prefilling = None
+                if self._slots[pf.slot] is seq:
+                    self._slots[pf.slot] = None
+                self.stats["admit_failures"] += 1
+                self._cv.notify_all()
+            self._release_prefill(pf)
+            self._obs.event("admit_fail", err=repr(e)[:120])
+            log.error(
+                "admit failed for request row %d at prefill chunk "
+                "%d/%d (only its ticket fails; %d rows in flight "
+                "continue): %s",
+                seq.row_i, pf.pi + 1, len(pf.plan), self.active_rows, e,
+            )
+            self._obs.retired(seq, time.monotonic(), reason="admit_failed")
+            self._fail_ticket(seq.ticket, e)
+            return
+        donor = None
+        with self._cv:
+            self._prefilling = None
+            self.stats["admitted"] += 1
+            self.stats["prefill_chunks"] += 1
+            self.stats["max_active"] = max(
+                self.stats["max_active"], self.active_rows
+            )
+            alive = self._slots[pf.slot] is seq
+            if alive:
+                # The row owns its page references now; publishing the
+                # block table makes it dispatchable.
+                seq.page_refs = pf.shared_ids + pf.priv
+                pf.shared_ids, pf.priv = [], []
+                donor, pf.donor = pf.donor, None
+                self._bt_master[pf.slot] = pf.bt_row
+        if donor is not None:
+            self._pool.unref(donor)
+        if not alive:
+            self._release_prefill(pf)
+        elif self._prefix is not None:
+            # Retain the prompt's full pages for later admissions.
+            n_full = seq.plen // self._page
+            if n_full:
+                adopted = self._prefix.insert(
+                    seq.prompt[: n_full * self._page],
+                    [int(p) for p in pf.bt_row[:n_full]],
+                    self._pool,
+                )
+                if adopted:
+                    with self._cv:
+                        self.stats["prefix_inserted_pages"] += adopted
+        self._obs.chunk_done(seq, t_chunk, time.monotonic(), width,
+                             last=True)
+        if alive:
+            self._commit(pf.slot, seq, tok0, first=True)
+
+    def _commit(self, slot: int, seq: _Seq, token: int, first=False,
+                now: Optional[float] = None):
+        """Append one generated token to a row; retire when done."""
+        if now is None:
+            now = time.monotonic()
+        seq.tokens.append(token)
+        if first:
+            seq.pos = seq.plen
+            with self._cv:
+                if seq.ticket.state == "admitted":
+                    # transition: admitted -> streaming
+                    seq.ticket.state = "streaming"
+            self._obs.first_token(seq, now)
+        else:
+            seq.pos += 1
+            self._obs.token_committed(seq, now)
+        seq.t_last_commit = now
+        seq.next_tok = token
+        if seq.on_token is not None:
+            try:
+                seq.on_token(seq.row_i, token)
+            except Exception as e:  # pylint: disable=broad-except
+                with self._cv:
+                    self.stats["on_token_errors"] += 1
+                if not seq.ticket.on_token_logged:
+                    seq.ticket.on_token_logged = True
+                    log.warning(
+                        "on_token observer raised for row %d (logged "
+                        "once per request; generation continues): %r",
+                        seq.row_i, e,
+                    )
+        if seq.ticket.cancelled:
+            self._retire(slot, seq, reason="cancelled")
+        elif seq.stop_token is not None and token == seq.stop_token:
+            self._retire(slot, seq, reason="stop")
+        elif len(seq.tokens) >= seq.max_new:
+            self._retire(slot, seq, reason="done")
+
+    def _retire(self, slot: int, seq: _Seq, reason: str = "done"):
+        t = seq.ticket
+        with self._cv:
+            self._slots[slot] = None
+            # A stale block table would route the inactive row's
+            # clamped write into someone else's page.
+            self._bt_master[slot] = 0
+            self.stats["retired"] += 1
+            t.results[seq.row_i] = seq.tokens
+            done = all(r is not None for r in t.results)
+            if done and t.state in ("admitted", "streaming"):
+                # transition: admitted|streaming -> done
+                t.state = "done"
+            self._cv.notify_all()
+        self._release_seq_pages(seq)
+        self._obs.retired(seq, time.monotonic(), reason=reason)
+        if done:
+            t.done.set()
+            self._fire_done_callbacks(t)
+
+    def _step(self):  # hot-path
+        """One pipeline turn: DISPATCH the next decode step while the
+        previous step's tokens are in flight, then COMMIT the previous
+        step.  Rows continuing from the lag window take their input from
+        the in-flight device array; fresh rows override it through the
+        merge mask.  A failed dispatch retries with capped backoff;
+        exhausted retries drain the window, fail only the active rows
+        and crash the scheduler for a supervised revival."""
+        self._stage_i ^= 1
+        st = self._stages[self._stage_i]
+        s = st.np
+        s["tok"].fill(0)
+        s["pos"].fill(0)
+        s["active"].fill(False)
+        s["temps"].fill(0.0)
+        s["top_k"].fill(self._model.vocab)
+        s["top_p"].fill(1.0)
+        s["over"].fill(True)
+        adv = False
+        live = []
+        with self._cv:
+            occupants = list(enumerate(self._slots))
+            pending = self._pending
+            np.copyto(s["bt"], self._bt_master)
+        in_flight = {}
+        if pending is not None:
+            in_flight = {i: (q, d) for i, q, d in pending.rows}
+        for i, seq in occupants:
+            if seq is None:
+                continue
+            fly = in_flight.get(i)
+            flying = fly is not None and fly[0] is seq
+            if seq.ticket.cancelled:
+                if not flying:
+                    self._retire(i, seq, reason="cancelled")
+                continue
+            if flying:
+                if len(seq.tokens) + 1 >= seq.max_new:
+                    continue  # the in-flight token is this row's last
+                p = fly[1] + 1
+                s["pos"][i] = p
+                s["over"][i] = False
+            else:
+                if not seq.tokens or len(seq.tokens) >= seq.max_new:
+                    continue  # mid-prefill, or finished not retired
+                p = seq.pos
+                s["tok"][i] = seq.next_tok
+                s["pos"][i] = p
+            live.append((i, seq, p))
+            s["active"][i] = True
+            s["temps"][i] = seq.temp
+            if seq.top_k is not None:
+                s["top_k"][i] = seq.top_k
+                adv = True
+            if seq.top_p is not None:
+                s["top_p"][i] = seq.top_p
+                adv = True
+        if not live and pending is None:
+            return
+        new_pending = None
+        if live:
+            d = st.to(self.device)
+            kwargs = {"top_k": d["top_k"], "top_p": d["top_p"]} if adv else {}
+            prev = pending.nxt if pending is not None else self._last_nxt
+            delay = self._retry_backoff_s
+            attempt = 0
+            self._dispatch_count += 1
+            while True:
+                try:
+                    with self._obs.step_annotation(self._dispatch_count):
+                        self._cache, nxt = self._decode_fn(
+                            self._cache, prev, d["tok"], d["over"],
+                            d["pos"], d["active"], d["bt"], d["temps"],
+                            self._gen, **kwargs,
+                        )
+                    self._last_nxt = nxt
+                    break
+                except Exception as e:  # pylint: disable=broad-except
+                    attempt += 1
+                    if attempt > self._step_retries:
+                        failure = StepFailure(
+                            f"decode_step failed after {attempt - 1} "
+                            f"retries: {e}"
+                        )
+                        failure.__cause__ = e
+                        with self._cv:
+                            self.stats["step_failures"] += 1
+                        self._obs.event(
+                            "step_fail", attempts=attempt,
+                            err=repr(e)[:120],
+                        )
+                        n = self._fail_active_rows(failure)
+                        log.error(
+                            "persistent decode_step failure: %d active "
+                            "row(s) failed, %d queued row(s) "
+                            "preserved: %s",
+                            n, self.queue_depth, e,
+                        )
+                        raise failure
+                    with self._cv:
+                        self.stats["step_retries"] += 1
+                    log.warning(
+                        "decode_step failed (attempt %d/%d), retrying "
+                        "in %.3fs: %r",
+                        attempt, self._step_retries, delay, e,
+                    )
+                    time.sleep(delay)
+                    delay = min(delay * 2.0, self._retry_backoff_cap_s)
+            new_pending = _Pending(live, nxt, time.monotonic())
+        with self._cv:
+            self._pending = new_pending
+        if pending is not None:
+            self._commit_pending(pending)
+        if new_pending is not None and not self._pipeline:
+            # Synchronous mode (the parity control).
+            with self._cv:
+                self._pending = None
+            self._commit_pending(new_pending)
+
+    def _commit_pending(self, pending):  # hot-path
+        """Commit one lagged step: the decode loop's ONE readback.  A
+        failure here is a device-side failure of the dispatched step:
+        the active rows fail."""
+        try:
+            nxt = pending.nxt.cpu().numpy()
+        except Exception as e:  # pylint: disable=broad-except
+            failure = StepFailure(
+                f"decode_step failed in flight (commit-side "
+                f"readback): {e}"
+            )
+            failure.__cause__ = e
+            with self._cv:
+                self.stats["step_failures"] += 1
+            self._obs.event(
+                "step_fail", at="commit_readback", err=repr(e)[:120],
+            )
+            n = self._fail_active_rows(failure)
+            log.error(
+                "in-flight decode step failed at commit: %d active "
+                "row(s) failed, %d queued row(s) preserved: %s",
+                n, self.queue_depth, e,
+            )
+            raise failure
+        now = time.monotonic()
+        with self._cv:
+            self.stats["steps"] += 1
+            self.stats["step_rows"] += len(pending.rows)
+            # A row failed or retired-and-refilled inside the window
+            # must not receive this token.
+            survivors = [
+                (i, seq) for i, seq, _ in pending.rows
+                if self._slots[i] is seq
+            ]
+        self._obs.step_committed(
+            len(pending.rows), now - pending.t_dispatch
+        )
+        for i, seq in survivors:
+            self._commit(i, seq, int(nxt[i]), now=now)
