@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path — paged LM serving decode — on one
-NVIDIA H100, and hold every kernel on that path against its plain
-PyTorch version.
+"""Drive the PyTorch port's main paths — paged LM serving decode, and
+single-card LM training — on one NVIDIA H100, and hold every kernel on
+those paths against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -20,7 +20,25 @@ Phases, one JSON line each (stdout):
                 random weights: 8 greedy requests (two sharing a
                 512-token prefix) through the paged prefix-cached
                 lag-window engine, launch counters read around each run,
-                tokens checked against the port's solo oracle.
+                tokens checked against the port's solo oracle;
+  5. train_kernels — flash attention forward and backward at (8, 2048,
+                8, 128) bf16, q / k / v the strided views of one qkv
+                projection, and the fused cross-entropy forward and
+                backward at 16384 x 32000 f32 (and at 64 rows in f32 and
+                bf16, C 1000 and 32000), each against its plain version
+                (and its autograd), flash per 16-row tile with a planted
+                fault that must fail the check, timed beside the plain
+                version and SDPA / F.cross_entropy;
+  6. train    — lm_main's full default width (vocab 32000, dim 1024,
+                depth 8, heads 8, seq 2048, batch 8, lr 3e-4), seeded
+                weights: one step of the kernel path against the plain
+                path (the loss and every gradient), then 20 steps on one
+                batch (the loss finite and falling, launch counters read
+                around them: 8 + 8 flash and 1 + 1 xent per step), step
+                time, tokens/s, the model-FLOPs share of peak, a 3-step
+                profile and the f32 head's share of the step; then the
+                command-line trainer (lm_main) at its defaults for a
+                warm-up step and 3 logged steps.
 Then the card's name and power limit (nvidia-smi), the kernels record,
 and last the contract line {"ok": true, "device": {...}}.  Any failed
 check raises: the script exits non-zero and prints no result.  Without a
@@ -360,49 +378,67 @@ def oracle_logits(torch, model, prompt, tokens, quant, qparams, deq):
     return torch.cat(out, dim=0)
 
 
-def profile_window(torch, eng, gen):
-    """Device busy share and the top kernels over a decode-dominated
-    window (16 rows, 64-token prompts, 32 new tokens) under
-    torch.profiler.  Only starting the profiler is guarded: where it
-    cannot start, or records no device activity, the share reads "not
-    measured".  The requests themselves run unguarded, and each must
-    return its 32 tokens."""
+def device_profile(torch, fn, top=6):
+    """Run fn() under torch.profiler and return the device busy share
+    (device kernel time over the window's wall time) and the top
+    kernels.  Only starting the profiler is guarded: where it cannot
+    start, or records no device activity, the share reads "not
+    measured".  fn itself runs unguarded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    prompts = torch.randint(0, CFG["vocab"], (N_SLOTS, 64), generator=gen)
-    d0 = eng._dispatch_count
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     try:
         prof.start()
     except RuntimeError as e:
         prof, why = None, repr(e)[:200]
     t0 = time.monotonic()
-    hs = [eng.submit_nowait(p, 32) for p in prompts.numpy()]
-    outs = [h.wait(timeout=900)[0] for h in hs]
+    fn()
     torch.cuda.synchronize()
     wall_us = (time.monotonic() - t0) * 1e6
-    assert all(len(o) == 32 for o in outs), [len(o) for o in outs]
     if prof is None:
         return {"device_busy_share": "not measured", "error": why}
     prof.stop()
-    by_name = {}
+    by_name, spans = {}, []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             us = e.time_range.elapsed_us()
             by_name[e.name] = by_name.get(e.name, 0.0) + us
-    busy = sum(by_name.values())
+            spans.append((e.time_range.start, e.time_range.end))
+    # Busy time is the union of the device spans, so that overlapping
+    # records are not counted twice.
+    busy, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
     if busy == 0:
         return {"device_busy_share": "not measured",
                 "error": "no device events recorded"}
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {
         "window_s": wall_us / 1e6,
-        "dispatches": eng._dispatch_count - d0,
         "device_busy_share": busy / wall_us,
         "device_ms": busy / 1e3,
-        "top_kernels_ms": [[name[:60], us / 1e3] for name, us in top],
+        "top_kernels_ms": [[name[:60], us / 1e3] for name, us in ranked],
     }
+
+
+def profile_window(torch, eng, gen):
+    """The profile over a decode-dominated window (16 rows, 64-token
+    prompts, 32 new tokens); each request must return its 32 tokens."""
+    prompts = torch.randint(0, CFG["vocab"], (N_SLOTS, 64), generator=gen)
+    d0 = eng._dispatch_count
+    outs = []
+
+    def window():
+        hs = [eng.submit_nowait(p, 32) for p in prompts.numpy()]
+        outs.extend(h.wait(timeout=900)[0] for h in hs)
+
+    rec = device_profile(torch, window)
+    assert all(len(o) == 32 for o in outs), [len(o) for o in outs]
+    rec["dispatches"] = eng._dispatch_count - d0
+    return rec
 
 
 def run_engine(torch, model, quant, gen_reqs):
@@ -519,6 +555,392 @@ def run_engine(torch, model, quant, gen_reqs):
     }, launches
 
 
+# -- phases 5-6: LM training -----------------------------------------------
+TRAIN = dict(vocab=32000, dim=1024, depth=8, heads=8, seq_len=2048,
+             batch=8, learning_rate=3e-4)
+TRAIN_STEPS = 20
+# Kernel vs plain tolerances.  Flash: the largest relative error of one
+# tile of FLASH_TILE rows (queries of O and dQ, keys of dK and dV; one
+# warp's rows in the kernels) over (rows, head dim), ||got - want|| /
+# ||want||, so that late rows, whose values are ~10x smaller than the
+# first rows', are held as tightly as early ones.  A tile and not a row:
+# single rows can be ill-conditioned (dQ of query 0 is 0 exactly, and
+# of query 1 a difference of two near-equal terms; dK of a late key can
+# be ~1e-5 of the mean), where the kernel's D from the bf16 O, as FA2
+# takes it, differs from the plain version's f32 sum by far more than
+# the row itself.  Each side rounds its result to bf16 once (~2**-9
+# relative) and the kernel also rounds P (and dS) to bf16 as MMA
+# operands.  The limit, under 1%, makes a 1% error on the late rows
+# fail, which the check shows on the kernel's own output.
+FLASH_TILE = 16
+FLASH_TILE_REL = 2.0 ** -7
+FLASH_PLANTED = 1.01  # the planted fault: rows past 512 scaled by this
+# Fused xent: the loss relative to max|loss| (f32 sums over C classes in
+# another order); the gradient element by element relative to itself
+# (softmax terms span many decades): f32 exp(x - lse) against the
+# autograd of logsumexp, or one bf16 rounding on each side.
+XENT_REL = 1e-5
+XENT_GRAD_REL = {"f32": 1e-4, "bf16": 2.0 ** -7}
+# One step of the kernel path (flash, fused loss) against the plain path
+# (dense attention, log_softmax loss) from one set of weights: the two
+# round bf16 activations at other points through 8 layers, so each
+# relative error may reach a few bf16 roundings (2**-8 each); a wrong
+# term in a kernel moves a gradient by O(1).
+TRAIN_LOSS_REL = 2.0 ** -9  # half a bf16 ulp of the mean loss
+TRAIN_GRAD_REL = 2.0 ** -5  # per parameter: |g - g_plain| / |g_plain|
+
+
+def finite(t) -> bool:
+    return bool(t.float().isfinite().all())
+
+
+def _tile_rel(got, want):
+    """Relative errors of (b, s, h, d) tensors per tile of FLASH_TILE
+    rows of one (batch, head), as a (b, s / FLASH_TILE, h) tensor."""
+    b, s, h, d = want.shape
+    sq = ((got.float() - want.float()).square(), want.float().square())
+    err, norm = (x.view(b, s // FLASH_TILE, FLASH_TILE, h, d).sum((2, 4))
+                 for x in sq)
+    return (err / norm).sqrt()
+
+
+def _flash_err(got, want, what):
+    """Readings of one flash output: max abs error, the largest per-tile
+    relative error and the first row of its tile, and the smallest and
+    largest per-tile relative error of a planted fault (the kernel's own
+    output with the rows past 512 scaled by FLASH_PLANTED); with the
+    reasons the check fails, if any: past FLASH_TILE_REL, or blind to
+    the planted fault."""
+    assert finite(got), f"non-finite {what}"
+    tiles = _tile_rel(got, want)
+    worst = int(tiles.flatten().argmax().item())
+    planted = got.clone()
+    planted[:, 512:] *= FLASH_PLANTED
+    caught = _tile_rel(planted, want)[:, 512 // FLASH_TILE:]
+    r = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
+         "tile_rel_err": tiles.max().item(),
+         "worst_tile_row": worst // tiles.shape[2] % tiles.shape[1]
+         * FLASH_TILE,
+         "planted_tile_rel": [caught.min().item(), caught.max().item()]}
+    faults = []
+    if r["tile_rel_err"] > FLASH_TILE_REL:
+        faults.append(f"{what}: tile rel err {r['tile_rel_err']}")
+    if r["planted_tile_rel"][1] <= FLASH_TILE_REL:
+        faults.append(f"{what}: a {FLASH_PLANTED}x fault past row 512 "
+                      "passes")
+    return r, faults
+
+
+def check_flash(torch, FA, timer, gen):
+    """Flash forward and backward at the LM's shapes (b 8, s 2048, h 8,
+    d 128, bf16) against the plain version and its autograd, with q, k,
+    v the strided views of one fused qkv projection, as the main path
+    gives them; times of the kernels, the plain version and SDPA."""
+    b, s, h = TRAIN["batch"], TRAIN["seq_len"], TRAIN["heads"]
+    d = TRAIN["dim"] // h
+    qkv = torch.randn((b, s, 3, h, d), device="cuda", generator=gen).to(
+        torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    dout = torch.randn((b, s, h, d), device="cuda", generator=gen).to(
+        torch.bfloat16)
+    out, lse = FA.flash_attention_fwd(q, k, v)
+    dq, dk, dv = FA.flash_attention_bwd(q, k, v, out, lse, dout)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    ref = FA.causal_attention_plain(*leaves)
+    ref_grads = torch.autograd.grad(ref, leaves, dout, retain_graph=True)
+    torch.cuda.synchronize()
+    fwd, faults = _flash_err(out, ref, "out")
+    bwd = {}
+    for got, want, what in zip((dq, dk, dv), ref_grads, ("dq", "dk", "dv")):
+        bwd[what], f = _flash_err(got, want, what)
+        faults += f
+    del ref_grads
+    if faults:
+        raise AssertionError(
+            f"flash: {faults} (limit {FLASH_TILE_REL}); readings {fwd} {bwd}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lq, lk, lv = (x.detach().transpose(1, 2).contiguous().requires_grad_(
+        True) for x in (q, k, v))
+    ldo = dout.transpose(1, 2).contiguous()
+    lib_out = sdpa(lq, lk, lv, is_causal=True)
+    with torch.no_grad():
+        fwd_t = {
+            "ms": timer.ms(lambda: FA.flash_attention_fwd(q, k, v)),
+            "plain_ms": timer.ms(
+                lambda: FA.causal_attention_plain(q, k, v), iters=10),
+            "library_ms": timer.ms(
+                lambda: sdpa(lq, lk, lv, is_causal=True)),
+        }
+    bwd_t = {
+        "ms": timer.ms(
+            lambda: FA.flash_attention_bwd(q, k, v, out, lse, dout)),
+        "plain_ms": timer.ms(lambda: torch.autograd.grad(
+            ref, leaves, dout, retain_graph=True), iters=10),
+        "library_ms": timer.ms(lambda: torch.autograd.grad(
+            lib_out, (lq, lk, lv), ldo, retain_graph=True)),
+    }
+    lib_fwd_bwd = timer.ms(lambda: torch.autograd.grad(
+        sdpa(lq, lk, lv, is_causal=True), (lq, lk, lv), ldo), iters=20)
+    n = b * s * h * d
+    pairs = b * h * s * (s + 1) / 2  # (query, key) pairs the mask keeps
+    fwd_ops = 4.0 * pairs * d  # Q K^T and P V
+    fwd_b, fwd_by = bound_ms(4 * n * 2 + b * h * s * 4, fwd_ops, "bf16")
+    # The backward's five products (S again, dP, dV, dK, dQ): 2.5x.
+    bwd_b, bwd_by = bound_ms(8 * n * 2 + b * h * s * 4, 2.5 * fwd_ops,
+                             "bf16")
+    common = {"shape_bshd": [b, s, h, d], "qkv": "strided views of "
+              "(b, s, 3, h, d)", "planted_fault": f"x{FLASH_PLANTED} on "
+              "rows past 512: the check fails"}
+    return [
+        {"name": "flash_attention_fwd", **fwd,
+         "tolerance_tile_rel": FLASH_TILE_REL, "tile_rows": FLASH_TILE,
+         "tolerance_reason": "the kernel rounds P to bf16 for P V, the "
+         "plain version keeps f32; both round O once",
+         "bound_ms": fwd_b, "bound_by": fwd_by, **fwd_t, **common},
+        {"name": "flash_attention_bwd",
+         "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
+         "grads": bwd, "tolerance_tile_rel": FLASH_TILE_REL,
+         "tile_rows": FLASH_TILE,
+         "tolerance_reason": "the kernel rounds P and dS to bf16 as MMA "
+         "operands and takes D from the bf16 O; the plain autograd keeps "
+         "f32 and rounds each gradient once",
+         "bound_ms": bwd_b, "bound_by": bwd_by, **bwd_t,
+         "library_fwd_bwd_ms": lib_fwd_bwd, **common},
+    ]
+
+
+def check_xent(torch, FX, timer, gen):
+    """Fused xent forward and backward at the LM head's shape (16384 x
+    32000 f32 logits, the mean's gradient 1 / rows per row) against the
+    plain version and its autograd; times of the kernels, the plain
+    version and F.cross_entropy."""
+    def draw(rows, c, dtype):
+        logits = torch.randn((rows, c), device="cuda", generator=gen)
+        labels = torch.randint(0, c, (rows,), device="cuda", generator=gen,
+                               dtype=torch.int32)
+        g = torch.full((rows,), 1.0 / rows, device="cuda")
+        return logits.mul_(3.0).to(dtype), labels, g
+
+    def errs(logits, labels, g, what):
+        """[(abs, rel) of the loss, (abs, rel) of the gradient]."""
+        loss, lse = FX.xent_fwd(logits, labels)
+        grad = FX.xent_bwd(logits, labels, lse, g)
+        x = logits.detach().requires_grad_(True)
+        ref = FX.softmax_xent_plain(x, labels)
+        (ref_grad,) = torch.autograd.grad(ref, x, g)
+        assert finite(loss) and finite(grad), what
+        e_loss = (loss - ref).abs()
+        e_grad = (grad.float() - ref_grad.float()).abs()
+        out = [(e_loss.max().item(),
+                e_loss.max().item() / ref.abs().max().item()),
+               (e_grad.max().item(), (e_grad / ref_grad.float().abs()
+                                      .clamp_min(1e-30)).max().item())]
+        grad_rel = XENT_GRAD_REL["bf16" if logits.dtype == torch.bfloat16
+                                 else "f32"]
+        if out[0][1] > XENT_REL or out[1][1] > grad_rel:
+            raise AssertionError(
+                f"xent {what}: loss rel {out[0][1]} (limit {XENT_REL}), "
+                f"grad rel {out[1][1]} (limit {grad_rel})")
+        return out
+
+    # The variants the path does not take (bf16 logits; C % 4 != 0, read
+    # one element at a time), at a small row count.
+    variants = {}
+    for c in (1000, TRAIN["vocab"]):
+        for dtype in (torch.float32, torch.bfloat16):
+            what = f"{str(dtype)[6:]} C={c}"
+            variants[what] = errs(*draw(64, c, dtype), what)
+    rows, c = TRAIN["batch"] * TRAIN["seq_len"], TRAIN["vocab"]
+    logits, labels, g = draw(rows, c, torch.float32)
+    main = errs(logits, labels, g, "f32 at the LM head")
+    _, lse = FX.xent_fwd(logits, labels)
+    x = logits.detach().requires_grad_(True)
+    ref = FX.softmax_xent_plain(x, labels)
+    ce = torch.nn.functional.cross_entropy
+    lab64 = labels.long()
+    with torch.no_grad():
+        fwd_t = {
+            "ms": timer.ms(lambda: FX.xent_fwd(logits, labels)),
+            "plain_ms": timer.ms(
+                lambda: FX.softmax_xent_plain(logits, labels), iters=20),
+            "library_ms": timer.ms(
+                lambda: ce(logits, lab64, reduction="none")),
+        }
+    lib_out = ce(x, lab64, reduction="none")
+    bwd_t = {
+        "ms": timer.ms(lambda: FX.xent_bwd(logits, labels, lse, g)),
+        "plain_ms": timer.ms(lambda: torch.autograd.grad(
+            ref, x, g, retain_graph=True), iters=20),
+        "library_ms": timer.ms(lambda: torch.autograd.grad(
+            lib_out, x, g, retain_graph=True)),
+    }
+    lib_fwd_bwd = timer.ms(lambda: torch.autograd.grad(
+        ce(x, lab64, reduction="none"), x, g), iters=20)
+    n = rows * c
+    fwd_b, fwd_by = bound_ms(n * 4 + rows * 4 * 3, 3.0 * n, "f32")
+    bwd_b, bwd_by = bound_ms(2 * n * 4 + rows * 4 * 3, 3.0 * n, "f32")
+    common = {"shape": [rows, c], "logits": "f32"}
+    return [
+        {"name": "fused_xent_fwd", "max_abs_err": main[0][0],
+         "rel_err": main[0][1], "tolerance_rel": XENT_REL,
+         "tolerance_reason": "f32 sums over C classes in another order; "
+         "relative to max|loss|",
+         "variants_rel_err": {k: v[0][1] for k, v in variants.items()},
+         "bound_ms": fwd_b, "bound_by": fwd_by, **fwd_t, **common},
+        {"name": "fused_xent_bwd", "max_abs_err": main[1][0],
+         "rel_err": main[1][1], "tolerance_rel": XENT_GRAD_REL,
+         "tolerance_reason": "element by element: f32 exp(x - lse) vs the "
+         "autograd of logsumexp, or one bf16 rounding on each side",
+         "variants_rel_err": {k: v[1][1] for k, v in variants.items()},
+         "bound_ms": bwd_b, "bound_by": bwd_by, **bwd_t,
+         "library_fwd_bwd_ms": lib_fwd_bwd, **common},
+    ]
+
+
+def _train_counts(FA, FX, reset=False):
+    fns = {"flash_attention_fwd": FA.flash_attention_fwd,
+           "flash_attention_bwd": FA.flash_attention_bwd,
+           "fused_xent_fwd": FX.xent_fwd, "fused_xent_bwd": FX.xent_bwd}
+    if reset:
+        for fn in fns.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def run_train(torch, timer, gen):
+    """The trainer at lm_main's full default width with seeded weights:
+    one step of the kernel path (attn/loss "auto", which resolve to
+    flash and the fused loss on the card) against the plain path (dense
+    attention with remat, as lm_main resolves it, and the log_softmax
+    loss) from the same weights and batch; then TRAIN_STEPS steps on the
+    fixed batch with the launch counters read around them; a profiled
+    window of 3 steps; the f32 head's matmuls timed alone; and lm_main
+    itself for a few steps."""
+    from container_engine_accelerators_tpu_torch.models import (
+        transformer as T,
+    )
+    from container_engine_accelerators_tpu_torch.ops import (
+        flash_attention as FA,
+        fused_xent as FX,
+    )
+
+    def build(attn, loss, remat):
+        return T.build_lm_training(
+            **TRAIN, seed=SEED, remat=remat, attn_impl=attn, loss_impl=loss,
+            device="cuda",
+        )
+
+    depth = TRAIN["depth"]
+    per_step = {"flash_attention_fwd": depth, "flash_attention_bwd": depth,
+                "fused_xent_fwd": 1, "fused_xent_bwd": 1}
+    k_step, k_state, batch_fn = build("auto", "auto", False)
+    model = k_state["model"]
+    assert model.blocks[0].attn_fn is FA.flash_causal_attention
+    p_step, p_state, _ = build("dense", "xla", True)
+    p_state["model"].load_state_dict(model.state_dict())
+    tokens, targets = batch_fn(torch.Generator().manual_seed(SEED))
+
+    _train_counts(FA, FX, reset=True)
+    k_state, k_loss = k_step(k_state, tokens, targets)
+    one = _train_counts(FA, FX)
+    if one != per_step:
+        raise AssertionError(f"one kernel-path step launched {one}")
+    p_state, p_loss = p_step(p_state, tokens, targets)
+    loss_rel = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
+    grad_rel = {}
+    for (name, pk), pp in zip(model.named_parameters(),
+                              p_state["model"].parameters()):
+        gk, gp = pk.grad.float(), pp.grad.float()
+        assert finite(gk), name
+        grad_rel[name] = ((gk - gp).norm() / gp.norm()).item()
+    worst = max(grad_rel, key=grad_rel.get)
+    if loss_rel > TRAIN_LOSS_REL:
+        raise AssertionError(f"train parity: loss rel {loss_rel}")
+    if grad_rel[worst] > TRAIN_GRAD_REL:
+        raise AssertionError(
+            f"train parity: {worst} grad rel {grad_rel[worst]}")
+    parity = {
+        "loss_kernel_path": float(k_loss), "loss_plain_path": float(p_loss),
+        "loss_rel": loss_rel, "loss_tolerance_rel": TRAIN_LOSS_REL,
+        "grad_rel_worst": [worst, grad_rel[worst]],
+        "grad_rel_median": sorted(grad_rel.values())[len(grad_rel) // 2],
+        "grad_tolerance_rel": TRAIN_GRAD_REL, "leaves": len(grad_rel),
+    }
+    del p_step, p_state
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    _train_counts(FA, FX, reset=True)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    losses, marks = [], []
+    for _ in range(TRAIN_STEPS):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        k_state, loss = k_step(k_state, tokens, targets)
+        losses.append(loss)
+    losses = [float(x) for x in losses]  # the fence
+    wall = time.monotonic() - t0
+    # The card's clock from the start of each step to the next's (the
+    # last step is read by the wall only).
+    step_each = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    launches = _train_counts(FA, FX)
+    want = {name: n * TRAIN_STEPS for name, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}")
+    if not all(math.isfinite(x) for x in losses) or not (
+        losses[-1] < losses[0]
+    ):
+        raise AssertionError(f"training loss did not fall: {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    profile = device_profile(
+        torch, lambda: [k_step(k_state, tokens, targets) for _ in range(3)],
+        top=12)
+
+    # The command-line entry point at its defaults (lm_main's single-card
+    # dp path, the same width): a warm-up step and 3 logged steps.
+    from container_engine_accelerators_tpu_torch import lm_main
+
+    _train_counts(FA, FX, reset=True)
+    rc = lm_main.main(["--train-steps", "3", "--log-every", "1"])
+    cli = _train_counts(FA, FX)
+    if rc != 0 or cli != {name: 4 * n for name, n in per_step.items()}:
+        raise AssertionError(f"lm_main exited {rc}, launched {cli}")
+
+    b, s, dim = TRAIN["batch"], TRAIN["seq_len"], TRAIN["dim"]
+    vocab, dh = TRAIN["vocab"], TRAIN["dim"] // TRAIN["heads"]
+    tok = b * s
+    x = torch.randn((tok, dim), device="cuda", generator=gen)
+    dl = torch.randn((tok, vocab), device="cuda", generator=gen)
+    w, bias = model.head_kernel.detach(), model.head_bias.detach()
+    head = {
+        "fwd_ms": timer.ms(lambda: torch.matmul(x, w) + bias, iters=10),
+        "bwd_ms": timer.ms(lambda: (x.t() @ dl, dl @ w.t()), iters=10),
+    }
+    step_ms = wall / TRAIN_STEPS * 1e3
+    # Model FLOPs per step: 3x the forward's matmuls (no recompute).
+    bf16_flops = 3 * (2 * tok * 12 * dim * dim * depth
+                      + 4 * b * TRAIN["heads"] * dh * s * (s + 1) / 2 * depth)
+    f32_flops = 3 * 2 * tok * dim * vocab
+    ideal_ms = (bf16_flops / PEAK_OPS["bf16"]
+                + f32_flops / PEAK_OPS["f32"]) * 1e3
+    return {
+        "phase": "train", **TRAIN, "steps": TRAIN_STEPS,
+        "attn": "flash", "loss": "fused", "parity": parity,
+        "losses": losses, "step_ms": step_ms,
+        "step_ms_device_clock": step_each,
+        "tokens_per_s": tok * TRAIN_STEPS / wall,
+        "model_flops_per_step": {"bf16": bf16_flops, "f32_head": f32_flops},
+        "ideal_ms_at_peak": ideal_ms,
+        "model_flops_share_of_peak": ideal_ms / step_ms,
+        "head_f32_ms": head,
+        "head_share_of_step": (head["fwd_ms"] + head["bwd_ms"]) / step_ms,
+        "peak_memory_gb": peak_gb, "profile": profile,
+        "launches": launches, "lm_main_launches": cli,
+    }, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -534,6 +956,8 @@ def main() -> int:
         )
         from container_engine_accelerators_tpu_torch.ops import (
             _build,
+            flash_attention as FA,
+            fused_xent as FX,
             paged_attention as PA,
             quant_matmul as QM,
         )
@@ -583,6 +1007,17 @@ def main() -> int:
         torch, model, True, torch.Generator().manual_seed(SEED + 1)
     )
     emit({**engine_int8, "card": smi})
+    del model
+    torch.cuda.empty_cache()
+
+    tgen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    k_flash = check_flash(torch, FA, timer, tgen)
+    k_xent = check_xent(torch, FX, timer, tgen)
+    emit({"phase": "train_kernels", "flash_attention": k_flash,
+          "fused_xent": k_xent, "card": smi})
+    torch.cuda.empty_cache()
+    train, l_train = run_train(torch, timer, tgen)
+    emit({**train, "card": smi})
 
     src = "container_engine_accelerators_tpu_torch/csrc/"
     ref = "container_engine_accelerators_tpu/ops/"
@@ -594,6 +1029,14 @@ def main() -> int:
          "paged_attention.py:93"),
         (k_qmm, l_int8["int8_weight_matmul"], "quant_matmul.cu",
          "quant_matmul.py:31"),
+        (k_flash[0], l_train["flash_attention_fwd"], "flash_attention.cu",
+         "flash_attention.py:112"),
+        (k_flash[1], l_train["flash_attention_bwd"], "flash_attention.cu",
+         "flash_attention.py:112"),
+        (k_xent[0], l_train["fused_xent_fwd"], "fused_xent.cu",
+         "fused_xent.py:34"),
+        (k_xent[1], l_train["fused_xent_bwd"], "fused_xent.cu",
+         "fused_xent.py:46"),
     ):
         if launches < 1:
             raise AssertionError(f"{rec['name']} never ran on the main path")

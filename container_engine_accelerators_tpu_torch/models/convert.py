@@ -8,7 +8,9 @@ Dense_0 -> fc0, Dense_1 -> fc1}, LayerNorm_0 -> ln_f, lm_head ->
 head_kernel/head_bias.  Kernels stay (in, out); the qkv DenseGeneral
 kernel (dim, 3, heads, d_head) and bias (3, heads, d_head) flatten to
 (dim, 3 * dim) and (3 * dim,).  Only numpy crosses the boundary: this
-module imports no JAX.
+module imports no JAX.  A training model holds f32 master weights, so
+both directions are exact there; `to_flax_grads` lays a trained step's
+gradients out the same way, so tests compare them leaf by leaf.
 """
 
 from __future__ import annotations
@@ -56,11 +58,21 @@ def load_flax_params(model, params):
 def to_flax_params(model):
     """The inverse of load_flax_params: a flax-shaped tree of f32 numpy
     arrays (qkv restored to its DenseGeneral shapes)."""
+    return _flax_tree(model, lambda p: p)
+
+
+def to_flax_grads(model):
+    """The parameters' gradients (`.grad`, after a backward) as a flax
+    tree of f32 numpy arrays, laid out as to_flax_params."""
+    return _flax_tree(model, lambda p: p.grad)
+
+
+def _flax_tree(model, leaf):
     dim, heads = model.dim, model.heads
     d_head = dim // heads
 
-    def np32(t):
-        return t.detach().float().cpu().numpy()
+    def np32(p):
+        return leaf(p).detach().float().cpu().numpy()
 
     out = {
         "Embed_0": {"embedding": np32(model.embed)},

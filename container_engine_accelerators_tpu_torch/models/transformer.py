@@ -1,7 +1,8 @@
 """Decoder-only transformer LM in PyTorch: the port of
 container_engine_accelerators_tpu/models/transformer.py
 (`full_causal_attention` :32, `DecoderBlock` :43, `apply_embed` :357,
-`apply_head` :381, `_HeadParams` :392, `TransformerLM` :415).
+`apply_head` :381, `_HeadParams` :392, `TransformerLM` :415,
+`_auto_use_flash` :501, `resolve_attn` :521, `build_lm_training` :776).
 
 The numerics follow the flax module: parameters of the embedding,
 positional table, LayerNorms and vocab head are f32; the block
@@ -9,6 +10,14 @@ projections compute in `dtype` (bf16 at serving width, f32 in the parity
 tests); LayerNorm takes f32 statistics with epsilon 1e-6 and flax's
 mean-of-squares variance; GELU is the tanh form, op for op; the head is
 an f32 matmul.  Weights are laid out (in, out) as flax stores them.
+The block projections store their weights in `param_dtype`: f32 masters
+for training, cast to `dtype` at each call as flax does (an optimizer
+stepping bf16 weights would drift from optax within a few steps), and
+`dtype` itself for serving, which keeps one copy of the weights.
+
+Training (`build_lm_training`, single chip, dense head): attention
+through `attn_fn` (flash, ops/flash_attention.py, or the dense math),
+the loss through ops/fused_xent.py or ops/losses.py, AdamW as optax's.
 
 Decode paths ported in this slice (a `cache` argument selects them):
   - the PAGED single-token step (:177-265): the cache holds page pools
@@ -36,9 +45,18 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
+from ..ops.flash_attention import (
+    causal_attention_plain as full_causal_attention,
+    flash_causal_attention,
+    flash_supports_seq,
+)
+from ..ops.fused_xent import fused_cross_entropy_loss
+from ..ops.losses import cross_entropy_loss
 from ..ops.paged_attention import paged_attention
+from .convert import load_flax_params
 
 
 @functools.lru_cache(maxsize=None)
@@ -57,16 +75,6 @@ def gelu_tanh(x):
     c, a = _gelu_consts(x.dtype)
     cdf = 0.5 * (1.0 + torch.tanh(c * (x + a * (x ** 3))))
     return x * cdf
-
-
-def full_causal_attention(q, k, v):
-    b, s, h, d = q.shape
-    qf = q.float() / (d ** 0.5)
-    scores = torch.einsum("bqhd,bkhd->bhqk", qf, k.float())
-    mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
-    scores = torch.where(mask[None, None], scores, -1e30)
-    p = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -92,20 +100,23 @@ class LayerNorm(nn.Module):
 
 
 class Dense(nn.Module):
-    """flax.linen.Dense in `dtype`: kernel (in, out), bias (out,)."""
+    """flax.linen.Dense in `dtype`: kernel (in, out), bias (out,), stored
+    in `param_dtype` (default: `dtype`) and cast to `dtype` per call."""
 
-    def __init__(self, d_in, d_out, dtype, device):
+    def __init__(self, d_in, d_out, dtype, device, param_dtype=None):
         super().__init__()
         self.dtype = dtype
+        pd = param_dtype or dtype
         self.kernel = nn.Parameter(
-            torch.zeros((d_in, d_out), dtype=dtype, device=device)
+            torch.zeros((d_in, d_out), dtype=pd, device=device)
         )
-        self.bias = nn.Parameter(
-            torch.zeros((d_out,), dtype=dtype, device=device)
-        )
+        self.bias = nn.Parameter(torch.zeros((d_out,), dtype=pd, device=device))
 
     def forward(self, x):
-        return torch.matmul(x.to(self.dtype), self.kernel) + self.bias
+        kernel, bias = self.kernel, self.bias
+        if kernel.dtype != self.dtype:  # f32 masters (training)
+            kernel, bias = kernel.to(self.dtype), bias.to(self.dtype)
+        return torch.matmul(x.to(self.dtype), kernel) + bias
 
 
 def _decode_attention(q, k, v, cache, kv_mask, write_pos, block_tables):
@@ -175,16 +186,18 @@ class DecoderBlock(nn.Module):
     kernel is the flax DenseGeneral (dim, 3, heads, d_head) flattened to
     (dim, 3 * heads * d_head)."""
 
-    def __init__(self, dim, heads, dtype, device, mlp_ratio=4):
+    def __init__(self, dim, heads, dtype, device, mlp_ratio=4,
+                 param_dtype=None, attn_fn=full_causal_attention):
         super().__init__()
         self.dim = dim
         self.heads = heads
+        self.attn_fn = attn_fn
         self.ln0 = LayerNorm(dim, dtype, device)
-        self.qkv = Dense(dim, 3 * dim, dtype, device)
-        self.proj = Dense(dim, dim, dtype, device)
+        self.qkv = Dense(dim, 3 * dim, dtype, device, param_dtype)
+        self.proj = Dense(dim, dim, dtype, device, param_dtype)
         self.ln1 = LayerNorm(dim, dtype, device)
-        self.fc0 = Dense(dim, dim * mlp_ratio, dtype, device)
-        self.fc1 = Dense(dim * mlp_ratio, dim, dtype, device)
+        self.fc0 = Dense(dim, dim * mlp_ratio, dtype, device, param_dtype)
+        self.fc1 = Dense(dim * mlp_ratio, dim, dtype, device, param_dtype)
 
     def forward(self, x, cache=None, kv_mask=None, write_pos=None,
                 block_tables=None):
@@ -193,7 +206,7 @@ class DecoderBlock(nn.Module):
         qkv = self.qkv(h).view(b, s, 3, self.heads, self.dim // self.heads)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if cache is None:
-            attn = full_causal_attention(q, k, v)
+            attn = self.attn_fn(q, k, v)
         else:
             attn = _decode_attention(
                 q, k, v, cache, kv_mask, write_pos, block_tables
@@ -205,16 +218,21 @@ class DecoderBlock(nn.Module):
 
 class TransformerLM(nn.Module):
     """Decoder-only LM.  `forward(tokens)` is the training forward
-    (full causal attention); with `cache` it runs a decode path (module
-    docstring).  head_impl="chunked" returns (f32 hidden, head kernel,
-    head bias) instead of logits, so only the rows that sample pay the
-    vocab matmul.  `decode` marks the decode-mode twin (make_decoder),
-    as in the reference.  Parameters are zeros until loaded
-    (models/convert.py) or drawn (`init_random`)."""
+    (causal attention through `attn_fn`; `remat` recomputes each block's
+    activations in the backward, as the reference's nn.remat does); with
+    `cache` it runs a decode path (module docstring).
+    head_impl="chunked" returns (f32 hidden, head kernel, head bias)
+    instead of logits, so only the rows that sample pay the vocab
+    matmul.  `decode` marks the decode-mode twin (make_decoder), as in
+    the reference.  `param_dtype` is the block projections' storage
+    (default `dtype`; f32 masters for training).  Parameters are zeros
+    until loaded (models/convert.py) or drawn (`init_random`), and take
+    no gradient until a trainer asks for one."""
 
     def __init__(self, vocab=32000, dim=512, depth=4, heads=8,
                  max_seq=8192, dtype=torch.bfloat16, decode=False,
-                 device="cuda"):
+                 device="cuda", param_dtype=None,
+                 attn_fn=full_causal_attention, remat=False):
         super().__init__()
         dev = resolve_device(device)
         if dim % heads:
@@ -222,14 +240,18 @@ class TransformerLM(nn.Module):
         self.config = dict(
             vocab=vocab, dim=dim, depth=depth, heads=heads,
             max_seq=max_seq, dtype=dtype, decode=decode, device=dev,
+            param_dtype=param_dtype, attn_fn=attn_fn, remat=remat,
         )
         self.vocab, self.dim, self.depth = vocab, dim, depth
         self.heads, self.max_seq = heads, max_seq
         self.dtype, self.decode, self.device = dtype, decode, dev
+        self.remat = remat
         self.embed = nn.Parameter(torch.zeros((vocab, dim), device=dev))
         self.pos_emb = nn.Parameter(torch.zeros((max_seq, dim), device=dev))
         self.blocks = nn.ModuleList(
-            DecoderBlock(dim, heads, dtype, dev) for _ in range(depth)
+            DecoderBlock(dim, heads, dtype, dev, param_dtype=param_dtype,
+                         attn_fn=attn_fn)
+            for _ in range(depth)
         )
         self.ln_f = LayerNorm(dim, dtype, dev)
         self.head_kernel = nn.Parameter(
@@ -278,6 +300,9 @@ class TransformerLM(nn.Module):
                 write_pos=None, block_tables=None, head_impl="dense"):
         x = self.apply_embed(tokens, positions)
         for i, blk in enumerate(self.blocks):
+            if cache is None and self.remat:
+                x = checkpoint(blk, x, use_reentrant=False)
+                continue
             x = blk(
                 x, None if cache is None else cache[i], kv_mask,
                 write_pos, block_tables,
@@ -286,3 +311,150 @@ class TransformerLM(nn.Module):
         if head_impl == "chunked":
             return x.float(), self.head_kernel, self.head_bias
         return torch.matmul(x.float(), self.head_kernel) + self.head_bias
+
+
+def _auto_use_flash(attn_impl: str, seq_len: int, device="cuda") -> bool:
+    """THE flash auto-gate (reference :501): explicit 'flash' forces it;
+    'auto' requires the card (the reference: a Pallas-TPU backend) and a
+    length the reference's gate accepts, so that both packages pick the
+    same path for the same shape.  On the card the wrapper raises for a
+    head dim its kernels are not built for."""
+    if attn_impl not in ("auto", "dense", "flash"):
+        raise ValueError(f"unknown attn_impl {attn_impl!r}")
+    return attn_impl == "flash" or (
+        attn_impl == "auto"
+        and torch.device(device).type == "cuda"
+        and flash_supports_seq(seq_len)
+    )
+
+
+def resolve_attn(attn_impl: str, seq_len: int, mesh=None, batch_axes=None,
+                 device="cuda"):
+    """Attention selection (reference :521): flash on the card when the
+    length passes the gate, the dense math otherwise.  Explicit 'flash'
+    skips the gate (the wrapper raises at call time on a shape it does
+    not take).  A mesh raises: data-parallel wrapping comes with
+    parallel/ (ROADMAP A10)."""
+    if mesh is not None or batch_axes is not None:
+        raise NotImplementedError(
+            "attention under a device mesh comes with the port of "
+            "parallel/ (ROADMAP A10)"
+        )
+    if _auto_use_flash(attn_impl, seq_len, device):
+        return flash_causal_attention
+    return full_causal_attention
+
+
+def resolve_loss(loss_impl: str, rows: int, device="cuda") -> str:
+    """'fused' or 'xla' (reference :836-851, single chip): 'auto' takes
+    the fused kernels on the card where the row count divides the
+    reference's 8-row blocks."""
+    if loss_impl not in ("auto", "xla", "fused"):
+        raise ValueError(f"unknown loss_impl {loss_impl!r}")
+    if loss_impl != "auto":
+        return loss_impl
+    cuda = torch.device(device).type == "cuda"
+    return "fused" if cuda and rows and rows % 8 == 0 else "xla"
+
+
+def build_lm_training(
+    mesh=None,
+    seq_axis=None,
+    vocab: int = 1024,
+    dim: int = 256,
+    depth: int = 2,
+    heads: int = 4,
+    seq_len: int = 512,
+    batch: int = 4,
+    learning_rate: float = 1e-3,
+    seed: int = 0,
+    remat: bool = False,
+    seq_layout: str = "contiguous",
+    attn_impl: str = "auto",
+    loss_impl: str = "auto",
+    head_impl: str = "dense",
+    head_chunk: int = 8192,
+    *,
+    dtype=torch.bfloat16,
+    device="cuda",
+    params=None,
+):
+    """(step_fn, state, batch_fn) for single-chip LM training (reference
+    :776, its `mesh=None` path with the dense head).
+
+    state: {"model": TransformerLM with f32 master weights, "opt": AdamW,
+    "step": int}.  step_fn(state, tokens, targets) -> (state, loss) runs
+    one forward, backward and AdamW update in place; the step's
+    gradients stay on the parameters (`.grad`) until the next step.
+    batch_fn(generator) draws (tokens, targets), each (batch, seq_len),
+    from a torch.Generator.  params: a flax TransformerLM tree of numpy
+    arrays to start from instead of the seeded draw.  dtype: the blocks'
+    compute type (the reference's TransformerLM default bf16; f32 for
+    parity tests).  Runs on the card unless device="cpu"."""
+    if seq_layout not in ("contiguous", "zigzag"):
+        raise ValueError(f"unknown seq_layout {seq_layout!r}")
+    if seq_layout == "zigzag" and (mesh is None or seq_axis is None):
+        raise ValueError("seq_layout='zigzag' needs mesh + seq_axis")
+    if mesh is not None:
+        raise NotImplementedError(
+            "data- and sequence-parallel LM training come with the port of "
+            "parallel/ (ROADMAP A10)"
+        )
+    dev = resolve_device(device)
+    attn_fn = resolve_attn(attn_impl, seq_len, device=dev)
+    loss_kind = resolve_loss(loss_impl, batch * seq_len, dev)
+    if head_impl not in ("dense", "chunked"):
+        raise ValueError(f"unknown head_impl {head_impl!r}")
+    if head_impl == "chunked":
+        if head_chunk <= 0:
+            raise ValueError(f"head_chunk must be positive, got {head_chunk}")
+        if loss_impl == "fused":
+            raise ValueError(
+                "head_impl='chunked' subsumes the loss; it is "
+                "incompatible with loss_impl='fused'"
+            )
+        raise NotImplementedError(
+            "head_impl='chunked' (ops/chunked_xent.py) comes with the rest "
+            "of LM training (ROADMAP A8)"
+        )
+    loss_of = (
+        fused_cross_entropy_loss if loss_kind == "fused"
+        else cross_entropy_loss
+    )
+    model = TransformerLM(
+        vocab=vocab, dim=dim, depth=depth, heads=heads, max_seq=seq_len,
+        dtype=dtype, device=dev, param_dtype=torch.float32,
+        attn_fn=attn_fn, remat=remat,
+    )
+    if params is None:
+        model.init_random(torch.Generator().manual_seed(seed))
+    else:
+        load_flax_params(model, params)
+    model.requires_grad_(True)
+    # optax.adamw(learning_rate) as this repo's optax builds it: b1 0.9,
+    # b2 0.999, eps 1e-8, decoupled weight decay 1e-4 on every leaf (no
+    # mask: biases, LayerNorms and embeddings decay too).
+    opt = torch.optim.AdamW(
+        model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=1e-4,
+    )
+    state = {"model": model, "opt": opt, "step": 0}
+
+    def step_fn(state, tokens, targets):
+        model, opt = state["model"], state["opt"]
+        opt.zero_grad(set_to_none=True)
+        logits = model(tokens)
+        loss = loss_of(logits.reshape(-1, vocab), targets.reshape(-1))
+        loss.backward()
+        opt.step()
+        state["step"] += 1
+        return state, loss.detach()
+
+    def batch_fn(generator: torch.Generator):
+        tok = torch.randint(
+            0, vocab, (batch, seq_len + 1), generator=generator,
+            device=generator.device,
+        ).to(dev)
+        return tok[:, :-1], tok[:, 1:]
+
+    return step_fn, state, batch_fn

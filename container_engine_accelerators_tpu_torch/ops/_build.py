@@ -1,17 +1,18 @@
 """Build and bind the hand-written CUDA kernels (csrc/*.cu).
 
 Each source compiles with nvcc into its own shared library with a
-plain C interface, at first use, into `_kernels_build/` beside the
-package (listed in .gitignore).  The library's file name carries a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads from disk.  `build_all()` starts one nvcc per
-source together and waits for all of them, so a cold start costs the
-slowest compile, not the sum.
+plain C interface (one or more entry points, ENTRY_POINTS), at first
+use, into `_kernels_build/` beside the package (listed in .gitignore).
+The library's file name carries a hash of the source and the flags, so
+an edited source rebuilds and an unchanged one loads from disk.
+`build_all()` starts one nvcc per source together and waits for all of
+them, so a cold start costs the slowest compile, not the sum.
 
 Binding is ctypes: pointers and the CUDA stream pass as c_void_p, ints
-as c_int, and every entry point returns cudaGetLastError() (checked by
-`check`).  Nothing here runs at import: the CPU tests import every
-module, and this box has neither nvcc nor a card.
+as c_int, element strides as c_longlong, and every entry point returns
+cudaGetLastError() (checked by `check`).  Nothing here runs at import:
+the CPU tests import every module, and this box has neither nvcc nor a
+card.
 """
 
 from __future__ import annotations
@@ -37,20 +38,24 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures, one entry point per source.
-SIGNATURES = {
-    "paged_attention": (
-        "cea_paged_attention",
-        [_P] * 9 + [_I] * 8 + [_P],
+_L = ctypes.c_longlong
+# C entry points: symbol -> (source under csrc/, argtypes).
+ENTRY_POINTS = {
+    "cea_paged_attention": ("paged_attention", [_P] * 9 + [_I] * 8 + [_P]),
+    "cea_int8_matmul": ("quant_matmul", [_P] * 5 + [_I] * 6 + [_P]),
+    "cea_flash_fwd": (
+        "flash_attention", [_P] * 5 + [_L] * 9 + [_I] * 3 + [_P],
     ),
-    "quant_matmul": (
-        "cea_int8_matmul",
-        [_P] * 5 + [_I] * 6 + [_P],
+    "cea_flash_bwd": (
+        "flash_attention", [_P] * 10 + [_L] * 9 + [_I] * 3 + [_P],
     ),
+    "cea_xent_fwd": ("fused_xent", [_P] * 4 + [_I] * 4 + [_P]),
+    "cea_xent_bwd": ("fused_xent", [_P] * 5 + [_I] * 4 + [_P]),
 }
+SOURCES = tuple(sorted({src for src, _ in ENTRY_POINTS.values()}))
 
 _lock = threading.Lock()
-_libs: Dict[str, object] = {}  # name -> bound C entry point
+_libs: Dict[str, object] = {}  # symbol -> bound C entry point
 
 
 def nvcc() -> str:
@@ -81,7 +86,7 @@ def build_all() -> float:
     t0 = time.monotonic()
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = []
-    for name in SIGNATURES:
+    for name in SOURCES:
         out = _target(name)
         if os.path.exists(out):
             continue
@@ -102,22 +107,23 @@ def build_all() -> float:
     return time.monotonic() - t0 if procs else 0.0
 
 
-def load(name: str):
-    """The bound C entry point of csrc/<name>.cu, building it first if
-    needed.  Bound once per process: later calls are one dict lookup."""
-    fn = _libs.get(name)
+def load(symbol: str):
+    """The bound C entry point `symbol` (ENTRY_POINTS), building its
+    source first if needed.  Bound once per process: later calls are one
+    dict lookup."""
+    fn = _libs.get(symbol)
     if fn is not None:
         return fn
     with _lock:
-        fn = _libs.get(name)
+        fn = _libs.get(symbol)
         if fn is None:
-            if not os.path.exists(_target(name)):
+            source, argtypes = ENTRY_POINTS[symbol]
+            if not os.path.exists(_target(source)):
                 build_all()
-            sym, argtypes = SIGNATURES[name]
-            fn = getattr(ctypes.CDLL(_target(name)), sym)
+            fn = getattr(ctypes.CDLL(_target(source)), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _libs[name] = fn
+            _libs[symbol] = fn
     return fn
 
 

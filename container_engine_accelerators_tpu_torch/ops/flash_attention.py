@@ -1,0 +1,194 @@
+"""Causal flash attention: hand-written CUDA kernels
+(csrc/flash_attention.cu), forward and backward, and their plain
+PyTorch version.
+
+Replaces the Pallas TPU kernels that container_engine_accelerators_tpu/
+ops/flash_attention.py reaches: the classic `_flash_fn` (:112) and the
+splash `_splash_fn` (:90); entry `flash_causal_attention` (:136), gate
+`flash_supports_seq` (:39).  Splash and the classic kernel compute the
+same function, so one CUDA kernel serves every length, and the
+reference's splash routing with its warn-and-fall-back path is not
+carried over.
+
+The forward keeps each score tile in registers with an online softmax
+(no (b, h, s, s) score or probability tensor reaches device memory) and
+saves the per-row logsumexp (b, h, s) in f32.  The backward is FA2's:
+D = rowsum(dO * O), one pass per key tile for dK / dV and one per query
+tile for dQ, tiles above the diagonal skipped, bf16 tensor-core MMA
+with f32 sums, no atomics.  The kernels read q, k and v through their
+strides (head dim contiguous), so the strided views of the fused qkv
+projection are read in place, with no copy; O and the gradients are
+written contiguous.  See the source's header for the layout.
+
+The plain version is the reference's dense math (transformer.py
+`full_causal_attention` :32): f32 scores with q divided by sqrt(d), a
+-1e30 causal fill, softmax, cast back to q's type; autograd gives its
+gradients.  The wrapper takes it only for CPU tensors (the reference's
+tests run flash on the CPU through the same dense math); on a CUDA
+tensor it launches the kernels or raises.  MIN_SEQ and
+`flash_supports_seq` are the reference's, verbatim, so `attn_impl=
+"auto"` picks the same path for the same shape, and the length checks
+raise as the reference's do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+# The reference kernel's minimum block and default classic blocks
+# (flash_causal_attention :159-160): kept so that both packages accept
+# the same lengths.
+MIN_SEQ = 128
+_BLOCK_Q, _BLOCK_K = 256, 512
+HEAD_DIM = 128  # the one head dim the CUDA kernels are built for
+_TILE = 64  # the kernels' row tile: s must be a multiple of it
+
+
+def flash_supports_seq(s: int, block_q: int = 256, block_k: int = 512) -> bool:
+    """The reference's gate (ops/flash_attention.py :39), verbatim: s at
+    least MIN_SEQ, a multiple of it, and divisible by both blocks
+    clamped to s.  Auto-selection falls back to dense attention
+    otherwise."""
+    return (
+        s >= MIN_SEQ
+        and s % MIN_SEQ == 0
+        and s % min(block_q, s) == 0
+        and s % min(block_k, s) == 0
+    )
+
+
+def causal_attention_plain(q, k, v):
+    """Dense causal attention on (batch, seq, heads, head_dim): f32
+    scores, softmax, the result in q's dtype."""
+    b, s, h, d = q.shape
+    qf = q.float() / (d ** 0.5)
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, k.float())
+    mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
+    scores = torch.where(mask[None, None], scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def _check_seq(s: int) -> None:
+    """The reference's length checks (flash_causal_attention :162-173)."""
+    if s < MIN_SEQ:
+        raise ValueError(
+            f"flash attention needs seq >= {MIN_SEQ} (got {s}): the "
+            "reference kernel's minimum block, kept so that both packages "
+            "accept the same lengths"
+        )
+    block_q, block_k = min(_BLOCK_Q, s), min(_BLOCK_K, s)
+    if s % block_q or s % block_k:
+        raise ValueError(
+            f"flash attention needs seq ({s}) divisible by blocks "
+            f"({block_q}, {block_k})"
+        )
+
+
+def _strides(t):
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _check_qkv(q, k, v):
+    b, s, h, d = q.shape
+    for t in (q, k, v):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(
+                "flash attention: the CUDA kernels take CUDA tensors on one "
+                "device"
+            )
+        if t.dtype != torch.bfloat16 or t.shape != q.shape:
+            raise ValueError(
+                f"flash attention: the kernels take bf16 q, k, v of one "
+                f"shape; got {q.dtype} {tuple(q.shape)}, {k.dtype} "
+                f"{tuple(k.shape)}, {v.dtype} {tuple(v.shape)}"
+            )
+        if t.stride(3) != 1 or any(x % 8 for x in _strides(t)) or (
+            t.data_ptr() % 16
+        ):
+            raise ValueError(
+                "flash attention: the kernels read 16-byte rows: the head "
+                "dim must be contiguous, the other strides multiples of 8 "
+                "and the data 16-byte aligned"
+            )
+    if d != HEAD_DIM or s % _TILE:
+        raise ValueError(
+            f"flash attention: the kernels take head dim {HEAD_DIM} and a "
+            f"seq multiple of {_TILE}; got d {d}, seq {s}"
+        )
+
+
+def flash_attention_fwd(q, k, v):
+    """(out, lse): out (b, s, h, d) bf16 contiguous and lse (b, h, s) f32
+    from the forward kernel."""
+    _check_qkv(q, k, v)
+    b, s, h, d = q.shape
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    rc = _build.load("cea_flash_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), *_strides(q), *_strides(k), *_strides(v), b, s, h,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(rc, "flash attention forward")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout):
+    """(dq, dk, dv), each (b, s, h, d) bf16 contiguous, from the backward
+    kernels; out and lse from flash_attention_fwd."""
+    _check_qkv(q, k, v)
+    b, s, h, d = q.shape
+    dout = dout.contiguous()
+    if dout.dtype != q.dtype or dout.shape != q.shape or (
+        not out.is_contiguous() or not lse.is_contiguous()
+    ):
+        raise ValueError(
+            "flash attention backward: dout must match q, and out / lse "
+            "come from flash_attention_fwd"
+        )
+    delta = torch.empty_like(lse)
+    dq, dk, dv = (
+        torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+        for _ in range(3)
+    )
+    rc = _build.load("cea_flash_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), *_strides(q), *_strides(k),
+        *_strides(v), b, s, h,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(rc, "flash attention backward")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = flash_attention_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return flash_attention_bwd(*ctx.saved_tensors, dout)
+
+
+def flash_causal_attention(q, k, v):
+    """Causal flash attention on (batch, seq, heads, head_dim) inputs.
+    Scale is 1/sqrt(head_dim) on the f32 scores, the output in q's
+    dtype.  CPU tensors take the plain version; CUDA tensors launch the
+    kernels, or raise on a dtype, shape or layout they do not take."""
+    _check_seq(q.shape[1])
+    if q.device.type == "cpu":
+        return causal_attention_plain(q, k, v)
+    return _FlashAttention.apply(q, k, v)

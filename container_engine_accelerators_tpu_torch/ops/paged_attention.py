@@ -132,7 +132,7 @@ def _launch(q, k_pool, v_pool, block_tables, kv_mask, k_scale, v_scale):
         raise ValueError(
             "paged_attention: scales must be (n_pages, page, heads) f32"
         )
-    fn = _build.load("paged_attention")
+    fn = _build.load("cea_paged_attention")
     splits, _ = split_plan(b, heads, pages, _build.sm_count(q.device.index))
     out = torch.empty_like(q)
     work = torch.empty(

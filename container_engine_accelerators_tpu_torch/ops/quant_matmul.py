@@ -96,7 +96,7 @@ def _launch(x, w_i8, scale):
     ksplit, krange = split_plan(
         rows, in_dim, out_dim, _build.sm_count(x.device.index)
     )
-    fn = _build.load("quant_matmul")
+    fn = _build.load("cea_int8_matmul")
     out = torch.empty((rows, out_dim), dtype=x.dtype, device=x.device)
     partial = torch.empty(
         (ksplit * rows * out_dim,), dtype=torch.float32, device=x.device

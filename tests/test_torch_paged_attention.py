@@ -189,7 +189,7 @@ class TestNoFallback:
         monkeypatch.setattr(_build.shutil, "which", lambda name: None)
         monkeypatch.setattr(_build, "_libs", {})
         with pytest.raises(RuntimeError, match="nvcc"):
-            _build.load("paged_attention")
+            _build.load("cea_paged_attention")
 
 
 @pytest.mark.parametrize(
