@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main paths — paged LM serving decode, and
-single-card LM training — on one NVIDIA H100, and hold every kernel on
-those paths against its plain PyTorch version.
+"""Drive the PyTorch port's main paths — paged LM serving decode,
+single-card LM training and single-card ResNet-50 training — on one
+NVIDIA H100, and hold every kernel on those paths against its plain
+PyTorch version.
 
     python3 chip_smoke.py
 
@@ -38,9 +39,28 @@ Phases, one JSON line each (stdout):
                 time, tokens/s, the model-FLOPs share of peak, a 3-step
                 profile and the f32 head's share of the step; then the
                 command-line trainer (lm_main) at its defaults for a
-                warm-up step and 3 logged steps.
+                warm-up step and 3 logged steps;
+  7. vision_kernels — the fused-matmul kernel (matmul_stats and
+                affine_relu_matmul_stats) at its 12 ResNet-50 shapes, and
+                the 3x3 conv kernel at ResNet-50's 4 stride-1 shapes,
+                forward with and without the prologue and the backward
+                through autograd, each against its plain version (y and
+                the data gradient per 16-row tile of one column, with a
+                planted 1% fault on a column that must fail the check),
+                timed beside the plain version, torch.matmul / cuDNN;
+  8. vision_train — ResNet-50 at the fused-block configuration (s2d
+                stem, block_impl fused_pallas, batch 256, 224 x 224, SGD
+                lr 0.1), seeded weights with nonzero bn3 scales: one step
+                of the kernel path against the plain path (the loss,
+                every gradient, the running statistics), 20 steps on one
+                batch (the loss falling, exactly 16 + 16 fused-matmul
+                launches a step), step time, images/s, the model-FLOPs
+                share of the bf16 peak, a 3-step profile; then
+                resnet_main at its defaults for a warm-up step and 3
+                logged steps.
 Then the card's name and power limit (nvidia-smi), the kernels record,
-and last the contract line {"ok": true, "device": {...}}.  Any failed
+and last the contract line {"ok": true, "device": {...}}.  Each JSON line
+is also written to smoke_out/chip_smoke.jsonl beside this script.  Any failed
 check raises: the script exits non-zero and prints no result.  Without a
 CUDA device, or without the port beside it, it exits non-zero at once.
 """
@@ -49,6 +69,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -71,8 +92,18 @@ SEED = 0
 TOP2_TOL = 0.125
 
 
+# Every JSON line printed is also written here (gitignored): the
+# phases' lines outgrow what a caller may keep of the end of the output.
+LOG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "smoke_out")
+LOG_PATH = os.path.join(LOG_DIR, "chip_smoke.jsonl")
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with open(LOG_PATH, "a") as f:
+        f.write(line + "\n")
 
 
 def bf16_ulp(x: float) -> float:
@@ -378,6 +409,30 @@ def oracle_logits(torch, model, prompt, tokens, quant, qparams, deq):
     return torch.cat(out, dim=0)
 
 
+# The port's own kernels, by the names their sources give them.
+PORT_KERNELS = ("paged_attention", "qmm_", "flash_", "xent_", "gemm_stats",
+                "reduce_partials")
+
+
+def kernel_kind(name: str) -> str:
+    """A device kernel's kind, from its name: the port's kernels, library
+    GEMMs and convolutions (cuBLAS, cuDNN, CUTLASS), casts and copies,
+    torch's elementwise and reduction kernels, or other."""
+    low = name.lower()
+    if any(k in name for k in PORT_KERNELS):
+        return "port kernels"
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "conv", "cudnn",
+                              "fprop", "dgrad", "wgrad", "cublas")):
+        return "library gemm / conv"
+    if "copy" in low or "memset" in low or "memcpy" in low:
+        return "copies and casts"
+    if "reduce" in low:
+        return "reductions"
+    if "elementwise" in low:
+        return "elementwise"
+    return "other"
+
+
 def device_profile(torch, fn, top=6):
     """Run fn() under torch.profiler and return the device busy share
     (device kernel time over the window's wall time) and the top
@@ -416,11 +471,16 @@ def device_profile(torch, fn, top=6):
         return {"device_busy_share": "not measured",
                 "error": "no device events recorded"}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    by_kind = {}
+    for name, us in by_name.items():
+        kind = kernel_kind(name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
     return {
         "window_s": wall_us / 1e6,
         "device_busy_share": busy / wall_us,
         "device_ms": busy / 1e3,
-        "top_kernels_ms": [[name[:60], us / 1e3] for name, us in ranked],
+        "top_kernels_ms": [[name[:100], us / 1e3] for name, us in ranked],
+        "kernel_ms_by_kind": by_kind,
     }
 
 
@@ -797,6 +857,548 @@ def check_xent(torch, FX, timer, gen):
     ]
 
 
+# -- phases 7-8: ResNet-50 training ----------------------------------------
+# The fused-matmul kernel's shapes at batch 256 (M, K, N), each with its
+# launches per training step; the 3x3 conv's stride-1 shapes (N, H, W, C).
+MATMUL_STATS_SHAPES = [
+    ((802816, 64, 64), 1), ((802816, 256, 64), 2), ((802816, 256, 128), 1),
+    ((200704, 512, 128), 3), ((200704, 512, 256), 1),
+    ((50176, 1024, 256), 5), ((50176, 1024, 512), 1),
+    ((12544, 2048, 512), 2),
+]
+AFFINE_SHAPES = [
+    ((802816, 64, 256), 3), ((200704, 128, 512), 4),
+    ((50176, 256, 1024), 6), ((12544, 512, 2048), 3),
+]
+CONV3_SHAPES = [(256, 56, 56, 64), (256, 28, 28, 128), (256, 14, 14, 256),
+                (256, 7, 7, 512)]
+# Kernel vs plain: y and the data gradient (the kernels' own outputs) per
+# tile of VISION_TILE rows of one column, ||got - want|| / ||want|| within
+# 2**-7 (each side rounds an f32 sum taken in its own order to bf16 once,
+# so an element may differ by one bf16 ulp, 2**-8 to 2**-7 of itself; a
+# 1% error on a column fails); the statistics and the weight gradient,
+# f32 sums in another order, by the norm of the difference over the norm
+# within 1e-4; the autograd's dx, dscale and dshift within 2**-7 the same
+# way (the ReLU mask and a second bf16 rounding of dx follow the kernel,
+# and after the mask a tile of 16 rows can hold a single ill-conditioned
+# element, so these are held as whole tensors).
+VISION_TILE = 16
+VISION_TILE_REL = 2.0 ** -7
+VISION_SUM_REL = 1e-4
+VISION_DAFFINE_REL = 2.0 ** -7
+VISION_PLANTED = 1.01  # the planted fault: one output column scaled
+
+
+def _col_tile_rel(got, want):
+    """Relative errors of (rows, cols) tensors per tile of VISION_TILE
+    rows of one column, as a (rows / VISION_TILE, cols) tensor."""
+    cols = want.shape[-1]
+    sq = ((got.float() - want.float()).square(), want.float().square())
+    err, norm = (x.reshape(-1, VISION_TILE, cols).sum(1) for x in sq)
+    return (err / norm.clamp_min(1e-30)).sqrt()
+
+
+def _vision_err(got, want, what):
+    """(readings, faults) of one tile-checked output: the largest
+    per-tile relative error, and for the planted fault (column 1 of the
+    kernel's output scaled in f32) the largest per-tile relative error,
+    which must fail the check, and the share of that column's tiles
+    that fail it."""
+    assert finite(got), f"non-finite {what}"
+    got2 = got.reshape(-1, got.shape[-1])
+    want2 = want.reshape(-1, want.shape[-1])
+    tiles = _col_tile_rel(got2, want2)
+    planted = got2.float()
+    planted[:, 1] *= VISION_PLANTED
+    caught = _col_tile_rel(planted, want2)[:, 1]
+    r = {"max_abs_err": (got2.float() - want2.float()).abs().max().item(),
+         "tile_rel_err": tiles.max().item(),
+         "planted_tile_rel_max": caught.max().item(),
+         "planted_tiles_failing": (caught > VISION_TILE_REL).float().mean()
+         .item()}
+    faults = []
+    if r["tile_rel_err"] > VISION_TILE_REL:
+        faults.append(f"{what}: tile rel err {r['tile_rel_err']}")
+    if r["planted_tile_rel_max"] <= VISION_TILE_REL:
+        faults.append(f"{what}: a {VISION_PLANTED}x fault on a column "
+                      "passes")
+    return r, faults
+
+
+def _norm_rel(got, want):
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp_min(1e-30)).item()
+
+
+def check_fused_matmul(torch, FL, timer, gen):
+    """The fused-matmul kernel at every ResNet-50 shape of both variants
+    against its plain version; times per training step (each shape's
+    time times its launches a step) of the kernel, the plain version and
+    torch.matmul on the same bf16 operands (y alone)."""
+    recs = []
+    faults = []
+    for name, shapes, affine in (
+        ("fused_matmul_stats", MATMUL_STATS_SHAPES, False),
+        ("affine_relu_matmul_stats", AFFINE_SHAPES, True),
+    ):
+        per_shape = []
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+        work = [0.0, 0.0]  # bytes and operations of one step's launches
+        for (m, k, n), per_step in shapes:
+            a = torch.randn((m, k), device="cuda", generator=gen).to(
+                torch.bfloat16)
+            b = (torch.randn((k, n), device="cuda", generator=gen)
+                 / math.sqrt(k)).to(torch.bfloat16)
+            sc = sh = None
+            if affine:
+                sc = torch.rand((k,), device="cuda", generator=gen) + 0.5
+                sh = torch.randn((k,), device="cuda", generator=gen) * 0.5
+            if affine:
+                def launch():
+                    return FL.fused_affine_matmul(a, sc, sh, b)
+            else:
+                def launch():
+                    return FL.fused_matmul(a, b)
+            y, s, ss = launch()
+            ry, rs, rss = FL.fused_matmul_plain(a, b, sc, sh)
+            torch.cuda.synchronize()
+            r, f = _vision_err(y, ry, f"{name} {m}x{k}x{n} y")
+            r["s_rel"], r["ss_rel"] = _norm_rel(s, rs), _norm_rel(ss, rss)
+            faults += f
+            for key in ("s_rel", "ss_rel"):
+                if not (r[key] <= VISION_SUM_REL):
+                    faults.append(f"{name} {m}x{k}x{n}: {key} {r[key]}")
+            # Each input byte read once, each output byte written once.
+            nbytes = 2 * (m * k + k * n + m * n) + 8 * n + (8 * k if affine
+                                                            else 0)
+            r["bound_ms"], r["bound_by"] = bound_ms(nbytes, 2.0 * m * n * k,
+                                                    "bf16")
+            work[0] += per_step * nbytes
+            work[1] += per_step * 2.0 * m * n * k
+            r["ms"] = timer.ms(launch, iters=20)
+            r["plain_ms"] = timer.ms(
+                lambda: FL.fused_matmul_plain(a, b, sc, sh), iters=5)
+            r["library_ms"] = timer.ms(lambda: torch.matmul(a, b),
+                                       iters=20)
+            for key in tot:
+                tot[key] += per_step * r[key]
+            per_shape.append({"mkn": [m, k, n], "per_step": per_step, **r})
+            del a, b, y, ry
+        worst = max(per_shape, key=lambda x: x["tile_rel_err"])
+        b_ms, b_by = bound_ms(*work, "bf16")
+        recs.append({
+            "bound_ms": b_ms, "bound_by": b_by,
+            "name": name, "shapes": per_shape,
+            "max_abs_err": max(x["max_abs_err"] for x in per_shape),
+            "tile_rel_err": worst["tile_rel_err"],
+            "tolerance_tile_rel": VISION_TILE_REL,
+            "tolerance_stats_rel": VISION_SUM_REL,
+            "tolerance_reason": "y: each side rounds its f32 sum to bf16 "
+            "once (one ulp is 2**-8 of an element); stats: f32 sums in "
+            "another order",
+            "times": "per training step: the sum over its launches; the "
+            "bound that of one step's launches together",
+            **tot,
+        })
+    return recs, faults
+
+
+def check_conv3x3(torch, FC, timer, gen):
+    """The 3x3 conv kernel at ResNet-50's four stride-1 shapes: forward
+    without and with the prologue against the plain version, and the
+    backward through autograd (dx, dscale, dshift, dw) against the same
+    autograd Function on the plain version; times of the forward and the
+    data gradient beside the plain version and cuDNN (channels_last
+    F.conv2d, y alone)."""
+    conv2d = torch.nn.functional.conv2d
+    fwd_shapes, bwd_shapes, faults = [], [], []
+    op_launches = [0, 0]  # through conv3x3_bn_stats: forward, backward
+    for n, h, w, c in CONV3_SHAPES:
+        tag = f"{n}x{h}x{w}x{c}"
+        m = n * h * w
+        x = torch.randn((n, h, w, c), device="cuda", generator=gen).to(
+            torch.bfloat16)
+        wt = torch.randn((3, 3, c, c), device="cuda", generator=gen) / (
+            3 * math.sqrt(c))
+        w9 = wt.reshape(9, c, c).to(torch.bfloat16)
+        sc = torch.rand((c,), device="cuda", generator=gen) + 0.5
+        sh = torch.randn((c,), device="cuda", generator=gen) * 0.5
+        rec = {"nhwc": [n, h, w, c]}
+        for pro, args in (("plain_x", (None, None)), ("prologue", (sc, sh))):
+            y, s, ss = FC.conv3x3(x, w9, *args)
+            ry, rs, rss = FC.conv3x3_plain(x, w9, *args)
+            torch.cuda.synchronize()
+            r, f = _vision_err(y, ry, f"conv3x3 {tag} {pro} y")
+            r["s_rel"], r["ss_rel"] = _norm_rel(s, rs), _norm_rel(ss, rss)
+            faults += f
+            for key in ("s_rel", "ss_rel"):
+                if not (r[key] <= VISION_SUM_REL):
+                    faults.append(f"conv3x3 {tag} {pro}: {key} {r[key]}")
+            rec[pro] = r
+            del y, ry
+        # Backward: random cotangents for y and, at the model's 1 / rows
+        # scale, for the statistics.
+        g = torch.randn((n, h, w, c), device="cuda", generator=gen).to(
+            torch.bfloat16)
+        ds = torch.randn((c,), device="cuda", generator=gen) / m
+        dss = torch.randn((c,), device="cuda", generator=gen) / m
+
+        def grads():
+            """Gradients through the op's entry point, and the kernel
+            launches of its forward and of its backward."""
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (x, sc, sh, wt)]
+            c0 = FC.conv3x3.launches
+            out = FC.conv3x3_bn_stats(*leaves)
+            c1 = FC.conv3x3.launches
+            got = torch.autograd.grad(out, leaves, (g, ds, dss))
+            return got, (c1 - c0, FC.conv3x3.launches - c1)
+
+        # The data-gradient kernel's own output, tile by tile.
+        w_rot = FC.rot180_t(w9)
+        dz = FC.conv3x3(g, w_rot, stats=False)[0]
+        bw, f = _vision_err(dz, FC.conv3x3_plain(g, w_rot)[0],
+                            f"conv3x3 {tag} data gradient")
+        faults += f
+        del dz
+        got, n_got = grads()
+        with plain_vision_kernels(None, FC):
+            want, n_want = grads()
+        torch.cuda.synchronize()
+        if n_got != (1, 1) or n_want != (0, 0):
+            faults.append(f"conv3x3 {tag}: launches {n_got} (kernel path), "
+                          f"{n_want} (plain path)")
+        op_launches[0] += n_got[0]
+        op_launches[1] += n_got[1]
+        for i, key in enumerate(("dx_rel", "dscale_rel", "dshift_rel",
+                                 "dw_rel")):
+            bw[key] = _norm_rel(got[i], want[i])
+            lim = VISION_SUM_REL if key == "dw_rel" else VISION_DAFFINE_REL
+            if not (bw[key] <= lim):
+                faults.append(f"conv3x3 {tag}: {key} {bw[key]}")
+        del got, want
+        flops = 2.0 * m * 9 * c * c
+        nbytes = 2 * (2 * m * c + 9 * c * c)
+        rec["bytes_ops"] = [nbytes + 16 * c, flops]
+        bw["bytes_ops"] = [nbytes, flops]
+        for r in (rec, bw):
+            r["bound_ms"], r["bound_by"] = bound_ms(*r["bytes_ops"], "bf16")
+        g_cl = g.permute(0, 3, 1, 2)
+        x_cl = x.permute(0, 3, 1, 2)
+        w_cl = w9.reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        wr_cl = w_rot.reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        rec["ms"] = timer.ms(lambda: FC.conv3x3(x, w9, sc, sh), iters=20)
+        rec["ms_no_prologue"] = timer.ms(lambda: FC.conv3x3(x, w9),
+                                         iters=20)
+        rec["plain_ms"] = timer.ms(
+            lambda: FC.conv3x3_plain(x, w9, sc, sh), iters=5)
+        rec["library_ms"] = timer.ms(
+            lambda: conv2d(x_cl, w_cl, padding=1), iters=20)
+        bw["ms"] = timer.ms(
+            lambda: FC.conv3x3(g, w_rot, stats=False), iters=20)
+        bw["plain_ms"] = timer.ms(
+            lambda: FC.conv3x3_plain(g, w_rot), iters=5)
+        bw["library_ms"] = timer.ms(
+            lambda: conv2d(g_cl, wr_cl, padding=1), iters=20)
+        fwd_shapes.append(rec)
+        bwd_shapes.append({"nhwc": [n, h, w, c], **bw})
+        del x, g
+    recs = []
+    for name, shapes, what, launches in (
+        ("conv3x3_bn_stats_fwd", fwd_shapes, "forward with the prologue",
+         op_launches[0]),
+        ("conv3x3_bn_stats_dgrad", bwd_shapes, "data gradient",
+         op_launches[1]),
+    ):
+        errs = [s.get("prologue", s) for s in shapes]
+        rec = {"name": name, "shapes": shapes, "what": what,
+               "launches": launches,
+               "launches_from": "this op phase: conv3x3_bn_stats forward "
+               "and backward once at each shape (no model path of the "
+               "reference or the port runs this kernel)",
+               "max_abs_err": max(e["max_abs_err"] for e in errs),
+               "tile_rel_err": max(e["tile_rel_err"] for e in errs),
+               "tolerance_tile_rel": VISION_TILE_REL,
+               "times": "the sum over the four shapes, one call each; the "
+               "bound that of the four calls together"}
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            sum(s["bytes_ops"][0] for s in shapes),
+            sum(s["bytes_ops"][1] for s in shapes), "bf16")
+        for key in ("ms", "plain_ms", "library_ms"):
+            rec[key] = sum(s[key] for s in shapes)
+        recs.append(rec)
+    return recs, faults
+
+
+class plain_vision_kernels:
+    """Within the block, the vision kernels' autograd Functions run their
+    plain versions on the card (the plain path of the parity checks); FL
+    or FC may be None to leave that module alone."""
+
+    def __init__(self, FL, FC):
+        self.FL, self.FC = FL, FC
+
+    def __enter__(self):
+        if self.FL is not None:
+            self.saved_fl = self.FL._forward
+            self.FL._forward = self.FL.fused_matmul_plain
+        if self.FC is not None:
+            self.saved_fc = self.FC._conv
+            plain = self.FC.conv3x3_plain
+            self.FC._conv = lambda x, w9, sc, sh, stats=True: plain(
+                x, w9, sc, sh)
+        return self
+
+    def __exit__(self, *exc):
+        if self.FL is not None:
+            self.FL._forward = self.saved_fl
+        if self.FC is not None:
+            self.FC._conv = self.saved_fc
+        return False
+
+
+VISION = dict(model_name="resnet50", image_size=224, num_classes=1000,
+              learning_rate=0.1, loss_impl="xla",
+              model_kwargs=dict(stem="s2d", conv1x1="conv", norm_impl="fused",
+                                block_impl="fused_pallas", remat="none"))
+VISION_BATCH = 256
+VISION_STEPS = 20
+# One step of the kernel path against the plain path (the same autograd
+# Functions with the plain versions in place of the kernels) from one set
+# of weights and one batch.  The loss within half a bf16 ulp and the new
+# running statistics within 1e-3 (norm of the difference over the norm).
+# The whole step's parameter gradients cannot be held to a fixed bound:
+# at this depth in bf16 they move by a median of ~50% when one input
+# pixel moves by 0.01 (read on the card while writing this check), as the
+# kernel's one-ulp roundings move them.  So each fused block is replayed
+# alone on the input and output gradient it saw, kernel against plain,
+# and every gradient there is held to 2**-5 (norm of the difference over
+# the norm); the whole step's median gradient error is held to twice the
+# median that moving one pixel (VISION_PIXEL) causes on the plain path.
+VISION_LOSS_REL = 2.0 ** -9
+VISION_GRAD_REL = 2.0 ** -5
+VISION_STATS_REL = 1e-3
+VISION_PIXEL = 0.01
+# ResNet-50's forward at 224 x 224, as bench.py counts it: 4.09 GFLOP an
+# image, a training step 3x the forward.
+RESNET50_FWD_FLOP = 4.09e9
+
+
+def _vision_counts(FL, reset=False):
+    fns = {"fused_matmul_stats": FL.fused_matmul,
+           "affine_relu_matmul_stats": FL.fused_affine_matmul}
+    if reset:
+        for fn in fns.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def _grad_rel(model_a, model_b):
+    """Per parameter, ||grad_a - grad_b|| / ||grad_b||."""
+    return {name: _norm_rel(pa.grad, pb.grad) for (name, pa), pb in zip(
+        model_a.named_parameters(), model_b.parameters())}
+
+
+def _median(values):
+    return sorted(values)[len(values) // 2]
+
+
+def replay_blocks(torch, FL, model, snapshot, captured):
+    """Each fused block of `model`, reset to `snapshot` (the weights the
+    kernel-path step started from), run alone on the input and output
+    gradient that block saw in that step, once through the kernels and
+    once through the plain versions: the relative error of its output,
+    its input's gradient and every parameter's gradient."""
+    model.load_state_dict(snapshot)
+    worst = {}
+    for i, (x, g) in sorted(captured.items()):
+        blk = model.blocks[i]
+        runs = []
+        for plain in (False, True):
+            for prm in blk.parameters():
+                prm.grad = None
+            xi = x.detach().clone().requires_grad_(True)
+            if plain:
+                with plain_vision_kernels(FL, None):
+                    out = blk(xi, train=True)
+                    out.backward(g)
+            else:
+                out = blk(xi, train=True)
+                out.backward(g)
+            runs.append([out.detach(), xi.grad] + [
+                prm.grad.clone() for prm in blk.parameters()])
+        names = ["out", "dx"] + [n for n, _ in blk.named_parameters()]
+        rel = {n: _norm_rel(a, b) for n, a, b in zip(names, *runs)}
+        top = max(rel, key=rel.get)
+        worst[f"blocks.{i}"] = [top, rel[top]]
+    return worst
+
+
+def run_vision_train(torch, gen):
+    """ResNet-50 training at the fused-block configuration (s2d stem,
+    block_impl fused_pallas, batch 256, 224 x 224, SGD lr 0.1) with seeded
+    weights and every bn3 scale drawn nonzero: one step of the kernel
+    path against the plain path from the same weights and batch (the
+    loss, the new running statistics, the gradients against the floor
+    that moving one pixel sets, and each block replayed alone on what it
+    saw), then VISION_STEPS steps on that batch with the launch counters
+    read around them, step time and images/s, a 3-step profile, and
+    resnet_main itself at its defaults for a warm-up step and 3 logged
+    steps."""
+    from container_engine_accelerators_tpu_torch import resnet_main
+    from container_engine_accelerators_tpu_torch.models import (
+        fused_block as FB,
+        train as TT,
+    )
+    from container_engine_accelerators_tpu_torch.ops import (
+        fused_linear as FL,
+    )
+
+    per_step = {"fused_matmul_stats": 16, "affine_relu_matmul_stats": 16}
+    k_step, batch_fn, k_state = TT.build_training(**VISION, seed=SEED,
+                                                  device="cuda")
+    model = k_state["model"]
+    blocks = [b for b in model.blocks
+              if isinstance(b, FB.FusedBottleneckBlock)]
+    assert len(blocks) == 16, len(blocks)
+    with torch.no_grad():
+        for blk in blocks:
+            blk.bn3_scale.copy_(0.2 + 0.4 * torch.rand(
+                blk.bn3_scale.shape, device="cuda", generator=gen))
+    snapshot = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    images, labels = batch_fn(gen, VISION_BATCH)
+    moved = images.clone()
+    moved[0, 0, 0, 0] += VISION_PIXEL
+
+    # The kernel path, each block's input and output gradient captured.
+    captured, hooks = {}, []
+    for i, blk in enumerate(model.blocks):
+        def keep(mod, args, out, i=i):
+            captured[i] = [args[0].detach(), None]
+            out.register_hook(
+                lambda g: captured[i].__setitem__(1, g.detach()))
+        hooks.append(blk.register_forward_hook(keep))
+    _vision_counts(FL, reset=True)
+    k_state, k_loss = k_step(k_state, images, labels)
+    for h in hooks:
+        h.remove()
+    one = _vision_counts(FL)
+    if one != per_step:
+        raise AssertionError(f"one kernel-path step launched {one}")
+    # The plain path, and the floor: the plain path with one pixel moved.
+    losses, plain_models = {}, {}
+    for name, imgs in (("plain", images), ("moved_pixel", moved)):
+        step, _, state = TT.build_training(**VISION, seed=SEED,
+                                           device="cuda")
+        state["model"].load_state_dict(snapshot)
+        with plain_vision_kernels(FL, None):
+            state, loss = step(state, imgs, labels)
+        losses[name], plain_models[name] = float(loss), state["model"]
+        del step, state
+    if _vision_counts(FL) != one:
+        raise AssertionError("the plain path launched a kernel")
+    p_model = plain_models["plain"]
+    loss_rel = abs(float(k_loss) - losses["plain"]) / abs(losses["plain"])
+    for name, prm in model.named_parameters():
+        assert finite(prm.grad), name
+    grad_rel = _grad_rel(model, p_model)
+    floor_rel = _grad_rel(plain_models["moved_pixel"], p_model)
+    del plain_models["moved_pixel"]
+    stats_rel = {name: _norm_rel(bk, bp) for (name, bk), bp in zip(
+        model.named_buffers(), p_model.buffers())}
+    worst_s = max(stats_rel, key=stats_rel.get)
+    blocks_worst = replay_blocks(torch, FL, p_model, snapshot, captured)
+    del captured, p_model, plain_models
+    worst_b = max(blocks_worst, key=lambda k: blocks_worst[k][1])
+    faults = []
+    if not loss_rel <= VISION_LOSS_REL:
+        faults.append(f"loss rel {loss_rel}")
+    if not stats_rel[worst_s] <= VISION_STATS_REL:
+        faults.append(f"{worst_s} stats rel {stats_rel[worst_s]}")
+    if not blocks_worst[worst_b][1] <= VISION_GRAD_REL:
+        faults.append(f"{worst_b} replayed: {blocks_worst[worst_b]}")
+    if not _median(grad_rel.values()) <= 2 * _median(floor_rel.values()):
+        faults.append("whole-step gradients: median rel "
+                      f"{_median(grad_rel.values())} over twice the floor "
+                      f"{_median(floor_rel.values())}")
+    if faults:
+        raise AssertionError(f"vision parity: {faults}")
+    worst = max(grad_rel, key=grad_rel.get)
+    parity = {
+        "batch": VISION_BATCH,
+        "loss_kernel_path": float(k_loss), "loss_plain_path": losses["plain"],
+        "loss_plain_moved_pixel": losses["moved_pixel"],
+        "loss_rel": loss_rel, "loss_tolerance_rel": VISION_LOSS_REL,
+        "stats_rel_worst": [worst_s, stats_rel[worst_s]],
+        "stats_tolerance_rel": VISION_STATS_REL,
+        "blocks_replayed_worst": blocks_worst,
+        "blocks_tolerance_rel": VISION_GRAD_REL,
+        "whole_step_grad_rel": {
+            "median": _median(grad_rel.values()),
+            "worst": [worst, grad_rel[worst]],
+            "floor_median": _median(floor_rel.values()),
+            "floor_worst": max(floor_rel.values()),
+        },
+        "leaves": len(grad_rel), "launches_one_step": one,
+    }
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    _vision_counts(FL, reset=True)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    losses, marks = [], []
+    for _ in range(VISION_STEPS):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        k_state, loss = k_step(k_state, images, labels)
+        losses.append(loss)
+    losses = [float(x) for x in losses]  # the fence
+    wall = time.monotonic() - t0
+    step_each = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    launches = _vision_counts(FL)
+    want = {name: n * VISION_STEPS for name, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}")
+    if not all(math.isfinite(x) for x in losses) or not (
+        losses[-1] < losses[0]
+    ):
+        raise AssertionError(f"vision training loss did not fall: {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = device_profile(
+        torch, lambda: [k_step(k_state, images, labels) for _ in range(3)],
+        top=12)
+    del k_step, k_state, model, blocks
+    torch.cuda.empty_cache()
+
+    # The command-line job at its defaults (the flax block: no kernel of
+    # this phase runs there): a warm-up step and 3 logged steps.
+    _vision_counts(FL, reset=True)
+    t_cli = time.monotonic()
+    rc = resnet_main.main(["--train-steps", "3", "--log-every", "1"])
+    cli_s = time.monotonic() - t_cli
+    cli = _vision_counts(FL)
+    if rc != 0 or any(cli.values()):
+        raise AssertionError(f"resnet_main exited {rc}, launched {cli}")
+
+    step_ms = wall / VISION_STEPS * 1e3
+    flops = 3 * RESNET50_FWD_FLOP * VISION_BATCH
+    return {
+        "phase": "vision_train", **VISION, "batch": VISION_BATCH,
+        "steps": VISION_STEPS, "parity": parity, "losses": losses,
+        "step_ms": step_ms, "step_ms_device_clock": step_each,
+        "images_per_s": VISION_BATCH * VISION_STEPS / wall,
+        "model_flops_per_step": flops,
+        "model_flops_share_of_bf16_peak": flops / PEAK_OPS["bf16"]
+        / (step_ms / 1e3),
+        "peak_memory_gb": peak_gb, "profile": profile,
+        "launches": launches, "resnet_main_launches": cli,
+        "resnet_main_seconds": cli_s,
+    }, launches
+
+
 def _train_counts(FA, FX, reset=False):
     fns = {"flash_attention_fwd": FA.flash_attention_fwd,
            "flash_attention_bwd": FA.flash_attention_bwd,
@@ -957,6 +1559,8 @@ def main() -> int:
         from container_engine_accelerators_tpu_torch.ops import (
             _build,
             flash_attention as FA,
+            fused_conv3x3 as FC,
+            fused_linear as FL,
             fused_xent as FX,
             paged_attention as PA,
             quant_matmul as QM,
@@ -967,6 +1571,8 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(LOG_DIR, exist_ok=True)
+    open(LOG_PATH, "w").close()
 
     props = torch.cuda.get_device_properties(0)
     smi = nvidia_smi_line()
@@ -1018,6 +1624,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     train, l_train = run_train(torch, timer, tgen)
     emit({**train, "card": smi})
+    torch.cuda.empty_cache()
+
+    vgen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    k_fl, faults = check_fused_matmul(torch, FL, timer, vgen)
+    k_fc, more = check_conv3x3(torch, FC, timer, vgen)
+    if faults + more:
+        raise AssertionError(f"vision kernels: {faults + more}")
+    emit({"phase": "vision_kernels", "fused_matmul": k_fl,
+          "conv3x3": k_fc, "card": smi})
+    torch.cuda.empty_cache()
+    vision, l_vision = run_vision_train(torch, vgen)
+    emit({**vision, "card": smi})
 
     src = "container_engine_accelerators_tpu_torch/csrc/"
     ref = "container_engine_accelerators_tpu/ops/"
@@ -1037,6 +1655,14 @@ def main() -> int:
          "fused_xent.py:34"),
         (k_xent[1], l_train["fused_xent_bwd"], "fused_xent.cu",
          "fused_xent.py:46"),
+        (k_fl[0], l_vision["fused_matmul_stats"], "fused_linear.cu",
+         "fused_linear.py:65"),
+        (k_fl[1], l_vision["affine_relu_matmul_stats"], "fused_linear.cu",
+         "fused_linear.py:65"),
+        (k_fc[0], k_fc[0]["launches"], "fused_conv3x3.cu",
+         "fused_conv3x3.py:55"),
+        (k_fc[1], k_fc[1]["launches"], "fused_conv3x3.cu",
+         "fused_conv3x3.py:55"),
     ):
         if launches < 1:
             raise AssertionError(f"{rec['name']} never ran on the main path")
@@ -1047,6 +1673,8 @@ def main() -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         })
+        if "launches_from" in rec:
+            kernels[-1]["launches_from"] = rec["launches_from"]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

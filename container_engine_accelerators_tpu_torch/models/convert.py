@@ -1,6 +1,8 @@
 """Carry weights across: the reference's flax TransformerLM param tree
 (nested dicts of numpy-convertible arrays) into the port's modules, and
-back.
+back; and a flax ResNet's params and batch_stats trees
+(`load_flax_resnet`, `to_flax_resnet`, `to_flax_resnet_grads`), named
+leaf by leaf by models/resnet.py's `flax_leaves`, for either block_impl.
 
 Names map as the flax module builds them: Embed_0/embedding -> embed,
 pos_emb, block_i/{LayerNorm_0 -> ln0, qkv, proj, LayerNorm_1 -> ln1,
@@ -65,6 +67,65 @@ def to_flax_grads(model):
     """The parameters' gradients (`.grad`, after a backward) as a flax
     tree of f32 numpy arrays, laid out as to_flax_params."""
     return _flax_tree(model, lambda p: p.grad)
+
+
+def _get(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _set(tree, path, value):
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def load_flax_resnet(model, params, batch_stats):
+    """Copy a flax ResNet's `params` and `batch_stats` trees (numpy
+    leaves) into `model` (a port ResNet, models/resnet.py) in place;
+    returns the model.  Conv kernels go from flax's HWIO to torch's OIHW.
+    Raises KeyError on a tree of another configuration."""
+    from .resnet import flax_leaves
+
+    trees = {"params": params, "batch_stats": batch_stats}
+    with torch.no_grad():
+        for coll, path, t, layout in flax_leaves(model):
+            value = np.asarray(_get(trees[coll], path), np.float32)
+            if layout == "oihw":
+                value = value.transpose(3, 2, 0, 1)
+            _put(t, value)
+    return model
+
+
+def _resnet_trees(model, leaf):
+    from .resnet import flax_leaves
+
+    trees = {"params": {}, "batch_stats": {}}
+    for coll, path, t, layout in flax_leaves(model):
+        value = leaf(coll, t)
+        if value is None:
+            continue
+        value = value.detach().float().cpu().numpy()
+        if layout == "oihw":
+            value = value.transpose(2, 3, 1, 0)
+        _set(trees[coll], path, value)
+    return trees
+
+
+def to_flax_resnet(model):
+    """The inverse of load_flax_resnet: (params, batch_stats), flax-shaped
+    trees of f32 numpy arrays."""
+    trees = _resnet_trees(model, lambda coll, t: t)
+    return trees["params"], trees["batch_stats"]
+
+
+def to_flax_resnet_grads(model):
+    """The parameters' gradients (`.grad`, after a backward) as a flax
+    params tree of f32 numpy arrays, laid out as to_flax_resnet's."""
+    return _resnet_trees(
+        model, lambda coll, t: t.grad if coll == "params" else None
+    )["params"]
 
 
 def _flax_tree(model, leaf):

@@ -3,8 +3,9 @@
 Each source compiles with nvcc into its own shared library with a
 plain C interface (one or more entry points, ENTRY_POINTS), at first
 use, into `_kernels_build/` beside the package (listed in .gitignore).
-The library's file name carries a hash of the source and the flags, so
-an edited source rebuilds and an unchanged one loads from disk.
+The library's file name carries a hash of the source, of every shared
+header (csrc/*.cuh) and of the flags, so an edited source or header
+rebuilds and an unchanged one loads from disk.
 `build_all()` starts one nvcc per source together and waits for all of
 them, so a cold start costs the slowest compile, not the sum.
 
@@ -51,6 +52,8 @@ ENTRY_POINTS = {
     ),
     "cea_xent_fwd": ("fused_xent", [_P] * 4 + [_I] * 4 + [_P]),
     "cea_xent_bwd": ("fused_xent", [_P] * 5 + [_I] * 4 + [_P]),
+    "cea_fused_matmul": ("fused_linear", [_P] * 7 + [_I] * 4 + [_P]),
+    "cea_conv3x3": ("fused_conv3x3", [_P] * 7 + [_I] * 6 + [_P]),
 }
 SOURCES = tuple(sorted({src for src, _ in ENTRY_POINTS.values()}))
 
@@ -70,8 +73,11 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -66,6 +66,36 @@ def draw_params(seed: int, cfg=None):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
+def draw_vision_trees(module, x_shape, seed, init_kw=None):
+    """(params, batch_stats) of a flax vision module (numpy f32 leaves)
+    drawn from `seed`: kernels N(0, 2 / fan_in), every norm scale
+    1 + N(0, 0.2^2) (nonzero, so that the zero-initialized last norm of
+    each block passes gradients), biases N(0, 0.1^2), running means
+    N(0, 0.1^2) and variances 1 + |N(0, 0.2^2)|."""
+    variables = jax.eval_shape(
+        lambda: module.init(jax.random.PRNGKey(0),
+                            jnp.zeros(x_shape, jnp.float32),
+                            **(init_kw or {}))
+    )
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        name = getattr(path[-1], "key", str(path[-1]))
+        if name.endswith("kernel"):
+            fan_in = int(np.prod(s.shape[:-1]))
+            v = np.sqrt(2.0 / fan_in) * rng.standard_normal(s.shape)
+        elif name.endswith("scale"):
+            v = 1.0 + 0.2 * rng.standard_normal(s.shape)
+        elif name.endswith("var"):
+            v = 1.0 + np.abs(0.2 * rng.standard_normal(s.shape))
+        else:  # biases, running means
+            v = 0.1 * rng.standard_normal(s.shape)
+        return v.astype(np.float32)
+
+    trees = jax.tree_util.tree_map_with_path(leaf, dict(variables))
+    return trees["params"], trees.get("batch_stats", {})
+
+
 def jax_decoder(cfg=None):
     return T.TransformerLM(dtype=jnp.float32, decode=True, **(cfg or CFG))
 
