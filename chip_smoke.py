@@ -23,13 +23,16 @@ Phases, one JSON line each (stdout):
                 lag-window engine, launch counters read around each run,
                 tokens checked against the port's solo oracle;
   5. train_kernels — flash attention forward and backward at (8, 2048,
-                8, 128) bf16, q / k / v the strided views of one qkv
-                projection, and the fused cross-entropy forward and
-                backward at 16384 x 32000 f32 (and at 64 rows in f32 and
-                bf16, C 1000 and 32000), each against its plain version
+                8, 128) and (8, 2048, 16, 64) bf16, q / k / v the strided
+                views of one qkv projection, each timed beside the plain
+                version and SDPA, and held (not timed) at seq 128, 192
+                (half a 128-row tile) and 8192; and the fused
+                cross-entropy forward and backward at 16384 x 32000 f32
+                (and at 64 rows in f32 and bf16, C 1000 and 32000, timed
+                beside F.cross_entropy); each against its plain version
                 (and its autograd), flash per 16-row tile with a planted
-                fault that must fail the check, timed beside the plain
-                version and SDPA / F.cross_entropy;
+                fault that must fail the check, and every flash backward
+                run twice and held bitwise equal;
   6. train    — lm_main's full default width (vocab 32000, dim 1024,
                 depth 8, heads 8, seq 2048, batch 8, lr 3e-4), seeded
                 weights: one step of the kernel path against the plain
@@ -39,7 +42,9 @@ Phases, one JSON line each (stdout):
                 time, tokens/s, the model-FLOPs share of peak, a 3-step
                 profile and the f32 head's share of the step; then the
                 command-line trainer (lm_main) at its defaults for a
-                warm-up step and 3 logged steps;
+                warm-up step and 3 logged steps, and again with --heads
+                16 (head dim 64: 8 + 8 flash launches a step, the logged
+                loss falling);
   7. vision_kernels — the fused-matmul kernel (matmul_stats and
                 affine_relu_matmul_stats) at its 12 ResNet-50 shapes, and
                 the 3x3 conv kernel at ResNet-50's 4 stride-1 shapes,
@@ -68,8 +73,10 @@ CUDA device, or without the port beside it, it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -471,16 +478,20 @@ def device_profile(torch, fn, top=6):
         return {"device_busy_share": "not measured",
                 "error": "no device events recorded"}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    by_kind = {}
+    by_kind, port = {}, {}
     for name, us in by_name.items():
         kind = kernel_kind(name)
         by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+        if kind == "port kernels":  # each by its function's name
+            short = name.split("(anonymous namespace)::")[-1].split("(")[0]
+            port[short] = port.get(short, 0.0) + us / 1e3
     return {
         "window_s": wall_us / 1e6,
         "device_busy_share": busy / wall_us,
         "device_ms": busy / 1e3,
         "top_kernels_ms": [[name[:100], us / 1e3] for name, us in ranked],
         "kernel_ms_by_kind": by_kind,
+        "port_kernels_ms": port,
     }
 
 
@@ -668,15 +679,16 @@ def _flash_err(got, want, what):
     """Readings of one flash output: max abs error, the largest per-tile
     relative error and the first row of its tile, and the smallest and
     largest per-tile relative error of a planted fault (the kernel's own
-    output with the rows past 512 scaled by FLASH_PLANTED); with the
-    reasons the check fails, if any: past FLASH_TILE_REL, or blind to
-    the planted fault."""
+    output with the rows past row 512, or past the middle of a shorter
+    seq, scaled by FLASH_PLANTED); with the reasons the check fails, if
+    any: past FLASH_TILE_REL, or blind to the planted fault."""
     assert finite(got), f"non-finite {what}"
     tiles = _tile_rel(got, want)
     worst = int(tiles.flatten().argmax().item())
+    first = min(512, got.shape[1] // 2)
     planted = got.clone()
-    planted[:, 512:] *= FLASH_PLANTED
-    caught = _tile_rel(planted, want)[:, 512 // FLASH_TILE:]
+    planted[:, first:] *= FLASH_PLANTED
+    caught = _tile_rel(planted, want)[:, first // FLASH_TILE:]
     r = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
          "tile_rel_err": tiles.max().item(),
          "worst_tile_row": worst // tiles.shape[2] % tiles.shape[1]
@@ -686,87 +698,134 @@ def _flash_err(got, want, what):
     if r["tile_rel_err"] > FLASH_TILE_REL:
         faults.append(f"{what}: tile rel err {r['tile_rel_err']}")
     if r["planted_tile_rel"][1] <= FLASH_TILE_REL:
-        faults.append(f"{what}: a {FLASH_PLANTED}x fault past row 512 "
+        faults.append(f"{what}: a {FLASH_PLANTED}x fault past row {first} "
                       "passes")
     return r, faults
 
 
-def check_flash(torch, FA, timer, gen):
-    """Flash forward and backward at the LM's shapes (b 8, s 2048, h 8,
-    d 128, bf16) against the plain version and its autograd, with q, k,
-    v the strided views of one fused qkv projection, as the main path
-    gives them; times of the kernels, the plain version and SDPA."""
-    b, s, h = TRAIN["batch"], TRAIN["seq_len"], TRAIN["heads"]
-    d = TRAIN["dim"] // h
+def flash_case(torch, FA, gen, b, s, h, d):
+    """The kernels at one shape against the plain version and its
+    autograd, q / k / v the strided views of one fused qkv projection as
+    the main path gives them; the backward run twice and held bitwise
+    equal.  Returns the tensors (for the timings) and the readings;
+    raises on a fault."""
     qkv = torch.randn((b, s, 3, h, d), device="cuda", generator=gen).to(
         torch.bfloat16)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     dout = torch.randn((b, s, h, d), device="cuda", generator=gen).to(
         torch.bfloat16)
     out, lse = FA.flash_attention_fwd(q, k, v)
-    dq, dk, dv = FA.flash_attention_bwd(q, k, v, out, lse, dout)
+    grads = FA.flash_attention_bwd(q, k, v, out, lse, dout)
+    again = FA.flash_attention_bwd(q, k, v, out, lse, dout)
     leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
     ref = FA.causal_attention_plain(*leaves)
     ref_grads = torch.autograd.grad(ref, leaves, dout, retain_graph=True)
     torch.cuda.synchronize()
     fwd, faults = _flash_err(out, ref, "out")
     bwd = {}
-    for got, want, what in zip((dq, dk, dv), ref_grads, ("dq", "dk", "dv")):
+    for got, want, what in zip(grads, ref_grads, ("dq", "dk", "dv")):
         bwd[what], f = _flash_err(got, want, what)
         faults += f
-    del ref_grads
+    if not all(torch.equal(a, c) for a, c in zip(grads, again)):
+        faults.append("two backward runs differ bitwise")
     if faults:
         raise AssertionError(
-            f"flash: {faults} (limit {FLASH_TILE_REL}); readings {fwd} {bwd}")
+            f"flash at {(b, s, h, d)}: {faults} (limit {FLASH_TILE_REL}); "
+            f"readings {fwd} {bwd}")
+    tensors = dict(q=q, k=k, v=v, dout=dout, out=out, lse=lse, ref=ref,
+                   leaves=leaves)
+    return tensors, fwd, bwd
+
+
+FLASH_EXTRA_SHAPES = [  # (b, s, h, d): held, not timed
+    (2, 128, 8, 128),   # the smallest length: one 128-row tile
+    (2, 192, 8, 128),   # ragged for the 128-row tile: a half last tile
+    (1, 8192, 8, 128),  # inside the reference's splash window
+]
+
+
+def check_flash(torch, FA, timer, gen):
+    """Flash forward and backward against the plain version and its
+    autograd: at the LM's shapes (b 8, s 2048, bf16) at head dim 128 (8
+    heads) and 64 (16 heads), each with the times of the kernels, the
+    plain version and SDPA; and at FLASH_EXTRA_SHAPES.  Every backward is
+    run twice and held bitwise equal."""
+    b, s, dim = TRAIN["batch"], TRAIN["seq_len"], TRAIN["dim"]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lq, lk, lv = (x.detach().transpose(1, 2).contiguous().requires_grad_(
-        True) for x in (q, k, v))
-    ldo = dout.transpose(1, 2).contiguous()
-    lib_out = sdpa(lq, lk, lv, is_causal=True)
-    with torch.no_grad():
-        fwd_t = {
-            "ms": timer.ms(lambda: FA.flash_attention_fwd(q, k, v)),
-            "plain_ms": timer.ms(
-                lambda: FA.causal_attention_plain(q, k, v), iters=10),
-            "library_ms": timer.ms(
-                lambda: sdpa(lq, lk, lv, is_causal=True)),
+    records = []
+    for h in (TRAIN["heads"], 2 * TRAIN["heads"]):
+        d = dim // h
+        t, fwd, bwd = flash_case(torch, FA, gen, b, s, h, d)
+        q, k, v, dout, out, lse = (t[x] for x in (
+            "q", "k", "v", "dout", "out", "lse"))
+        ref, leaves = t["ref"], t["leaves"]
+        lq, lk, lv = (x.detach().transpose(1, 2).contiguous().requires_grad_(
+            True) for x in (q, k, v))
+        ldo = dout.transpose(1, 2).contiguous()
+        lib_out = sdpa(lq, lk, lv, is_causal=True)
+        with torch.no_grad():
+            fwd_t = {
+                "ms": timer.ms(lambda: FA.flash_attention_fwd(q, k, v)),
+                "plain_ms": timer.ms(
+                    lambda: FA.causal_attention_plain(q, k, v), iters=10),
+                "library_ms": timer.ms(
+                    lambda: sdpa(lq, lk, lv, is_causal=True)),
+            }
+        bwd_t = {
+            "ms": timer.ms(
+                lambda: FA.flash_attention_bwd(q, k, v, out, lse, dout)),
+            "plain_ms": timer.ms(lambda: torch.autograd.grad(
+                ref, leaves, dout, retain_graph=True), iters=10),
+            "library_ms": timer.ms(lambda: torch.autograd.grad(
+                lib_out, (lq, lk, lv), ldo, retain_graph=True)),
         }
-    bwd_t = {
-        "ms": timer.ms(
-            lambda: FA.flash_attention_bwd(q, k, v, out, lse, dout)),
-        "plain_ms": timer.ms(lambda: torch.autograd.grad(
-            ref, leaves, dout, retain_graph=True), iters=10),
-        "library_ms": timer.ms(lambda: torch.autograd.grad(
-            lib_out, (lq, lk, lv), ldo, retain_graph=True)),
-    }
-    lib_fwd_bwd = timer.ms(lambda: torch.autograd.grad(
-        sdpa(lq, lk, lv, is_causal=True), (lq, lk, lv), ldo), iters=20)
-    n = b * s * h * d
-    pairs = b * h * s * (s + 1) / 2  # (query, key) pairs the mask keeps
-    fwd_ops = 4.0 * pairs * d  # Q K^T and P V
-    fwd_b, fwd_by = bound_ms(4 * n * 2 + b * h * s * 4, fwd_ops, "bf16")
-    # The backward's five products (S again, dP, dV, dK, dQ): 2.5x.
-    bwd_b, bwd_by = bound_ms(8 * n * 2 + b * h * s * 4, 2.5 * fwd_ops,
-                             "bf16")
-    common = {"shape_bshd": [b, s, h, d], "qkv": "strided views of "
-              "(b, s, 3, h, d)", "planted_fault": f"x{FLASH_PLANTED} on "
-              "rows past 512: the check fails"}
-    return [
-        {"name": "flash_attention_fwd", **fwd,
-         "tolerance_tile_rel": FLASH_TILE_REL, "tile_rows": FLASH_TILE,
-         "tolerance_reason": "the kernel rounds P to bf16 for P V, the "
-         "plain version keeps f32; both round O once",
-         "bound_ms": fwd_b, "bound_by": fwd_by, **fwd_t, **common},
-        {"name": "flash_attention_bwd",
-         "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
-         "grads": bwd, "tolerance_tile_rel": FLASH_TILE_REL,
-         "tile_rows": FLASH_TILE,
-         "tolerance_reason": "the kernel rounds P and dS to bf16 as MMA "
-         "operands and takes D from the bf16 O; the plain autograd keeps "
-         "f32 and rounds each gradient once",
-         "bound_ms": bwd_b, "bound_by": bwd_by, **bwd_t,
-         "library_fwd_bwd_ms": lib_fwd_bwd, **common},
-    ]
+        lib_fwd_bwd = timer.ms(lambda: torch.autograd.grad(
+            sdpa(lq, lk, lv, is_causal=True), (lq, lk, lv), ldo), iters=20)
+        n = b * s * h * d
+        pairs = b * h * s * (s + 1) / 2  # (query, key) pairs the mask keeps
+        fwd_ops = 4.0 * pairs * d  # Q K^T and P V
+        fwd_b, fwd_by = bound_ms(4 * n * 2 + b * h * s * 4, fwd_ops, "bf16")
+        # The backward's five products (S again, dP, dV, dK, dQ): 2.5x.
+        bwd_b, bwd_by = bound_ms(8 * n * 2 + b * h * s * 4, 2.5 * fwd_ops,
+                                 "bf16")
+        common = {"shape_bshd": [b, s, h, d], "qkv": "strided views of "
+                  "(b, s, 3, h, d)", "planted_fault": f"x{FLASH_PLANTED} on "
+                  "rows past 512: the check fails"}
+        suffix = "" if h == TRAIN["heads"] else f"_d{d}"
+        if suffix:  # the 20-step run is at 8 heads
+            common["launches_from"] = (
+                f"lm_main --heads {h}: a warm-up step and 3 logged steps")
+        records += [
+            {"name": "flash_attention_fwd" + suffix, **fwd,
+             "tolerance_tile_rel": FLASH_TILE_REL, "tile_rows": FLASH_TILE,
+             "tolerance_reason": "the kernel rounds P to bf16 for P V, the "
+             "plain version keeps f32; both round O once",
+             "bound_ms": fwd_b, "bound_by": fwd_by, **fwd_t, **common},
+            {"name": "flash_attention_bwd" + suffix,
+             "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
+             "grads": bwd, "two_runs_bitwise_equal": True,
+             "tolerance_tile_rel": FLASH_TILE_REL, "tile_rows": FLASH_TILE,
+             "tolerance_reason": "the kernel rounds P and dS to bf16 as MMA "
+             "operands and takes D from the bf16 O; the plain autograd keeps "
+             "f32 and rounds each gradient once",
+             "bound_ms": bwd_b, "bound_by": bwd_by, **bwd_t,
+             "library_fwd_bwd_ms": lib_fwd_bwd, **common},
+        ]
+        del t, q, k, v, dout, out, lse, ref, leaves, lq, lk, lv, ldo, lib_out
+        torch.cuda.empty_cache()
+    extra = []
+    for shape in FLASH_EXTRA_SHAPES:
+        t, fwd, bwd = flash_case(torch, FA, gen, *shape)
+        del t
+        torch.cuda.empty_cache()
+        extra.append({
+            "shape_bshd": list(shape), "out_tile_rel": fwd["tile_rel_err"],
+            "grads_tile_rel": {n: r["tile_rel_err"] for n, r in bwd.items()},
+            "planted_tile_rel_max": max(
+                r["planted_tile_rel"][1] for r in (fwd, *bwd.values())),
+            "two_runs_bitwise_equal": True})
+    records[0]["other_shapes"] = extra
+    return records
 
 
 def check_xent(torch, FX, timer, gen):
@@ -1399,6 +1458,20 @@ def run_vision_train(torch, gen):
     }, launches
 
 
+class _LossLines(logging.Handler):
+    """Collects the losses of lm_main's `step N loss L ...` log lines."""
+
+    def __init__(self):
+        super().__init__()
+        self.losses = []
+
+    def emit(self, record):
+        found = re.match(r"step \d+ loss ([-0-9.naif]+)",
+                         record.getMessage())
+        if found:
+            self.losses.append(float(found.group(1)))
+
+
 def _train_counts(FA, FX, reset=False):
     fns = {"flash_attention_fwd": FA.flash_attention_fwd,
            "flash_attention_bwd": FA.flash_attention_bwd,
@@ -1510,6 +1583,25 @@ def run_train(torch, timer, gen):
     if rc != 0 or cli != {name: 4 * n for name, n in per_step.items()}:
         raise AssertionError(f"lm_main exited {rc}, launched {cli}")
 
+    # The same at 16 heads: head dim 64, the kernels' other build.
+    log, seen = logging.getLogger("lm_main"), _LossLines()
+    log.addHandler(seen)
+    _train_counts(FA, FX, reset=True)
+    rc = lm_main.main(["--heads", "16", "--train-steps", "3",
+                       "--log-every", "1"])
+    cli_d64 = _train_counts(FA, FX)
+    log.removeHandler(seen)
+    if rc != 0 or cli_d64 != {name: 4 * n for name, n in per_step.items()}:
+        raise AssertionError(
+            f"lm_main --heads 16 exited {rc}, launched {cli_d64}")
+    if len(seen.losses) != 3 or not all(
+        math.isfinite(x) for x in seen.losses
+    ) or not seen.losses[-1] < seen.losses[0]:
+        raise AssertionError(
+            f"lm_main --heads 16: the loss did not fall: {seen.losses}")
+    launches.update({name + "_d64": cli_d64[name] for name in (
+        "flash_attention_fwd", "flash_attention_bwd")})
+
     b, s, dim = TRAIN["batch"], TRAIN["seq_len"], TRAIN["dim"]
     vocab, dh = TRAIN["vocab"], TRAIN["dim"] // TRAIN["heads"]
     tok = b * s
@@ -1540,6 +1632,7 @@ def run_train(torch, timer, gen):
         "head_share_of_step": (head["fwd_ms"] + head["bwd_ms"]) / step_ms,
         "peak_memory_gb": peak_gb, "profile": profile,
         "launches": launches, "lm_main_launches": cli,
+        "lm_main_heads_16": {"launches": cli_d64, "losses": seen.losses},
     }, launches
 
 
@@ -1651,6 +1744,10 @@ def main() -> int:
          "flash_attention.py:112"),
         (k_flash[1], l_train["flash_attention_bwd"], "flash_attention.cu",
          "flash_attention.py:112"),
+        (k_flash[2], l_train["flash_attention_fwd_d64"],
+         "flash_attention.cu", "flash_attention.py:112"),
+        (k_flash[3], l_train["flash_attention_bwd_d64"],
+         "flash_attention.cu", "flash_attention.py:112"),
         (k_xent[0], l_train["fused_xent_fwd"], "fused_xent.cu",
          "fused_xent.py:34"),
         (k_xent[1], l_train["fused_xent_bwd"], "fused_xent.cu",

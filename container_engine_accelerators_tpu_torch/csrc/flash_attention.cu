@@ -1,4 +1,5 @@
-// Causal flash attention, forward and backward, for Hopper (sm_90a).
+// Causal flash attention, forward and backward, for Hopper (sm_90a), at
+// head dims 64 and 128.
 //
 // Replaces the Pallas TPU kernels that container_engine_accelerators_tpu/
 // ops/flash_attention.py reaches from `flash_causal_attention` (:136): the
@@ -16,18 +17,49 @@
 //
 // Bound: operations (bf16 tensor cores).  At the LM shape (b 8, s 2048,
 // h 8, d 128) the forward is 2 b h s^2 d = 69 GFLOP against 134 MB of
-// q / k / v / o, the backward ~2.5x the forward's flops.  Design, simple
-// first: a block of 4 warps owns 64 query rows (forward, dQ) or 64 key rows
-// (dK / dV); each warp owns 16 of them and keeps its accumulators in
-// registers in the fragment layout of mma.sync m16n8k16 (bf16 in, f32
-// accumulate).  Tiles of the other operand stream through shared memory,
-// rows padded to 136 elements so that every fragment load is free of bank
-// conflicts.  Scores never leave registers: the S accumulator is scaled,
-// masked, exponentiated and repacked to bf16 as the A operand of the next
-// product (P V, P^T dO, dS^T Q, dS K).  Tiles above the diagonal are
-// skipped in all three passes and only the diagonal tile is masked.  Every
-// output element is summed by one thread in a fixed order: deterministic,
-// no atomics.  No cp.async / TMA pipelining and no wgmma yet.
+// q / k / v / o, the backward at least 2.5x the forward's flops.
+//
+// Design (the primitives are in hopper_mma.cuh):
+//   - Every product is a wgmma (m64nNk16, bf16 in, f32 sums).  A block is
+//     two warpgroups; each owns 64 rows of the block's 128 (queries in the
+//     forward and the dQ pass, keys in the dK / dV pass) and keeps its
+//     accumulators in registers.  The first products of a step (Q K^T,
+//     dO V^T, and their transposes K Q^T, V dO^T) take both operands from
+//     shared memory; the second ones (P V, P^T dO, dS^T Q, dS K) take A
+//     from registers, the f32 scores rounded to bf16 where they lie, and
+//     B from the row-major tile through wgmma's transpose flag.
+//   - Shared tiles are stored in the 128-byte swizzle (a 64-column atom a
+//     row; d 128 is two atoms), with no padding.
+//   - The streamed operand (K / V tiles of 128 keys in the forward and the
+//     dQ pass, Q / dO tiles of 64 queries with their L and D in the dK / dV
+//     pass) goes through a ring of 2-4 stages in shared memory that TMA
+//     fills: one thread announces a stage's bytes to its mbarrier and
+//     starts cp.async.bulk.tensor, the hardware writes the swizzle and
+//     zero-fills rows past s, and every thread waits on the mbarrier when
+//     it needs the tile.  The tensor maps are encoded on the host at each
+//     call from the views' own strides (q, k, v are strided views of one
+//     projection).  Copies run one or two steps ahead of their use, so they
+//     are in flight while the tensor cores work; one __syncthreads() a step
+//     tells the copying thread that a stage's readers are done.
+//   - Each step first starts the products of the new scores and then the
+//     ones that consume the previous step's P (or dS), waits for the first
+//     only, and does the new tile's exponentials while the second run.
+//     In the forward (and the dQ pass at d 64) the two warpgroups also take
+//     turns: one does its softmax while the other's products run.
+//   - Softmax in base 2: exp2(s * scale * log2(e) - m), one FFMA and one
+//     MUFU an element; the accumulator is rescaled every tile; only the
+//     tiles that cross the diagonal are masked, tiles above it skipped.
+//   - The backward keeps two passes (7 tile products where 5 are the
+//     least): each dq / dk / dv element is summed by one thread in a fixed
+//     order, so two runs give the same bits, with no atomics and no f32
+//     dQ scratch.  D is its own small launch with 16-byte loads.
+//   - Launch order: a grid of (tiles, batch * heads) with the heaviest
+//     tiles first in x (the last query tiles, the first key tiles), so
+//     the light tiles fill the tail, and the blocks in flight share a few
+//     heads' K / V in the L2.
+//   - s is a multiple of 64, not of 128: the rows of a block's last tile
+//     past s are zero-filled on load (so a masked P meets no garbage in
+//     V), masked by the causal rule, and not stored.
 //
 // q, k and v are read through their (batch, seq, head) strides with the
 // head dim contiguous, so the strided q / k / v views of the fused qkv
@@ -35,276 +67,320 @@
 // (b, s, h, d); L and D are (b, h, s) f32.
 //
 // Plain C interface, bound with ctypes.  Each entry point returns
-// cudaGetLastError() after its launches.
+// cudaGetLastError() after its launches (or the code of a tensor map that
+// could not be encoded).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_mma.cuh"
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
-typedef long long i64;
+using namespace cea;
 
-constexpr int D = 128;        // head dim: the only one built
-constexpr int TILE = 64;      // rows of a block's own tile and of a streamed tile
-constexpr int QSUB = 32;      // query rows per step of the dK / dV pass
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-constexpr int LDS = D + 8;    // shared row stride in elements (272 bytes)
-constexpr int DT = D / 8;     // n-tiles of 8 across the head dim
+constexpr int THREADS = 2 * WG_THREADS;  // two warpgroups a block
+constexpr int BM = 128;  // rows a block owns: 64 a warpgroup
+constexpr int BN = 128;  // keys a stage in the forward and the dQ pass
+constexpr int BQ = 64;   // queries a stage in the dK / dV pass
+// Ring depths: a tile read in one step and copied one step ahead needs 2
+// stages; one more for a second step of reading or of copying ahead.
+constexpr int STAGES = 2;       // V in the dQ pass
+constexpr int LONG_STAGES = 3;  // K and V in the forward, K in the dQ pass
+constexpr int DKDV_STAGES = 4;  // Q / dO with L and D in the dK / dV pass
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 
-struct Qkv {  // q, k, v and their (batch, seq, head) strides in elements
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  i64 qb, qs, qh, kb, ks, kh, vb, vs, vh;
-};
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// The first 1024-byte boundary of the dynamic shared memory: the kernels
+// keep their mbarriers (8 bytes each) in the 1024 bytes from there, and
+// their tiles after those.
+__device__ __forceinline__ uint32_t align_1k(const void* smem) {
+  return (smem_u32(smem) + 1023u) & ~1023u;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+// One thread sets up `count` mbarriers of one arrival each; then everyone
+// may use them.
+__device__ __forceinline__ void init_barriers(uint32_t bars, int count) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < count; ++i) mbar_init(bars + 8 * i, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
 }
 
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  return pack_bf16(__float2bfloat16(lo), __float2bfloat16(hi));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16).
-// Fragments, lane = 4 g + t: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g,
-// 2t+8..), a3 (g+8, 2t+8..); b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g);
-// c0 c1 (g, 2t..2t+1), c2 c3 (g+8, 2t..2t+1).
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment: rows [m0, m0 + 16) x cols [k0, k0 + 16) of a shared tile.
-__device__ __forceinline__ void frag_a(uint32_t* a, const bf16* s, int m0,
-                                       int k0, int g, int t) {
-  const bf16* p = s + (m0 + g) * LDS + k0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * LDS);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * LDS + 8);
-}
-
-// A fragment for k-step kk from a 16-row f32 accumulator in C layout: its
-// n-tiles 2 kk and 2 kk + 1 are A's columns [16 kk, 16 kk + 16).
-__device__ __forceinline__ void frag_a_acc(uint32_t* a, float (*c)[4],
-                                           int kk) {
-  a[0] = pack_f32(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_f32(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_f32(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_f32(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// B fragment with B(k, n) = s[n0 + n][k0 + k]: the tile's rows are B's
-// columns (K in Q K^T).
-__device__ __forceinline__ void frag_b_rows(uint32_t& b0, uint32_t& b1,
-                                            const bf16* s, int n0, int k0,
-                                            int g, int t) {
-  const bf16* p = s + (n0 + g) * LDS + k0 + 2 * t;
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-
-// B fragment with B(k, n) = s[k0 + k][n0 + n]: the tile's rows are B's
-// rows (V in P V).
-__device__ __forceinline__ void frag_b_cols(uint32_t& b0, uint32_t& b1,
-                                            const bf16* s, int n0, int k0,
-                                            int g, int t) {
-  const bf16* p = s + (k0 + 2 * t) * LDS + n0 + g;
-  b0 = pack_bf16(p[0], p[LDS]);
-  b1 = pack_bf16(p[8 * LDS], p[9 * LDS]);
-}
-
-// c (16 x 8 NT) = rows [m0, m0 + 16) of tile a times the first 8 NT rows
-// of tile b, transposed (a dot product over the head dim per element).
-template <int NT>
-__device__ __forceinline__ void dot_rows(float (*c)[4], const bf16* a_s,
-                                         int m0, const bf16* b_s, int g,
-                                         int t) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+// acc (64 x N) = rows [row_byte / 128, + 64) of the K-major tile a (A_ROWS
+// rows) times the first N rows of the K-major tile b (B_ROWS rows),
+// transposed: a dot product over the head dim per element.
+template <int D, int N, int A_ROWS, int B_ROWS>
+__device__ __forceinline__ void dot_rows(float (&acc)[N / 2], uint32_t a,
+                                         uint32_t row_byte, uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    frag_a(a, a_s, m0, kk * 16, g, t);
+    wgmma_ss<N>(acc,
+                desc_k(a + (kk / 4) * (A_ROWS * 128) + row_byte +
+                       (kk % 4) * 32),
+                desc_k(b + (kk / 4) * (B_ROWS * 128) + (kk % 4) * 32),
+                kk > 0);
+  }
+}
+
+// acc (64 x D) += p (64 x K, bf16 A operands) times the first K rows of
+// the row-major tile b (B_ROWS rows x D).
+template <int D, int K, int B_ROWS>
+__device__ __forceinline__ void acc_times(float (&acc)[D / 2],
+                                          const uint32_t (&p)[K / 4],
+                                          uint32_t b) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      uint32_t b0, b1;
-      frag_b_rows(b0, b1, b_s, n * 8, kk * 16, g, t);
-      mma(c[n], a, b0, b1);
+  for (int kk = 0; kk < K / 16; ++kk) {
+    wgmma_rs<D>(acc, &p[4 * kk], desc_mn(b + kk * 2048, B_ROWS * 128), 1);
+  }
+}
+
+// Rows r and r + 8 of a warpgroup accumulator (64 x D), times `mul`, as
+// bf16 into contiguous (b, s, h, d) rows; rows at or past `limit` skipped.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&c)[D / 2],
+                                           i64 base, i64 row_stride, int row,
+                                           int limit, float mul0, float mul1,
+                                           int t) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    if (row < limit) {
+      *reinterpret_cast<uint32_t*>(out + base + (i64)row * row_stride +
+                                   n * 8 + 2 * t) =
+          pack_f32(c[4 * n] * mul0, c[4 * n + 1] * mul0);
+    }
+    if (row + 8 < limit) {
+      *reinterpret_cast<uint32_t*>(out + base + (i64)(row + 8) * row_stride +
+                                   n * 8 + 2 * t) =
+          pack_f32(c[4 * n + 2] * mul1, c[4 * n + 3] * mul1);
     }
   }
 }
 
-// acc (16 x D) += p (16 x 16 KT, an accumulator in C layout, as bf16)
-// times the first 16 KT rows of tile b.
-template <int KT>
-__device__ __forceinline__ void acc_times(float (*acc)[4], float (*p)[4],
-                                          const bf16* b_s, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    uint32_t a[4];
-    frag_a_acc(a, p, kk);
-#pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      uint32_t b0, b1;
-      frag_b_cols(b0, b1, b_s, n * 8, kk * 16, g, t);
-      mma(acc[n], a, b0, b1);
-    }
-  }
+template <int D>
+__host__ __device__ constexpr int fwd_smem() {
+  return 2048 + 2 * (BM * D + LONG_STAGES * 2 * BN * D);
 }
 
-// `rows` x D elements from device memory (row stride `stride`, head dim
-// contiguous) into a shared tile, 16 bytes per thread and load.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          i64 stride, int rows) {
-  for (int i = threadIdx.x; i < rows * (D / 8); i += THREADS) {
-    const int r = i / (D / 8);
-    const int c = (i % (D / 8)) * 8;
-    *reinterpret_cast<uint4*>(dst + r * LDS + c) =
-        *reinterpret_cast<const uint4*>(src + r * stride + c);
-  }
-}
-
-__device__ __forceinline__ void zero(float (*c)[4]) {
-#pragma unroll
-  for (int n = 0; n < DT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
-}
-
-// Rows r and r + 8 of a 16-row accumulator, times `mul`, as bf16 into
-// contiguous (b, s, h, d) rows.
-__device__ __forceinline__ void store_rows(bf16* out, float (*c)[4],
-                                           i64 row_r, i64 row_r8, float mul0,
-                                           float mul1, int t) {
-#pragma unroll
-  for (int n = 0; n < DT; ++n) {
-    *reinterpret_cast<uint32_t*>(out + row_r + n * 8 + 2 * t) =
-        pack_f32(c[n][0] * mul0, c[n][1] * mul0);
-    *reinterpret_cast<uint32_t*>(out + row_r8 + n * 8 + 2 * t) =
-        pack_f32(c[n][2] * mul1, c[n][3] * mul1);
-  }
-}
-
-// Forward: grid (s / TILE query tiles, b * heads).
-__global__ void __launch_bounds__(THREADS)
-    flash_fwd(Qkv in, bf16* __restrict__ o, float* __restrict__ lse, int s,
-              int heads, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + TILE * LDS;
-  bf16* v_s = k_s + TILE * LDS;
+// Forward: grid (ceil(s / BM) query tiles, b * heads).  Step j starts
+// S_j = Q K_j^T and then O += P_{j-1} V_{j-1}, waits for S_j only, and does
+// tile j's softmax while the P V product runs; K_{j+2} and V_{j+1} are
+// copied meanwhile (V is used one step after its K).
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd(const __grid_constant__ CUtensorMap map_q,
+              const __grid_constant__ CUtensorMap map_k,
+              const __grid_constant__ CUtensorMap map_v,
+              bf16* __restrict__ o, float* __restrict__ lse, int s, int heads,
+              float scale_log2) {
+  extern __shared__ unsigned char smem[];
+  constexpr uint32_t TILE_BYTES = BN * D * 2;
+  const uint32_t bars = align_1k(smem);  // K's stages, then V's
+  const uint32_t q_s = bars + 1024;
+  const uint32_t k_ring = q_s + BM * D * 2;
+  const uint32_t v_ring = k_ring + LONG_STAGES * TILE_BYTES;
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest rows first
   const int bi = blockIdx.y / heads, hi = blockIdx.y % heads;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wg = threadIdx.x / WG_THREADS;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * TILE;
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-  const bf16* kp = in.k + bi * in.kb + hi * in.kh;
-  const bf16* vp = in.v + bi * in.vb + hi * in.vh;
-  load_tile(q_s, in.q + bi * in.qb + hi * in.qh + q0 * in.qs, in.qs, TILE);
+  const int q0 = qt * BM;
+  const int row_l = wg * 64 + warp * 16 + g;  // in the tile; and row_l + 8
+  // Tile j of K (or V) lives in stage j % 3, whose barrier it completes for
+  // the (j / 3)-th time.
+  auto copy_k = [&](int j, uint32_t extra) {
+    const uint32_t bar = bars + 8 * (j % LONG_STAGES);
+    mbar_expect(bar, TILE_BYTES + extra);
+    tma_tile<D, BN>(k_ring + (j % LONG_STAGES) * TILE_BYTES, &map_k, bar, hi,
+                    j * BN, bi);
+  };
+  auto copy_v = [&](int j) {
+    const uint32_t bar = bars + 8 * (LONG_STAGES + j % LONG_STAGES);
+    mbar_expect(bar, TILE_BYTES);
+    tma_tile<D, BN>(v_ring + (j % LONG_STAGES) * TILE_BYTES, &map_v, bar, hi,
+                    j * BN, bi);
+  };
+  auto wait_k = [&](int j) {
+    mbar_wait(bars + 8 * (j % LONG_STAGES), (j / LONG_STAGES) & 1);
+  };
+  auto wait_v = [&](int j) {
+    mbar_wait(bars + 8 * (LONG_STAGES + j % LONG_STAGES),
+              (j / LONG_STAGES) & 1);
+  };
+  init_barriers(bars, 2 * LONG_STAGES);
+  if (threadIdx.x == 0) {
+    copy_k(0, BM * D * 2);  // Q rides on K_0's barrier
+    tma_tile<D, BM>(q_s, &map_q, bars, hi, q0, bi);
+    if (qt > 0) copy_k(1, 0);
+    copy_v(0);
+  }
 
-  float acc[DT][4];
+  float acc[D / 2], sc[BN / 2];
+  uint32_t p[BN / 4];
   zero(acc);
-  float m[2] = {-INFINITY, -INFINITY};
+  float m[2] = {-INFINITY, -INFINITY};  // running row max of the raw scores
   float l[2] = {0.f, 0.f};
-  for (int j = 0; j <= qt; ++j) {
-    const int k0 = j * TILE;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile(k_s, kp + k0 * in.ks, in.ks, TILE);
-    load_tile(v_s, vp + k0 * in.vs, in.vs, TILE);
+  float alpha[2] = {1.f, 1.f};  // what the last softmax owes the old O
+
+  // K_j and V_{j-1} are in, and every thread is past step j - 1.
+  auto arrive = [&](int j) {
+    wait_k(j);
+    if (j > 0) wait_v(j - 1);
     __syncthreads();
-    float sc[TILE / 8][4];
-    dot_rows<TILE / 8>(sc, q_s, warp * 16, k_s, g, t);
+  };
+  // Starts the copies of K_{j+2} and V_{j+1}, once step j - 1 is over: two
+  // steps ahead of their use.
+  auto copies = [&](int j) {
+    if (threadIdx.x == 0) {
+      if (j + 2 <= qt) copy_k(j + 2, 0);
+      if (j + 1 <= qt) copy_v(j + 1);
+    }
+  };
+  // sc = Q K_j^T, in flight.
+  auto scores = [&](int j) {
+    dot_rows<D, BN, BM, BN>(sc, q_s, wg * 64 * 128,
+                            k_ring + (j % LONG_STAGES) * TILE_BYTES);
+    wgmma_commit();
+  };
+  // O = alpha O + P V_j, in flight: O owes the last softmax its alpha.
+  auto times_v = [&](int j) {
+    // Once the running max has settled alpha is 1 for whole warps.
+    if (__any_sync(FULL, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    }
+    pin(p);
+    wgmma_fence();
+    acc_times<D, BN, BN>(acc, p, v_ring + (j % LONG_STAGES) * TILE_BYTES);
+    wgmma_commit();
+  };
+  // Tile j's online softmax on the raw scores in sc: m and l move on, alpha
+  // is what O must be scaled by before P V is added, and P goes to p as
+  // bf16 once the product that reads p is over.
+  auto softmax = [&](int j) {
+    if (j == qt) {  // the diagonal tile: BM == BN, so compare in the tile
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int col = (i >> 2) * 8 + 2 * t + (i & 1);
+        if (col > row_l + ((i >> 1) & 1) * 8) sc[i] = -INFINITY;
+      }
+    }
+    // Each row is spread over the 4 lanes of one g; key 0 of the first
+    // tile is visible to every row, so the new max is finite.
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int n = 0; n < TILE / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row0 + (e >> 1) * 8;
-        const int c = k0 + n * 8 + 2 * t + (e & 1);
-        const float x = c > r ? -INFINITY : sc[n][e] * scale;
-        sc[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
+    for (int i = 0; i < BN / 2; ++i) {
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
     }
-    // Each row is spread over the 4 lanes of one g; key k0 <= row is
-    // always visible, so the new max is finite.
-    float alpha[2];
+    float ms[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
-      alpha[i] = expf(m[i] - mx[i]);
-      m[i] = mx[i];
-      l[i] *= alpha[i];
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+      alpha[r] = fast_exp2((m[r] - mx[r]) * scale_log2);
+      m[r] = mx[r];
+      ms[r] = mx[r] * scale_log2;
+      l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int n = 0; n < TILE / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(sc[n][e] - m[e >> 1]);
-        sc[n][e] = p;
-        l[e >> 1] += p;
-      }
+    for (int i = 0; i < BN / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      sc[i] = fast_exp2(fmaf(sc[i], scale_log2, -ms[r]));
+      l[r] += sc[i];
     }
-#pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
+    wgmma_wait<0>();
+    pin(acc);
+    pin(p);
+    pack_a<BN>(p, sc);
+  };
+
+  // The two warpgroups take turns at the tensor cores inside each step:
+  // the first starts its products at the step's start and does its softmax
+  // after them; the second does the softmax of the scores it got in the
+  // step before and then starts its own, so each one's softmax runs under the
+  // other's products.
+  arrive(0);
+  copies(0);
+  wgmma_fence();
+  scores(0);
+  wgmma_wait<0>();
+  pin(sc);
+  if (wg == 0) {
+    softmax(0);
+    for (int j = 1; j <= qt; ++j) {
+      arrive(j);
+      wgmma_fence();
+      scores(j);
+      copies(j);
+      times_v(j - 1);
+      wgmma_wait<1>();  // S_j is there; P V may still run
+      pin(sc);
+      softmax(j);
     }
-    acc_times<TILE / 16>(acc, sc, v_s, g, t);
+  } else {
+    for (int j = 1; j <= qt; ++j) {
+      arrive(j);
+      softmax(j - 1);
+      times_v(j - 1);
+      scores(j);
+      wgmma_wait<0>();
+      pin(acc);
+      pin(p);
+      pin(sc);
+    }
+    softmax(qt);
   }
+  wait_v(qt);
+  times_v(qt);
+  wgmma_wait<0>();
+  pin(acc);
   float inv[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(FULL, l[i], 1);
-    l[i] += __shfl_xor_sync(FULL, l[i], 2);
-    inv[i] = 1.f / l[i];
-    if (t == 0) {
-      lse[(i64)blockIdx.y * s + row0 + 8 * i] = m[i] + logf(l[i]);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+    inv[r] = 1.f / l[r];
+    const int row = q0 + row_l + 8 * r;
+    if (t == 0 && row < s) {
+      lse[(i64)blockIdx.y * s + row] =
+          (m[r] * scale_log2 + log2f(l[r])) * LN2;
     }
   }
-  const i64 base = (i64)bi * s * heads * D + (i64)hi * D;
-  store_rows(o, acc, base + (i64)row0 * heads * D,
-             base + (i64)(row0 + 8) * heads * D, inv[0], inv[1], t);
+  store_rows<D>(o, acc, (i64)bi * s * heads * D + (i64)hi * D,
+                (i64)heads * D, q0 + row_l, s, inv[0], inv[1], t);
 }
 
-// D[b, h, r] = sum_d dO[b, r, h, d] * O[b, r, h, d]: one warp per row of
-// the contiguous (b, s, h) rows.
+// D[b, h, r] = sum_d dO[b, r, h, d] * O[b, r, h, d] over the contiguous
+// (b, s, h) rows: HEAD_DIM / 8 lanes a row, 16 bytes a lane.
+template <int D>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_delta(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                     float* __restrict__ delta, int s, int heads, int rows) {
-  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (row >= rows) return;  // whole warps leave together
-  const int lane = threadIdx.x & 31;
-  const bf16* op = o + (i64)row * D + lane * 4;
-  const bf16* dp = dout + (i64)row * D + lane * 4;
+  constexpr int LPR = D / 8;  // lanes a row
+  const int idx = blockIdx.x * THREADS + threadIdx.x;
+  const int row = idx / LPR;
+  const int live = row < rows;  // whole warps stay for the shuffles
+  const i64 at = (i64)(live ? row : 0) * D + (idx % LPR) * 8;
+  const uint4 ov = *reinterpret_cast<const uint4*>(o + at);
+  const uint4 dv = *reinterpret_cast<const uint4*>(dout + at);
+  const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+  const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
   float sum = 0.f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    sum += __bfloat162float(op[i]) * __bfloat162float(dp[i]);
+    const float2 a = __bfloat1622float2(o2[i]);
+    const float2 b = __bfloat1622float2(d2[i]);
+    sum += a.x * b.x + a.y * b.y;
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+  for (int off = LPR / 2; off > 0; off >>= 1) {
     sum += __shfl_xor_sync(FULL, sum, off);
   }
-  if (lane == 0) {
+  if (live && idx % LPR == 0) {
     const int hi = row % heads;
     const int r = (row / heads) % s;
     const int bi = row / (heads * s);
@@ -312,196 +388,473 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// dK and dV: grid (s / TILE key tiles, b * heads).  Warp w owns keys
-// [k0 + 16 w, k0 + 16 w + 16) and walks the queries from k0 to the end in
-// steps of QSUB, holding S^T and dP^T (16 x QSUB) in registers.
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_dkdv(Qkv in, const bf16* __restrict__ dout,
+template <int D>
+__host__ __device__ constexpr int dkdv_stage() {
+  return 2 * BQ * D * 2 + 1024;  // Q, dO, then L and D (BQ floats each)
+}
+
+template <int D>
+__host__ __device__ constexpr int dkdv_smem() {
+  return 2048 + 2 * BM * D * 2 + DKDV_STAGES * dkdv_stage<D>();
+}
+
+// dK and dV: grid (ceil(s / BM) key tiles, b * heads).  Warpgroup w owns
+// keys [k0 + 64 w, k0 + 64 w + 64) and walks the queries from k0 + 64 w to
+// the end in steps of BQ, holding S^T and dP^T (64 x BQ) in registers.  Step
+// `it` starts S^T = K Q^T and dP^T = V dO^T of its queries and then the
+// dV / dK products of step it - 1, waits for the first two only, and does
+// its exponentials while the others run; a stage is read for two steps and
+// copied two steps ahead, so the ring has four.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkdv(const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_do,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, bf16* __restrict__ dk,
                    bf16* __restrict__ dv, int s, int heads, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + TILE * LDS;
-  bf16* q_s = v_s + TILE * LDS;
-  bf16* do_s = q_s + QSUB * LDS;
-  float* l_s = reinterpret_cast<float*>(do_s + QSUB * LDS);
-  float* d_s = l_s + QSUB;
+  extern __shared__ unsigned char smem[];
+  const uint32_t bars = align_1k(smem);  // one a stage of the ring
+  const uint32_t k_s = bars + 1024;
+  const uint32_t v_s = k_s + BM * D * 2;
+  const uint32_t ring = v_s + BM * D * 2;
+  unsigned char* ring_p = smem + (ring - smem_u32(smem));
+  constexpr uint32_t STAGE = dkdv_stage<D>();
+  constexpr uint32_t TILE_BYTES = BQ * D * 2;
   const int kt = blockIdx.x;  // the first key tiles see the most queries
   const int bi = blockIdx.y / heads, hi = blockIdx.y % heads;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wg = threadIdx.x / WG_THREADS;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
-  const int k0 = kt * TILE;
-  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
-  const i64 row_stride = (i64)heads * D;  // of the contiguous dO
-  const bf16* qp = in.q + bi * in.qb + hi * in.qh;
-  const bf16* dop = dout + (i64)bi * s * row_stride + (i64)hi * D;
+  const int k0 = kt * BM;
+  const int key = k0 + wg * 64 + warp * 16 + g;  // and key + 8
+  const i64 row_stride = (i64)heads * D;  // of the contiguous dK, dV
   const float* lp = lse + (i64)blockIdx.y * s;
   const float* dp = delta + (i64)blockIdx.y * s;
-  load_tile(k_s, in.k + bi * in.kb + hi * in.kh + k0 * in.ks, in.ks, TILE);
-  load_tile(v_s, in.v + bi * in.vb + hi * in.vh + k0 * in.vs, in.vs, TILE);
+  const float scale_log2 = scale * LOG2E;
+  const int steps = (s - k0) / BQ;
 
-  float dk_acc[DT][4], dv_acc[DT][4];
+  // Step `it` (queries from k0 + it BQ, a multiple of 64, so all below s)
+  // lives in stage it % 4, whose barrier it completes for the (it / 4)-th
+  // time: Q, dO, L and D.  One thread.
+  auto copy_step = [&](int it, uint32_t extra) {
+    const int i0 = k0 + it * BQ;
+    const uint32_t at = ring + (it % DKDV_STAGES) * STAGE;
+    const uint32_t bar = bars + 8 * (it % DKDV_STAGES);
+    mbar_expect(bar, 2 * TILE_BYTES + 2 * BQ * 4 + extra);
+    tma_tile<D, BQ>(at, &map_q, bar, hi, i0, bi);
+    tma_tile<D, BQ>(at + TILE_BYTES, &map_do, bar, hi, i0, bi);
+    bulk_load(at + 2 * TILE_BYTES, lp + i0, BQ * 4, bar);
+    bulk_load(at + 2 * TILE_BYTES + BQ * 4, dp + i0, BQ * 4, bar);
+  };
+  init_barriers(bars, DKDV_STAGES);
+  if (threadIdx.x == 0) {
+    copy_step(0, 2 * BM * D * 2);  // K and V ride on step 0's barrier
+    tma_tile<D, BM>(k_s, &map_k, bars, hi, k0, bi);
+    tma_tile<D, BM>(v_s, &map_v, bars, hi, k0, bi);
+    if (steps > 1) copy_step(1, 0);
+  }
+
+  float dk_acc[D / 2], dv_acc[D / 2], st[BQ / 2], dpt[BQ / 2];
+  uint32_t pp[BQ / 4], ds[BQ / 4];
   zero(dk_acc);
   zero(dv_acc);
-  for (int i0 = k0; i0 < s; i0 += QSUB) {
-    __syncthreads();  // the previous step's readers are done
-    load_tile(q_s, qp + i0 * in.qs, in.qs, QSUB);
-    load_tile(do_s, dop + i0 * row_stride, row_stride, QSUB);
-    if (threadIdx.x < QSUB) {
-      l_s[threadIdx.x] = lp[i0 + threadIdx.x];
-      d_s[threadIdx.x] = dp[i0 + threadIdx.x];
-    }
+
+  // Step it is in and every thread is past step it - 1; then the copies of
+  // step it + 2 start.
+  auto advance = [&](int it) {
+    mbar_wait(bars + 8 * (it % DKDV_STAGES), (it / DKDV_STAGES) & 1);
     __syncthreads();
-    float st[QSUB / 8][4], dpt[QSUB / 8][4];
-    dot_rows<QSUB / 8>(st, k_s, warp * 16, q_s, g, t);    // S^T = K Q^T
-    dot_rows<QSUB / 8>(dpt, v_s, warp * 16, do_s, g, t);  // dP^T = V dO^T
+    if (threadIdx.x == 0 && it + 2 < steps) copy_step(it + 2, 0);
+  };
+  // st = S^T = K Q^T and dpt = dP^T = V dO^T of step it, in flight.
+  auto scores = [&](int it) {
+    const uint32_t q_s = ring + (it % DKDV_STAGES) * STAGE;
+    dot_rows<D, BQ, BM, BQ>(st, k_s, wg * 64 * 128, q_s);
+    dot_rows<D, BQ, BM, BQ>(dpt, v_s, wg * 64 * 128, q_s + TILE_BYTES);
+    wgmma_commit();
+  };
+  // dV += P^T dO and dK += dS^T Q of step it, in flight.
+  auto sums = [&](int it) {
+    const uint32_t q_s = ring + (it % DKDV_STAGES) * STAGE;
+    acc_times<D, BQ, BQ>(dv_acc, pp, q_s + TILE_BYTES);
+    acc_times<D, BQ, BQ>(dk_acc, ds, q_s);
+    wgmma_commit();
+  };
+  // st becomes P^T and dpt dS^T, from step it's L and D.
+  auto pointwise = [&](int it) {
+    const int i0 = k0 + it * BQ;
+    const float* l_s = reinterpret_cast<const float*>(
+        ring_p + (it % DKDV_STAGES) * STAGE + 2 * TILE_BYTES);
+    const float* d_s = l_s + BQ;
+    const bool diagonal = i0 < k0 + BM;
 #pragma unroll
-    for (int n = 0; n < QSUB / 8; ++n) {
+    for (int n = 0; n < BQ / 8; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(l_s + n * 8 + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(d_s + n * 8 + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = key0 + (e >> 1) * 8;
-        const int qc = n * 8 + 2 * t + (e & 1);
-        const float p =
-            i0 + qc < key ? 0.f : expf(st[n][e] * scale - l_s[qc]);
-        st[n][e] = p;
-        dpt[n][e] = p * (dpt[n][e] - d_s[qc]);  // dS^T
+        const int qi = i0 + n * 8 + 2 * t + (e & 1);
+        const float lq = (e & 1) ? l2.y : l2.x;
+        const float dq = (e & 1) ? d2.y : d2.x;
+        float p = fast_exp2(fmaf(st[4 * n + e], scale_log2, -lq * LOG2E));
+        if (diagonal && qi < key + (e >> 1) * 8) p = 0.f;
+        st[4 * n + e] = p;
+        dpt[4 * n + e] = p * (dpt[4 * n + e] - dq);
       }
     }
-    acc_times<QSUB / 16>(dv_acc, st, do_s, g, t);  // dV += P^T dO
-    acc_times<QSUB / 16>(dk_acc, dpt, q_s, g, t);  // dK += dS^T Q
+  };
+
+  // Step 0's queries all lie before the second warpgroup's keys: it only
+  // copies and waits there, and starts at step 1.
+  const int first = wg < steps ? wg : steps;
+  for (int it = 0; it < first; ++it) advance(it);
+  if (first < steps) {
+    advance(first);
+    wgmma_fence();
+    scores(first);
+    wgmma_wait<0>();
+    pin(st);
+    pin(dpt);
+    pointwise(first);
+    pack_a<BQ>(pp, st);
+    pack_a<BQ>(ds, dpt);
+    for (int it = first + 1; it < steps; ++it) {
+      advance(it);
+      pin(pp);
+      pin(ds);
+      wgmma_fence();
+      scores(it);
+      sums(it - 1);
+      wgmma_wait<1>();  // S^T and dP^T are there; the sums may still run
+      pin(st);
+      pin(dpt);
+      pointwise(it);
+      wgmma_wait<0>();  // P^T and dS^T are free again
+      pin(dv_acc);
+      pin(dk_acc);
+      pin(pp);
+      pin(ds);
+      pack_a<BQ>(pp, st);
+      pack_a<BQ>(ds, dpt);
+    }
+    pin(pp);
+    pin(ds);
+    wgmma_fence();
+    sums(steps - 1);
+    wgmma_wait<0>();
+    pin(dv_acc);
+    pin(dk_acc);
   }
   const i64 base = (i64)bi * s * row_stride + (i64)hi * D;
-  const i64 r0 = base + (i64)key0 * row_stride;
-  const i64 r8 = base + (i64)(key0 + 8) * row_stride;
-  store_rows(dk, dk_acc, r0, r8, scale, scale, t);
-  store_rows(dv, dv_acc, r0, r8, 1.f, 1.f, t);
+  store_rows<D>(dk, dk_acc, base, row_stride, key, s, scale, scale, t);
+  store_rows<D>(dv, dv_acc, base, row_stride, key, s, 1.f, 1.f, t);
 }
 
-// dQ: grid (s / TILE query tiles, b * heads).  Warp w owns queries
-// [q0 + 16 w, q0 + 16 w + 16) and walks the key tiles up to the diagonal.
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_dq(Qkv in, const bf16* __restrict__ dout,
+template <int D>
+__host__ __device__ constexpr int dq_smem() {
+  return 2048 + 2 * (2 * BM * D + (LONG_STAGES + STAGES) * BN * D);
+}
+
+// dQ: grid (ceil(s / BM) query tiles, b * heads).  Warpgroup w owns queries
+// [q0 + 64 w, q0 + 64 w + 64) and walks the key tiles up to the diagonal.
+// Step j starts S_j = Q K_j^T and dP_j = dO V_j^T and then dQ += dS_{j-1}
+// K_{j-1}, waits for the first two only, and does its exponentials while
+// the third runs; a K tile is read for two steps, so its ring has three
+// stages, V's two.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_do,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, bf16* __restrict__ dq,
                  int s, int heads, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = q_s + TILE * LDS;
-  bf16* k_s = do_s + TILE * LDS;
-  bf16* v_s = k_s + TILE * LDS;
+  extern __shared__ unsigned char smem[];
+  constexpr uint32_t TILE_BYTES = BN * D * 2;
+  const uint32_t bars = align_1k(smem);  // K's stages, then V's
+  const uint32_t q_s = bars + 1024;
+  const uint32_t do_s = q_s + BM * D * 2;
+  const uint32_t k_ring = do_s + BM * D * 2;
+  const uint32_t v_ring = k_ring + LONG_STAGES * TILE_BYTES;
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest rows first
   const int bi = blockIdx.y / heads, hi = blockIdx.y % heads;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wg = threadIdx.x / WG_THREADS;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * TILE;
-  const int row0 = q0 + warp * 16 + g;
+  const int q0 = qt * BM;
+  const int row_l = wg * 64 + warp * 16 + g;
   const i64 row_stride = (i64)heads * D;
   const i64 base = (i64)bi * s * row_stride + (i64)hi * D;
-  const bf16* kp = in.k + bi * in.kb + hi * in.kh;
-  const bf16* vp = in.v + bi * in.vb + hi * in.vh;
-  load_tile(q_s, in.q + bi * in.qb + hi * in.qh + q0 * in.qs, in.qs, TILE);
-  load_tile(do_s, dout + base + q0 * row_stride, row_stride, TILE);
+  const float scale_log2 = scale * LOG2E;
+  // Tile j of K lives in stage j % 3 and of V in stage j % 2; each
+  // completes its stage's barrier for the (j / 3)-th or (j / 2)-th time.
+  // One thread.
+  auto copy_tile = [&](int j, uint32_t extra) {
+    const uint32_t k_bar = bars + 8 * (j % LONG_STAGES);
+    const uint32_t v_bar = bars + 8 * (LONG_STAGES + (j & 1));
+    mbar_expect(k_bar, TILE_BYTES + extra);
+    tma_tile<D, BN>(k_ring + (j % LONG_STAGES) * TILE_BYTES, &map_k, k_bar,
+                    hi, j * BN, bi);
+    mbar_expect(v_bar, TILE_BYTES);
+    tma_tile<D, BN>(v_ring + (j & 1) * TILE_BYTES, &map_v, v_bar, hi, j * BN,
+                    bi);
+  };
+  init_barriers(bars, LONG_STAGES + STAGES);
+  if (threadIdx.x == 0) {
+    copy_tile(0, 2 * BM * D * 2);  // Q and dO ride on K_0's barrier
+    tma_tile<D, BM>(q_s, &map_q, bars, hi, q0, bi);
+    tma_tile<D, BM>(do_s, &map_do, bars, hi, q0, bi);
+  }
   const float* lp = lse + (i64)blockIdx.y * s;
   const float* dp = delta + (i64)blockIdx.y * s;
-  const float lr[2] = {lp[row0], lp[row0 + 8]};
-  const float dr[2] = {dp[row0], dp[row0 + 8]};
-
-  float dq_acc[DT][4];
-  zero(dq_acc);
-  for (int j = 0; j <= qt; ++j) {
-    const int k0 = j * TILE;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile(k_s, kp + k0 * in.ks, in.ks, TILE);
-    load_tile(v_s, vp + k0 * in.vs, in.vs, TILE);
-    __syncthreads();
-    float sc[TILE / 8][4], dpr[TILE / 8][4];
-    dot_rows<TILE / 8>(sc, q_s, warp * 16, k_s, g, t);    // S = Q K^T
-    dot_rows<TILE / 8>(dpr, do_s, warp * 16, v_s, g, t);  // dP = dO V^T
+  float lr[2], dr[2];  // L in base 2, and D, of this thread's two rows
 #pragma unroll
-    for (int n = 0; n < TILE / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row0 + (e >> 1) * 8;
-        const int c = k0 + n * 8 + 2 * t + (e & 1);
-        const float p =
-            c > r ? 0.f : expf(sc[n][e] * scale - lr[e >> 1]);
-        dpr[n][e] = p * (dpr[n][e] - dr[e >> 1]);  // dS
-      }
-    }
-    acc_times<TILE / 16>(dq_acc, dpr, k_s, g, t);  // dQ += dS K
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + row_l + 8 * r;
+    lr[r] = row < s ? lp[row] * LOG2E : 0.f;
+    dr[r] = row < s ? dp[row] : 0.f;
   }
-  store_rows(dq, dq_acc, base + (i64)row0 * row_stride,
-             base + (i64)(row0 + 8) * row_stride, scale, scale, t);
+
+  float dq_acc[D / 2], sc[BN / 2], dpr[BN / 2];
+  uint32_t ds[BN / 4];
+  zero(dq_acc);
+
+  // Tile j is in and every thread is past step j - 1; then the copies of
+  // tile j + 1 start.
+  auto advance = [&](int j) {
+    mbar_wait(bars + 8 * (j % LONG_STAGES), (j / LONG_STAGES) & 1);
+    mbar_wait(bars + 8 * (LONG_STAGES + (j & 1)), (j >> 1) & 1);
+    __syncthreads();
+    if (threadIdx.x == 0 && j < qt) copy_tile(j + 1, 0);
+  };
+  // sc = S = Q K_j^T and dpr = dP = dO V_j^T, in flight.
+  auto scores = [&](int j) {
+    dot_rows<D, BN, BM, BN>(sc, q_s, wg * 64 * 128,
+                            k_ring + (j % LONG_STAGES) * TILE_BYTES);
+    dot_rows<D, BN, BM, BN>(dpr, do_s, wg * 64 * 128,
+                            v_ring + (j & 1) * TILE_BYTES);
+    wgmma_commit();
+  };
+  // dQ += dS K_j, in flight.
+  auto sums = [&](int j) {
+    acc_times<D, BN, BN>(dq_acc, ds,
+                         k_ring + (j % LONG_STAGES) * TILE_BYTES);
+    wgmma_commit();
+  };
+  // dpr becomes dS.
+  auto pointwise = [&](int j) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      const int col = (i >> 2) * 8 + 2 * t + (i & 1);
+      float p = fast_exp2(fmaf(sc[i], scale_log2, -lr[r]));
+      if (j == qt && col > row_l + 8 * r) p = 0.f;  // BM == BN
+      dpr[i] = p * (dpr[i] - dr[r]);
+    }
+  };
+
+  // At d 64, where the exponentials weigh as much as the products, the two
+  // warpgroups take turns at the tensor cores inside each step: the second
+  // one starts step j's products in step j - 1 already, waits for them,
+  // passes the barrier and does their exponentials in step j, under the
+  // first one's products.  At d 128 that costs more than it hides (read
+  // on the card), and both keep the same order.
+  const int late = D == 64 ? wg : 0;
+  advance(0);
+  wgmma_fence();
+  scores(0);
+  wgmma_wait<0>();
+  pin(sc);
+  pin(dpr);
+  if (late == 1 && qt > 0) advance(1);
+  pointwise(0);
+  pack_a<BN>(ds, dpr);
+  for (int j = 1; j <= qt; ++j) {
+    if (late == 0) advance(j);
+    pin(ds);
+    wgmma_fence();
+    scores(j);
+    sums(j - 1);
+    wgmma_wait<1>();  // S and dP are there; dS K may still run
+    if (late == 1) {
+      wgmma_wait<0>();  // this step's readers of the rings are done
+      if (j < qt) advance(j + 1);
+    }
+    pin(sc);
+    pin(dpr);
+    pointwise(j);
+    wgmma_wait<0>();  // dS of step j - 1 is free again
+    pin(dq_acc);
+    pin(ds);
+    pack_a<BN>(ds, dpr);
+  }
+  pin(ds);
+  wgmma_fence();
+  sums(qt);
+  wgmma_wait<0>();
+  pin(dq_acc);
+  store_rows<D>(dq, dq_acc, base, row_stride, q0 + row_l, s, scale, scale,
+                t);
 }
 
-constexpr size_t FWD_SMEM = sizeof(bf16) * 3 * TILE * LDS;
-constexpr size_t DKDV_SMEM =
-    sizeof(bf16) * (2 * TILE + 2 * QSUB) * LDS + sizeof(float) * 2 * QSUB;
-constexpr size_t DQ_SMEM = sizeof(bf16) * 4 * TILE * LDS;
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
 
-Qkv make_qkv(const void* q, const void* k, const void* v, i64 qb, i64 qs,
-             i64 qh, i64 kb, i64 ks, i64 kh, i64 vb, i64 vs, i64 vh) {
-  return Qkv{(const bf16*)q, (const bf16*)k, (const bf16*)v, qb, qs, qh,
-             kb, ks, kh, vb, vs, vh};
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime so that
+// the library links against no libcuda.  Null where it is missing.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* entry = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &entry,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      entry = nullptr;
+    }
+    return (EncodeTiled)entry;
+  }();
+  return fn;
+}
+
+struct Shape {
+  int b, s, heads, d;
+};
+
+// A bf16 (b, s, heads, d) tensor at element strides (sb, ss, sh), head dim
+// contiguous, and the tile its kernels copy from it.
+struct View {
+  const void* data;
+  i64 sb, ss, sh;
+};
+
+// The map of `rows` x 64-column boxes (one swizzle atom) of a view, as
+// (d, heads, seq, batch); 0, or a code that is not a cudaError_t's.
+int tile_map(CUtensorMap* map, const View& t, const Shape& n, int rows) {
+  const EncodeTiled encode = encoder();
+  if (!encode) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)n.d, (cuuint64_t)n.heads,
+                              (cuuint64_t)n.s, (cuuint64_t)n.b};
+  const cuuint64_t strides[3] = {(cuuint64_t)t.sh * 2, (cuuint64_t)t.ss * 2,
+                                 (cuuint64_t)t.sb * 2};  // bytes
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult rc = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(t.data),
+      dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : 100000 + (int)rc;
+}
+
+View contiguous(const void* data, const Shape& n) {
+  return View{data, (i64)n.s * n.heads * n.d, (i64)n.heads * n.d, (i64)n.d};
+}
+
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int D>
+int launch_fwd(const View& q, const View& k, const View& v, void* out,
+               void* lse, const Shape& n, cudaStream_t st) {
+  CUtensorMap map_q, map_k, map_v;
+  int err = tile_map(&map_q, q, n, BM);
+  if (!err) err = tile_map(&map_k, k, n, BN);
+  if (!err) err = tile_map(&map_v, v, n, BN);
+  if (!err) err = allow_smem(flash_fwd<D>, fwd_smem<D>());
+  if (err) return err;
+  flash_fwd<D><<<dim3((n.s + BM - 1) / BM, n.b * n.heads), THREADS,
+                 fwd_smem<D>(), st>>>(map_q, map_k, map_v, (bf16*)out,
+                                      (float*)lse, n.s, n.heads,
+                                      LOG2E / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bwd(const View& q, const View& k, const View& v, const void* out,
+               const void* lse, const void* dout, void* delta, void* dq,
+               void* dk, void* dv, const Shape& n, cudaStream_t st) {
+  const float scale = 1.0f / sqrtf((float)D);
+  const int rows = n.b * n.s * n.heads;
+  const dim3 grid((n.s + BM - 1) / BM, n.b * n.heads);
+  const View d_out = contiguous(dout, n);
+  CUtensorMap q_bm, do_bm, q_bq, do_bq, k_bm, v_bm;  // BM == BN
+  int err = tile_map(&q_bm, q, n, BM);
+  if (!err) err = tile_map(&do_bm, d_out, n, BM);
+  if (!err) err = tile_map(&q_bq, q, n, BQ);
+  if (!err) err = tile_map(&do_bq, d_out, n, BQ);
+  if (!err) err = tile_map(&k_bm, k, n, BM);
+  if (!err) err = tile_map(&v_bm, v, n, BM);
+  if (!err) err = allow_smem(flash_bwd_dkdv<D>, dkdv_smem<D>());
+  if (!err) err = allow_smem(flash_bwd_dq<D>, dq_smem<D>());
+  if (err) return err;
+  flash_bwd_delta<D><<<(rows * (D / 8) + THREADS - 1) / THREADS, THREADS, 0,
+                       st>>>((const bf16*)out, (const bf16*)dout,
+                             (float*)delta, n.s, n.heads, rows);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  flash_bwd_dkdv<D><<<grid, THREADS, dkdv_smem<D>(), st>>>(
+      k_bm, v_bm, q_bq, do_bq, (const float*)lse, (const float*)delta,
+      (bf16*)dk, (bf16*)dv, n.s, n.heads, scale);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  flash_bwd_dq<D><<<grid, THREADS, dq_smem<D>(), st>>>(
+      q_bm, do_bm, k_bm, v_bm, (const float*)lse, (const float*)delta,
+      (bf16*)dq, n.s, n.heads, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v (b, s, heads, 128) bf16 at the given element strides (head dim
+// q, k, v (b, s, heads, d) bf16 at the given element strides (head dim
 // contiguous, every stride a multiple of 8, pointers 16-byte aligned);
-// s a multiple of 64.  out (b, s, heads, 128) bf16 and lse (b, heads, s)
-// f32, both contiguous.
+// d 64 or 128 (any other returns cudaErrorInvalidValue); s a multiple of
+// 64.  out (b, s, heads, d) bf16 and lse (b, heads, s) f32, both
+// contiguous.  Returns 0, a cudaError_t, or 100000 + the CUresult
+// of a tensor map that could not be encoded.
 extern "C" int cea_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, long long qb,
                              long long qs, long long qh, long long kb,
                              long long ks, long long kh, long long vb,
                              long long vs, long long vh, int b, int s,
-                             int heads, void* stream) {
-  int err = (int)cudaFuncSetAttribute(
-      flash_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
-  if (err) return err;
-  flash_fwd<<<dim3(s / TILE, b * heads), THREADS, FWD_SMEM,
-              (cudaStream_t)stream>>>(
-      make_qkv(q, k, v, qb, qs, qh, kb, ks, kh, vb, vs, vh), (bf16*)out,
-      (float*)lse, s, heads, 1.0f / sqrtf((float)D));
-  return (int)cudaGetLastError();
+                             int heads, int d, void* stream) {
+  const Shape n{b, s, heads, d};
+  const View qv{q, qb, qs, qh}, kv{k, kb, ks, kh}, vv{v, vb, vs, vh};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (d == 128) return launch_fwd<128>(qv, kv, vv, out, lse, n, st);
+  if (d == 64) return launch_fwd<64>(qv, kv, vv, out, lse, n, st);
+  return (int)cudaErrorInvalidValue;
 }
 
-// The same q, k, v; out and lse from cea_flash_fwd; dout (b, s, heads,
-// 128) bf16 contiguous; delta (b, heads, s) f32 scratch; dq, dk, dv
-// (b, s, heads, 128) bf16 contiguous.
+// The same q, k, v; out and lse from cea_flash_fwd; dout (b, s, heads, d)
+// bf16 contiguous; delta (b, heads, s) f32 scratch; dq, dk, dv (b, s,
+// heads, d) bf16 contiguous.
 extern "C" int cea_flash_bwd(const void* q, const void* k, const void* v,
                              const void* out, const void* lse,
                              const void* dout, void* delta, void* dq,
                              void* dk, void* dv, long long qb, long long qs,
                              long long qh, long long kb, long long ks,
                              long long kh, long long vb, long long vs,
-                             long long vh, int b, int s, int heads,
+                             long long vh, int b, int s, int heads, int d,
                              void* stream) {
+  const Shape n{b, s, heads, d};
+  const View qv{q, qb, qs, qh}, kv{k, kb, ks, kh}, vv{v, vb, vs, vh};
   cudaStream_t st = (cudaStream_t)stream;
-  const Qkv in = make_qkv(q, k, v, qb, qs, qh, kb, ks, kh, vb, vs, vh);
-  const float scale = 1.0f / sqrtf((float)D);
-  const int rows = b * s * heads;
-  flash_bwd_delta<<<(rows + WARPS - 1) / WARPS, THREADS, 0, st>>>(
-      (const bf16*)out, (const bf16*)dout, (float*)delta, s, heads, rows);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  err = (int)cudaFuncSetAttribute(flash_bwd_dkdv,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)DKDV_SMEM);
-  if (err) return err;
-  flash_bwd_dkdv<<<dim3(s / TILE, b * heads), THREADS, DKDV_SMEM, st>>>(
-      in, (const bf16*)dout, (const float*)lse, (const float*)delta,
-      (bf16*)dk, (bf16*)dv, s, heads, scale);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  err = (int)cudaFuncSetAttribute(
-      flash_bwd_dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)DQ_SMEM);
-  if (err) return err;
-  flash_bwd_dq<<<dim3(s / TILE, b * heads), THREADS, DQ_SMEM, st>>>(
-      in, (const bf16*)dout, (const float*)lse, (const float*)delta,
-      (bf16*)dq, s, heads, scale);
-  return (int)cudaGetLastError();
+  if (d == 128) {
+    return launch_bwd<128>(qv, kv, vv, out, lse, dout, delta, dq, dk, dv, n,
+                           st);
+  }
+  if (d == 64) {
+    return launch_bwd<64>(qv, kv, vv, out, lse, dout, delta, dq, dk, dv, n,
+                          st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

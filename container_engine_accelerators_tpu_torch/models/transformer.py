@@ -317,8 +317,10 @@ def _auto_use_flash(attn_impl: str, seq_len: int, device="cuda") -> bool:
     """THE flash auto-gate (reference :501): explicit 'flash' forces it;
     'auto' requires the card (the reference: a Pallas-TPU backend) and a
     length the reference's gate accepts, so that both packages pick the
-    same path for the same shape.  On the card the wrapper raises for a
-    head dim its kernels are not built for."""
+    same path for the same shape.  The card's kernels are built for head
+    dims 64 and 128 (flash_attention.HEAD_DIMS: lm_main's default and
+    `--heads` at twice it); the wrapper raises for any other, naming
+    them."""
     if attn_impl not in ("auto", "dense", "flash"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
     return attn_impl == "flash" or (

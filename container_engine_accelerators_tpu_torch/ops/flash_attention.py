@@ -10,15 +10,26 @@ same function, so one CUDA kernel serves every length, and the
 reference's splash routing with its warn-and-fall-back path is not
 carried over.
 
-The forward keeps each score tile in registers with an online softmax
-(no (b, h, s, s) score or probability tensor reaches device memory) and
-saves the per-row logsumexp (b, h, s) in f32.  The backward is FA2's:
-D = rowsum(dO * O), one pass per key tile for dK / dV and one per query
-tile for dQ, tiles above the diagonal skipped, bf16 tensor-core MMA
-with f32 sums, no atomics.  The kernels read q, k and v through their
-strides (head dim contiguous), so the strided views of the fused qkv
-projection are read in place, with no copy; O and the gradients are
-written contiguous.  See the source's header for the layout.
+The kernels are built for Hopper at head dims 64 and 128 (HEAD_DIMS):
+every product is a wgmma, a block of two warpgroups owns 128 query (or
+key) rows, shared tiles lie in wgmma's 128-byte swizzle, and the
+streamed K / V (or Q / dO) tiles go through a ring of shared-memory
+stages that TMA fills one or two steps ahead of their use (tensor maps
+encoded per call from the views' own strides, completion on mbarriers),
+so copies are in flight while the tensor cores work.  The forward keeps
+each score tile in registers with an online softmax in base 2 (no
+(b, h, s, s) score or probability tensor reaches device memory), does
+one tile's softmax under the previous tile's P V product and the other
+warpgroup's products, and saves the per-row logsumexp (b, h, s) in
+f32.  The backward is FA2's in two passes: D = rowsum(dO * O), one pass
+per key tile for dK / dV and one per query tile for dQ, tiles above the
+diagonal skipped, f32 sums in a fixed order, no atomics: two runs give
+the same bits.  The kernels read q, k and v through their strides (head
+dim contiguous), so the strided views of the fused qkv projection are
+read in place, with no copy; O and the gradients are written
+contiguous.  Any seq that is a multiple of 64 is taken: the ragged half
+of a last 128-row tile is zero-filled, masked and not stored.  See the
+source's header for the layout and the bound.
 
 The plain version is the reference's dense math (transformer.py
 `full_causal_attention` :32): f32 scores with q divided by sqrt(d), a
@@ -42,8 +53,8 @@ from . import _build
 # the same lengths.
 MIN_SEQ = 128
 _BLOCK_Q, _BLOCK_K = 256, 512
-HEAD_DIM = 128  # the one head dim the CUDA kernels are built for
-_TILE = 64  # the kernels' row tile: s must be a multiple of it
+HEAD_DIMS = (64, 128)  # the head dims the CUDA kernels are built for
+_TILE = 64  # a warpgroup's rows: s must be a multiple of it
 
 
 def flash_supports_seq(s: int, block_q: int = 256, block_k: int = 512) -> bool:
@@ -91,6 +102,17 @@ def _strides(t):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def check_head_dim_and_seq(d: int, s: int) -> None:
+    """The kernels' shape rule: a head dim they are built for and a seq
+    that is a multiple of a warpgroup's 64 rows."""
+    if d not in HEAD_DIMS or s % _TILE:
+        raise ValueError(
+            f"flash attention: the kernels are built for head dims "
+            f"{HEAD_DIMS} and take a seq multiple of {_TILE}; got d {d}, "
+            f"seq {s}"
+        )
+
+
 def _check_qkv(q, k, v):
     b, s, h, d = q.shape
     for t in (q, k, v):
@@ -113,11 +135,7 @@ def _check_qkv(q, k, v):
                 "dim must be contiguous, the other strides multiples of 8 "
                 "and the data 16-byte aligned"
             )
-    if d != HEAD_DIM or s % _TILE:
-        raise ValueError(
-            f"flash attention: the kernels take head dim {HEAD_DIM} and a "
-            f"seq multiple of {_TILE}; got d {d}, seq {s}"
-        )
+    check_head_dim_and_seq(d, s)
 
 
 def flash_attention_fwd(q, k, v):
@@ -130,7 +148,7 @@ def flash_attention_fwd(q, k, v):
     rc = _build.load("cea_flash_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *_strides(q), *_strides(k), *_strides(v), b, s, h,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        d, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "flash attention forward")
     flash_attention_fwd.launches += 1
@@ -159,7 +177,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), *_strides(q), *_strides(k),
-        *_strides(v), b, s, h,
+        *_strides(v), b, s, h, d,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "flash attention backward")

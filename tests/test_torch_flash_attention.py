@@ -4,8 +4,10 @@ reference's `full_causal_attention` — the reference's own tests hold
 flash through that dense math on the CPU, since the stock Pallas TPU
 kernel has no interpret mode — on the same numpy-drawn q, k, v: the
 output and the q / k / v gradients of a numpy-drawn cotangent, at seq
-128 and 256, in f32 and bf16.  Also the `flash_supports_seq` truth
-table over 1..4096 and the length errors, against the reference's.
+128 and 256 and head dims 32, 64 and 128 (the last two are the dims the
+CUDA kernels are built for), in f32 and bf16.  Also the
+`flash_supports_seq` truth table over 1..4096 and the length errors,
+against the reference's, and the kernels' head-dim rule by name.
 
 Tolerances: f32, 1e-5 absolute (scores and softmax in f32 in both, sums
 in another order); bf16, one bf16 ulp of max|out| (both compute in f32
@@ -40,12 +42,13 @@ def _case(seed, s, b=2, h=2, d=32):
 
 @pytest.mark.parametrize("s", [128, 256])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_forward_and_gradients_match_reference(s, dtype):
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_forward_and_gradients_match_reference(s, dtype, d):
     jdt, tdt = {
         "f32": (jnp.float32, torch.float32),
         "bf16": (jnp.bfloat16, torch.bfloat16),
     }[dtype]
-    q, k, v, g = _case(s, s)
+    q, k, v, g = _case(s + d, s, d=d)
     jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
     j_out, vjp = jax.vjp(T.full_causal_attention, jq, jk, jv)
     j_grads = vjp(jnp.asarray(g).astype(jdt))
@@ -97,3 +100,20 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         TF.flash_attention_bwd(q, q, q, q, torch.zeros((1, 1, 128)), q)
     assert (TF.flash_attention_fwd.launches,
             TF.flash_attention_bwd.launches) == before
+
+
+@pytest.mark.parametrize("d", TF.HEAD_DIMS)
+def test_kernel_shape_rule_accepts_built_head_dims(d):
+    assert TF.HEAD_DIMS == (64, 128)
+    for s in (128, 192, 2048, 8192):  # any multiple of 64
+        TF.check_head_dim_and_seq(d, s)
+    with pytest.raises(ValueError, match="seq multiple of 64"):
+        TF.check_head_dim_and_seq(d, 96)
+
+
+@pytest.mark.parametrize("d", [32, 96, 256])
+def test_kernel_shape_rule_rejects_other_head_dims_by_name(d):
+    with pytest.raises(ValueError) as err:
+        TF.check_head_dim_and_seq(d, 128)
+    assert "head dims (64, 128)" in str(err.value)
+    assert f"got d {d}" in str(err.value)

@@ -42,6 +42,20 @@ def test_tiny_cpu_run_logs_loss_lines(attn):
     assert "done: 3 steps" in out.stderr
 
 
+def test_heads_flag_at_head_dim_64_trains_on_the_cpu():
+    # dim 128 at 2 heads: head dim 64, one of the two the card's flash
+    # kernels are built for (the other, 128, is --heads 0's default).
+    out = _run("--seq-len", "128", "--batch", "2", "--dim", "128",
+               "--depth", "1", "--vocab", "64", "--heads", "2",
+               "--train-steps", "2", "--log-every", "1", "--attn-impl",
+               "flash", "--device", "cpu")
+    assert out.returncode == 0, out.stderr
+    losses = [float(v) for v in re.findall(r"step \d+ loss ([0-9.]+)",
+                                           out.stderr)]
+    assert len(losses) == 2 and all(0 < v < 10 for v in losses), out.stderr
+    assert "done: 2 steps" in out.stderr
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--mode", "tp"], "A10"),
     (["--seq-parallel"], "A10"),

@@ -17,6 +17,9 @@ on the same numpy-drawn flax params and tokens, on the CPU:
       of elementwise ops, so an activation can round the other way; and
       AdamW's first update is about lr * sign(g), which flips where
       that noise flips a tiny gradient);
+      the same for 2 steps at the head dims the CUDA kernels are built
+      for (64 and 128: dim 128 at 2 heads and at 1), through
+      attn_impl="flash";
   (d) the attention and loss selection, the validation messages beside
       the reference's, and the NotImplementedErrors of what is not
       ported.
@@ -162,6 +165,36 @@ def test_bf16_builders_agree_for_three_steps(params, attn_impl, loss_impl):
     )
     j_losses, t_losses = [], []
     for _ in range(3):
+        j_state, jl = j_step(j_state, jnp.asarray(tokens),
+                             jnp.asarray(targets))
+        t_state, tl = t_step(t_state, torch.from_numpy(tokens),
+                             torch.from_numpy(targets))
+        j_losses.append(float(jl))
+        t_losses.append(float(tl))
+    assert t_losses[-1] < t_losses[0]  # it trains
+    np.testing.assert_allclose(t_losses, j_losses, rtol=2.0 ** -9, atol=0)
+
+
+@pytest.mark.parametrize("heads,d_head", [(2, 64), (1, 128)])
+def test_bf16_trainers_agree_at_kernel_head_dims(heads, d_head):
+    cfg = dict(vocab=64, dim=128, depth=1, heads=heads, max_seq=SEQ)
+    assert cfg["dim"] // heads == d_head and d_head in TF.HEAD_DIMS
+    kw = {k: cfg[k] for k in ("vocab", "dim", "depth", "heads")}
+    wide = draw_params(7, cfg)
+    tokens, targets = _tokens(4)
+    j_step, _, _ = T.build_lm_training(
+        **kw, seq_len=SEQ, batch=BATCH, learning_rate=LR,
+    )
+    p = jax_params(wide)
+    j_state = {"params": p, "opt_state": optax.adamw(LR).init(p),
+               "step": jnp.zeros((), jnp.int32)}
+    t_step, t_state, _ = PT.build_lm_training(
+        **kw, seq_len=SEQ, batch=BATCH, learning_rate=LR, attn_impl="flash",
+        loss_impl="fused", dtype=torch.bfloat16, device="cpu", params=wide,
+    )
+    assert t_state["model"].blocks[0].attn_fn is TF.flash_causal_attention
+    j_losses, t_losses = [], []
+    for _ in range(2):
         j_state, jl = j_step(j_state, jnp.asarray(tokens),
                              jnp.asarray(targets))
         t_state, tl = t_step(t_state, torch.from_numpy(tokens),
