@@ -931,6 +931,14 @@ AFFINE_SHAPES = [
 ]
 CONV3_SHAPES = [(256, 56, 56, 64), (256, 28, 28, 128), (256, 14, 14, 256),
                 (256, 7, 7, 512)]
+# Ragged shapes, held but not timed: M not a multiple of the 128-row tile,
+# K and N not multiples of the 64-channel k-step or the column tile; for
+# the conv, tiles of whole images (7 x 7) and of rows that do not fill
+# the tile (9 x 11), a partial 64-channel chunk (C 24) and column tile
+# (C4 40), with relu(shift) > 0 so that a halo pixel fed through the
+# prologue would show.
+MATMUL_EDGE_SHAPES = [(1000, 72, 200), (1000, 64, 64), (130, 2048, 8)]
+CONV3_EDGE_SHAPES = [((2, 7, 7, 24), 40), ((3, 9, 11, 24), 40)]
 # Kernel vs plain: y and the data gradient (the kernels' own outputs) per
 # tile of VISION_TILE rows of one column, ||got - want|| / ||want|| within
 # 2**-7 (each side rounds an f32 sum taken in its own order to bf16 once,
@@ -952,9 +960,20 @@ def _col_tile_rel(got, want):
     """Relative errors of (rows, cols) tensors per tile of VISION_TILE
     rows of one column, as a (rows / VISION_TILE, cols) tensor."""
     cols = want.shape[-1]
+    pad = -want.shape[0] % VISION_TILE  # a ragged last tile: zero rows
     sq = ((got.float() - want.float()).square(), want.float().square())
-    err, norm = (x.reshape(-1, VISION_TILE, cols).sum(1) for x in sq)
+    err, norm = (_pad_rows(x, pad).reshape(-1, VISION_TILE, cols)
+                 .sum(1) for x in sq)
     return (err / norm.clamp_min(1e-30)).sqrt()
+
+
+def _pad_rows(x, pad):
+    """x (rows, cols) with `pad` zero rows appended."""
+    if pad == 0:
+        return x
+    out = x.new_zeros((x.shape[0] + pad, x.shape[1]))
+    out[:x.shape[0]] = x
+    return out
 
 
 def _vision_err(got, want, what):
@@ -989,11 +1008,54 @@ def _norm_rel(got, want):
             / want.float().norm().clamp_min(1e-30)).item()
 
 
+def _bitwise(torch, first, second):
+    """Whether two launches' outputs (tuples of tensors) agree bit for
+    bit: each compared as the integers of its bytes."""
+    as_int = {2: torch.int16, 4: torch.int32}
+    return all(x.shape == y.shape and torch.equal(
+        x.contiguous().view(as_int[x.element_size()]),
+        y.contiguous().view(as_int[y.element_size()]))
+        for x, y in zip(first, second))
+
+
+def _matmul_case(torch, FL, gen, m, k, n, affine, name):
+    """Operands of one fused-matmul shape and the kernel's launch, held
+    against the plain version and against a second launch bit for bit:
+    (a, b, sc, sh, launch, readings, faults)."""
+    a = torch.randn((m, k), device="cuda", generator=gen).to(torch.bfloat16)
+    b = (torch.randn((k, n), device="cuda", generator=gen)
+         / math.sqrt(k)).to(torch.bfloat16)
+    sc = sh = None
+    if affine:
+        sc = torch.rand((k,), device="cuda", generator=gen) + 0.5
+        sh = torch.randn((k,), device="cuda", generator=gen) * 0.5
+    if affine:
+        def launch():
+            return FL.fused_affine_matmul(a, sc, sh, b)
+    else:
+        def launch():
+            return FL.fused_matmul(a, b)
+    y, s, ss = launch()
+    ry, rs, rss = FL.fused_matmul_plain(a, b, sc, sh)
+    torch.cuda.synchronize()
+    r, faults = _vision_err(y, ry, f"{name} {m}x{k}x{n} y")
+    r["s_rel"], r["ss_rel"] = _norm_rel(s, rs), _norm_rel(ss, rss)
+    for key in ("s_rel", "ss_rel"):
+        if not (r[key] <= VISION_SUM_REL):
+            faults.append(f"{name} {m}x{k}x{n}: {key} {r[key]}")
+    r["bitwise_equal"] = _bitwise(torch, (y, s, ss), launch())
+    if not r["bitwise_equal"]:
+        faults.append(f"{name} {m}x{k}x{n}: two launches differ")
+    return a, b, sc, sh, launch, r, faults
+
+
 def check_fused_matmul(torch, FL, timer, gen):
     """The fused-matmul kernel at every ResNet-50 shape of both variants
-    against its plain version; times per training step (each shape's
-    time times its launches a step) of the kernel, the plain version and
-    torch.matmul on the same bf16 operands (y alone)."""
+    against its plain version and against a second launch (bitwise), and
+    at ragged shapes (MATMUL_EDGE_SHAPES, held, not timed); times per
+    training step (each shape's time times its launches a step) of the
+    kernel, the plain version and torch.matmul on the same bf16 operands
+    (y alone)."""
     recs = []
     faults = []
     for name, shapes, affine in (
@@ -1004,29 +1066,9 @@ def check_fused_matmul(torch, FL, timer, gen):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
         work = [0.0, 0.0]  # bytes and operations of one step's launches
         for (m, k, n), per_step in shapes:
-            a = torch.randn((m, k), device="cuda", generator=gen).to(
-                torch.bfloat16)
-            b = (torch.randn((k, n), device="cuda", generator=gen)
-                 / math.sqrt(k)).to(torch.bfloat16)
-            sc = sh = None
-            if affine:
-                sc = torch.rand((k,), device="cuda", generator=gen) + 0.5
-                sh = torch.randn((k,), device="cuda", generator=gen) * 0.5
-            if affine:
-                def launch():
-                    return FL.fused_affine_matmul(a, sc, sh, b)
-            else:
-                def launch():
-                    return FL.fused_matmul(a, b)
-            y, s, ss = launch()
-            ry, rs, rss = FL.fused_matmul_plain(a, b, sc, sh)
-            torch.cuda.synchronize()
-            r, f = _vision_err(y, ry, f"{name} {m}x{k}x{n} y")
-            r["s_rel"], r["ss_rel"] = _norm_rel(s, rs), _norm_rel(ss, rss)
+            a, b, sc, sh, launch, r, f = _matmul_case(
+                torch, FL, gen, m, k, n, affine, name)
             faults += f
-            for key in ("s_rel", "ss_rel"):
-                if not (r[key] <= VISION_SUM_REL):
-                    faults.append(f"{name} {m}x{k}x{n}: {key} {r[key]}")
             # Each input byte read once, each output byte written once.
             nbytes = 2 * (m * k + k * n + m * n) + 8 * n + (8 * k if affine
                                                             else 0)
@@ -1042,13 +1084,18 @@ def check_fused_matmul(torch, FL, timer, gen):
             for key in tot:
                 tot[key] += per_step * r[key]
             per_shape.append({"mkn": [m, k, n], "per_step": per_step, **r})
-            del a, b, y, ry
-        worst = max(per_shape, key=lambda x: x["tile_rel_err"])
+            del a, b
+        edges = []
+        for m, k, n in MATMUL_EDGE_SHAPES:
+            r, f = _matmul_case(torch, FL, gen, m, k, n, affine, name)[5:]
+            faults += f
+            edges.append({"mkn": [m, k, n], **r})
+        worst = max(per_shape + edges, key=lambda x: x["tile_rel_err"])
         b_ms, b_by = bound_ms(*work, "bf16")
         recs.append({
             "bound_ms": b_ms, "bound_by": b_by,
-            "name": name, "shapes": per_shape,
-            "max_abs_err": max(x["max_abs_err"] for x in per_shape),
+            "name": name, "shapes": per_shape, "edge_shapes": edges,
+            "max_abs_err": max(x["max_abs_err"] for x in per_shape + edges),
             "tile_rel_err": worst["tile_rel_err"],
             "tolerance_tile_rel": VISION_TILE_REL,
             "tolerance_stats_rel": VISION_SUM_REL,
@@ -1062,9 +1109,60 @@ def check_fused_matmul(torch, FL, timer, gen):
     return recs, faults
 
 
+def _conv_case(torch, FC, x, w9, args, what, stats=True):
+    """One conv launch held against the plain version and against a
+    second launch bit for bit: (readings, faults)."""
+    def launch():
+        return FC.conv3x3(x, w9, *args, stats=stats)
+
+    y, s, ss = launch()
+    ry, rs, rss = FC.conv3x3_plain(x, w9, *args)
+    torch.cuda.synchronize()
+    r, faults = _vision_err(y, ry, f"conv3x3 {what} y")
+    outs = (y, s, ss) if stats else (y,)
+    if stats:
+        r["s_rel"], r["ss_rel"] = _norm_rel(s, rs), _norm_rel(ss, rss)
+        for key in ("s_rel", "ss_rel"):
+            if not (r[key] <= VISION_SUM_REL):
+                faults.append(f"conv3x3 {what}: {key} {r[key]}")
+    r["bitwise_equal"] = _bitwise(torch, outs, launch())
+    if not r["bitwise_equal"]:
+        faults.append(f"conv3x3 {what}: two launches differ")
+    return r, faults
+
+
+def check_conv3x3_edges(torch, FC, gen):
+    """The conv kernel at CONV3_EDGE_SHAPES (held, not timed): forward
+    without and with the prologue (shift drawn so relu(shift) > 0), and
+    the data gradient.  (readings, faults)."""
+    recs, faults = [], []
+    for (n, h, w, c), c4 in CONV3_EDGE_SHAPES:
+        tag = f"{n}x{h}x{w}x{c}->{c4}"
+        x = torch.randn((n, h, w, c), device="cuda", generator=gen).to(
+            torch.bfloat16)
+        w9 = (torch.randn((9, c, c4), device="cuda", generator=gen)
+              / (3 * math.sqrt(c))).to(torch.bfloat16)
+        sc = torch.rand((c,), device="cuda", generator=gen) + 0.5
+        sh = torch.rand((c,), device="cuda", generator=gen) * 0.5 + 0.25
+        g = torch.randn((n, h, w, c4), device="cuda", generator=gen).to(
+            torch.bfloat16)
+        rec = {"nhwc": [n, h, w, c], "c4": c4}
+        for pro, xx, ww, args, stats in (
+            ("plain_x", x, w9, (None, None), True),
+            ("prologue", x, w9, (sc, sh), True),
+            ("data_gradient", g, FC.rot180_t(w9), (None, None), False),
+        ):
+            rec[pro], f = _conv_case(torch, FC, xx, ww, args,
+                                     f"{tag} {pro}", stats)
+            faults += f
+        recs.append(rec)
+    return recs, faults
+
+
 def check_conv3x3(torch, FC, timer, gen):
-    """The 3x3 conv kernel at ResNet-50's four stride-1 shapes: forward
-    without and with the prologue against the plain version, and the
+    """The 3x3 conv kernel at ResNet-50's four stride-1 shapes (and the
+    ragged CONV3_EDGE_SHAPES, untimed): forward without and with the
+    prologue against the plain version and a second launch, and the
     backward through autograd (dx, dscale, dshift, dw) against the same
     autograd Function on the plain version; times of the forward and the
     data gradient beside the plain version and cuDNN (channels_last
@@ -1084,17 +1182,8 @@ def check_conv3x3(torch, FC, timer, gen):
         sh = torch.randn((c,), device="cuda", generator=gen) * 0.5
         rec = {"nhwc": [n, h, w, c]}
         for pro, args in (("plain_x", (None, None)), ("prologue", (sc, sh))):
-            y, s, ss = FC.conv3x3(x, w9, *args)
-            ry, rs, rss = FC.conv3x3_plain(x, w9, *args)
-            torch.cuda.synchronize()
-            r, f = _vision_err(y, ry, f"conv3x3 {tag} {pro} y")
-            r["s_rel"], r["ss_rel"] = _norm_rel(s, rs), _norm_rel(ss, rss)
+            rec[pro], f = _conv_case(torch, FC, x, w9, args, f"{tag} {pro}")
             faults += f
-            for key in ("s_rel", "ss_rel"):
-                if not (r[key] <= VISION_SUM_REL):
-                    faults.append(f"conv3x3 {tag} {pro}: {key} {r[key]}")
-            rec[pro] = r
-            del y, ry
         # Backward: random cotangents for y and, at the model's 1 / rows
         # scale, for the statistics.
         g = torch.randn((n, h, w, c), device="cuda", generator=gen).to(
@@ -1115,11 +1204,9 @@ def check_conv3x3(torch, FC, timer, gen):
 
         # The data-gradient kernel's own output, tile by tile.
         w_rot = FC.rot180_t(w9)
-        dz = FC.conv3x3(g, w_rot, stats=False)[0]
-        bw, f = _vision_err(dz, FC.conv3x3_plain(g, w_rot)[0],
-                            f"conv3x3 {tag} data gradient")
+        bw, f = _conv_case(torch, FC, g, w_rot, (None, None),
+                           f"{tag} data gradient", stats=False)
         faults += f
-        del dz
         got, n_got = grads()
         with plain_vision_kernels(None, FC):
             want, n_want = grads()
@@ -1164,15 +1251,19 @@ def check_conv3x3(torch, FC, timer, gen):
         fwd_shapes.append(rec)
         bwd_shapes.append({"nhwc": [n, h, w, c], **bw})
         del x, g
+    edges, f = check_conv3x3_edges(torch, FC, gen)
+    faults += f
     recs = []
-    for name, shapes, what, launches in (
+    for name, shapes, what, launches, edge_errs in (
         ("conv3x3_bn_stats_fwd", fwd_shapes, "forward with the prologue",
-         op_launches[0]),
+         op_launches[0], [e[k] for e in edges
+                          for k in ("plain_x", "prologue")]),
         ("conv3x3_bn_stats_dgrad", bwd_shapes, "data gradient",
-         op_launches[1]),
+         op_launches[1], [e["data_gradient"] for e in edges]),
     ):
-        errs = [s.get("prologue", s) for s in shapes]
+        errs = [s.get("prologue", s) for s in shapes] + edge_errs
         rec = {"name": name, "shapes": shapes, "what": what,
+               "edge_shapes": edges,
                "launches": launches,
                "launches_from": "this op phase: conv3x3_bn_stats forward "
                "and backward once at each shape (no model path of the "
@@ -1680,7 +1771,10 @@ def main() -> int:
         raise RuntimeError(f"needs compute capability 9.0, got {props}")
 
     emit({"phase": "build", "seconds": _build.build_all(),
-          "flags": list(_build.NVCC_FLAGS)})
+          "flags": list(_build.NVCC_FLAGS), "ptxas": _build.PTXAS})
+    serialized = [x for v in _build.PTXAS.values() for x in v["serialized"]]
+    if serialized:
+        raise AssertionError(f"ptxas serialized wgmma: {serialized}")
 
     gen = torch.Generator().manual_seed(SEED)
     timer = Timer(torch)

@@ -76,6 +76,7 @@
 #include <stdint.h>
 
 #include "hopper_mma.cuh"
+#include "tma_host.cuh"
 
 namespace {
 
@@ -700,28 +701,6 @@ __global__ void __launch_bounds__(THREADS, 1)
                 t);
 }
 
-typedef CUresult (*EncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime so that
-// the library links against no libcuda.  Null where it is missing.
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* entry = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &entry,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess) {
-      entry = nullptr;
-    }
-    return (EncodeTiled)entry;
-  }();
-  return fn;
-}
-
 struct Shape {
   int b, s, heads, d;
 };
@@ -736,20 +715,12 @@ struct View {
 // The map of `rows` x 64-column boxes (one swizzle atom) of a view, as
 // (d, heads, seq, batch); 0, or a code that is not a cudaError_t's.
 int tile_map(CUtensorMap* map, const View& t, const Shape& n, int rows) {
-  const EncodeTiled encode = encoder();
-  if (!encode) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)n.d, (cuuint64_t)n.heads,
-                              (cuuint64_t)n.s, (cuuint64_t)n.b};
-  const cuuint64_t strides[3] = {(cuuint64_t)t.sh * 2, (cuuint64_t)t.ss * 2,
-                                 (cuuint64_t)t.sb * 2};  // bytes
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUresult rc = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(t.data),
-      dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return rc == CUDA_SUCCESS ? 0 : 100000 + (int)rc;
+  return map_4d(map, t.data,
+                {(unsigned long long)n.d, (unsigned long long)n.heads,
+                 (unsigned long long)n.s, (unsigned long long)n.b},
+                {(unsigned long long)t.sh * 2, (unsigned long long)t.ss * 2,
+                 (unsigned long long)t.sb * 2},  // bytes
+                {64u, 1u, (unsigned)rows, 1u});
 }
 
 View contiguous(const void* data, const Shape& n) {

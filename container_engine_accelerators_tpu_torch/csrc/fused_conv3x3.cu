@@ -19,37 +19,46 @@
 // 14x14x256, 7x7x512) each conv is 2 * 9 * C * C4 * pixels = 59 GFLOP
 // (0.06 ms at 989 TFLOP/s) against 103-205 MB of x and y (0.03-0.06 ms):
 // the first shape is balanced, the deeper ones bound by operations.  The
-// design is an implicit GEMM (csrc/fused_gemm.cuh): rows are output
-// pixels, K walks the 9 taps x C, and each A chunk is read straight from
-// the shifted input with a predicated cp.async, so no padded or im2col
-// copy is made.
+// design is an implicit GEMM on wgmma (csrc/fused_gemm.cuh): a tile is a
+// box of up to 128 output pixels (w x h x images, chosen to fill tiles);
+// for each 64-channel chunk TMA copies the box with a one-pixel halo
+// once (zeros outside the image), the prologue runs on it once in shared
+// memory, and the nine taps gather their rows from it through ldmatrix
+// into wgmma RS while the taps' (64 x C4 tile) weight slices stream
+// through a second ring.  No padded or im2col copy is made, and x is
+// read about (wb + 2)(r + 2) / (wb r) times, not nine.
 //
-// Plain C interface, bound with ctypes.  The entry point returns
-// cudaGetLastError() after its launches.
+// Plain C interface, bound with ctypes.  The entry point returns 0, a
+// cudaError_t, or 100000 + the CUresult of a tensor map it could not
+// encode.
 
 #include "fused_gemm.cuh"
 
 // x (n, h, w, c) bf16; scale / shift (c,) f32 or both null; w9 (9, c, c4)
-// bf16; y (n, h, w, c4) bf16; part (2, groups, c4) f32 scratch and stats
+// bf16; y (n, h, w, c4) bf16; part (2, grid, c4) f32 scratch and stats
 // (2, c4) f32, or both null to skip the statistics.  c and c4 multiples of
-// 8, every pointer 16-byte aligned.
+// 8, every pointer 16-byte aligned.  The tile box (wb, r, bi: pixels along
+// w, rows, images), bn, the ring depths and grid come from the wrapper's
+// plan (ops/fused_conv3x3.py `plan_conv`).
 extern "C" int cea_conv3x3(const void* x, const void* scale,
                            const void* shift, const void* w9, void* y,
                            void* part, void* stats, int n, int h, int w,
-                           int c, int c4, int groups, void* stream) {
-  fused_gemm::Problem p;
-  p.a = (const fused_gemm::bf16*)x;
-  p.scale = (const float*)scale;
-  p.shift = (const float*)shift;
-  p.b = (const fused_gemm::bf16*)w9;
-  p.y = (fused_gemm::bf16*)y;
-  p.part = (float*)part;
-  p.M = n * h * w;
-  p.K = 9 * c;
-  p.N = c4;
-  p.C = c;
-  p.H = h;
-  p.W = w;
-  return fused_gemm::launch<true>(p, (float*)stats, groups,
-                                  (cudaStream_t)stream);
+                           int c, int c4, int wb, int r, int bi, int bn,
+                           int a_stages, int b_stages, int grid,
+                           void* stream) {
+  fused_gemm::Geo g = {};
+  g.C = c;
+  g.W = w;
+  g.H = h;
+  g.NB = n;
+  g.N = c4;
+  g.taps = 9;
+  g.wb = wb;
+  g.r = r;
+  g.bi = bi;
+  g.a_stages = a_stages;
+  g.b_stages = b_stages;
+  return fused_gemm::launch(x, (const float*)scale, (const float*)shift, w9,
+                            y, (float*)part, (float*)stats, g, bn, grid,
+                            (cudaStream_t)stream);
 }

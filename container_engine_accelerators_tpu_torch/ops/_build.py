@@ -7,7 +7,8 @@ The library's file name carries a hash of the source, of every shared
 header (csrc/*.cuh) and of the flags, so an edited source or header
 rebuilds and an unchanged one loads from disk.
 `build_all()` starts one nvcc per source together and waits for all of
-them, so a cold start costs the slowest compile, not the sum.
+them, so a cold start costs the slowest compile, not the sum; it keeps
+what ptxas reported (registers, spills, serialized wgmma) in `PTXAS`.
 
 Binding is ctypes: pointers and the CUDA stream pass as c_void_p, ints
 as c_int, element strides as c_longlong, and every entry point returns
@@ -22,6 +23,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -52,8 +54,8 @@ ENTRY_POINTS = {
     ),
     "cea_xent_fwd": ("fused_xent", [_P] * 4 + [_I] * 4 + [_P]),
     "cea_xent_bwd": ("fused_xent", [_P] * 5 + [_I] * 4 + [_P]),
-    "cea_fused_matmul": ("fused_linear", [_P] * 7 + [_I] * 4 + [_P]),
-    "cea_conv3x3": ("fused_conv3x3", [_P] * 7 + [_I] * 6 + [_P]),
+    "cea_fused_matmul": ("fused_linear", [_P] * 7 + [_I] * 7 + [_P]),
+    "cea_conv3x3": ("fused_conv3x3", [_P] * 7 + [_I] * 12 + [_P]),
 }
 SOURCES = tuple(sorted({src for src, _ in ENTRY_POINTS.values()}))
 
@@ -82,7 +84,35 @@ def _target(name: str) -> str:
 
 
 def _compile_cmd(name: str, out: str):
-    return [nvcc(), *NVCC_FLAGS, "-o", out, os.path.join(CSRC, f"{name}.cu")]
+    return [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", out,
+            os.path.join(CSRC, f"{name}.cu")]
+
+
+# What ptxas reported for each source built in this process: source ->
+# {"kernels": {entry: [registers, spill store bytes, spill load bytes]},
+#  "serialized": [ptxas's "wgmma ... serialized" lines]}.
+PTXAS: Dict[str, dict] = {}
+
+
+def parse_ptxas(log: str) -> dict:
+    """Registers and spills per entry function, and the lines where
+    ptxas serialized wgmma, from nvcc's -Xptxas -v output."""
+    kernels, serialized, entry = {}, [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            kernels[entry] = [0, 0, 0]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            kernels[entry][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            kernels[entry][0] = int(m.group(1))
+        if "wgmma" in line and "serialized" in line:
+            serialized.append(line.strip())
+    return {"kernels": kernels, "serialized": serialized}
 
 
 def build_all() -> float:
@@ -108,6 +138,7 @@ def build_all() -> float:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
         else:
             os.replace(tmp, out)
+            PTXAS[name] = parse_ptxas(log)
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.monotonic() - t0 if procs else 0.0

@@ -28,11 +28,13 @@ keeps it an op as well.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from . import _build
-from .fused_linear import _check_aligned, dot_f32, stats_groups
+from .fused_linear import BM, _sms, check_tma, dot_f32, plan_gemm
 
 TAPS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
 
@@ -61,15 +63,52 @@ def conv3x3_plain(x, w9, scale=None, shift=None):
             (acc * acc).sum(0))
 
 
-def conv3x3(x, w9, scale=None, shift=None, stats=True):
-    """(y, s, ss) from the CUDA kernel; with stats=False, s and ss are
-    None and not computed.  x (N, H, W, C) and w9 (9, C, C4) bf16
-    contiguous on one CUDA device; scale / shift (C,) f32 or None."""
-    what = "conv3x3_bn_stats"
-    for t in (x, w9, scale, shift):
-        if t is not None and (not t.is_cuda or t.device != x.device):
-            raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors "
-                             "on one device")
+# Rows of the conv's A tile (its box of pixels with a one-pixel halo): a
+# TMA box dimension is at most 256.
+HALO_ROWS = 256
+
+
+@functools.lru_cache(maxsize=None)
+def tile_box(n, h, w):
+    """The box of output pixels a conv tile covers, (wb, r, bi): wb
+    pixels along w (w split evenly), r rows, bi images, at most BM
+    pixels, with its one-pixel halo at most HALO_ROWS rows (a TMA box
+    dimension); of those, the one whose tiles leave the fewest of their
+    BM rows empty, then the one with the fewest tiles, then the one with
+    the fewest halo rows (A tiles are read through the L2 once a tap
+    chunk, halo and all)."""
+    best = None
+    for splits in range(1, w + 1):
+        wb = -(-w // splits)
+        if wb > BM or -(-w // wb) != splits:
+            continue
+        for r in range(1, min(h, BM // wb) + 1):
+            for bi in range(1, min(n, BM // (wb * r)) + 1):
+                if (wb + 2) * (r + 2) * bi > HALO_ROWS:
+                    break
+                tiles = splits * -(-h // r) * -(-n // bi)
+                key = (n * h * w / (tiles * BM), -tiles,
+                       -(wb + 2) * (r + 2) * bi)
+                if best is None or key > best[0]:
+                    best = (key, (wb, r, bi))
+    return best[1]
+
+
+def plan_conv(n, h, w, c, c4, sms, stats=True, affine=False):
+    """The GEMM core's launch for the conv: plan_gemm's dict plus the
+    tile's box of output pixels (tile_box)."""
+    wb, r, bi = tile_box(n, h, w)
+    pixel_tiles = -(-w // wb) * -(-h // r) * -(-n // bi)
+    plan = plan_gemm("conv3x3_bn_stats", pixel_tiles, c4, c, sms, stats,
+                     affine, a_rows=(wb + 2) * (r + 2) * bi, conv=True)
+    plan.update(wb=wb, r=r, bi=bi)
+    return plan
+
+
+def check_conv(what, x, w9, scale=None, shift=None):
+    """(n, h, w, c, c4) after checking what the kernel takes, on any
+    device: x (N, H, W, C) and w9 (9, C, C4) bf16, C and C4 multiples of
+    8; scale / shift (C,) or both None."""
     if x.dtype != torch.bfloat16 or w9.dtype != torch.bfloat16:
         raise ValueError(f"{what}: the CUDA kernel takes bf16 operands, got "
                          f"{x.dtype} and {w9.dtype}")
@@ -81,28 +120,45 @@ def conv3x3(x, w9, scale=None, shift=None, stats=True):
     if c % 8 or c4 % 8:
         raise ValueError(f"{what}: the CUDA kernel needs C ({c}) and C4 "
                          f"({c4}) to be multiples of 8")
+    if min(n, h, w) < 1:
+        raise ValueError(f"{what}: empty input {tuple(x.shape)}")
     if (scale is None) != (shift is None):
         raise ValueError(f"{what}: scale and shift come together")
+    if scale is not None and (scale.shape != (c,) or shift.shape != (c,)):
+        raise ValueError(f"{what}: scale / shift must be ({c},)")
+    return n, h, w, c, c4
+
+
+def conv3x3(x, w9, scale=None, shift=None, stats=True):
+    """(y, s, ss) from the CUDA kernel; with stats=False, s and ss are
+    None and not computed.  x (N, H, W, C) and w9 (9, C, C4) bf16 on one
+    CUDA device (check_conv); scale / shift (C,) f32 or None."""
+    what = "conv3x3_bn_stats"
+    for t in (x, w9, scale, shift):
+        if t is not None and (not t.is_cuda or t.device != x.device):
+            raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors "
+                             "on one device")
+    n, h, w, c, c4 = check_conv(what, x, w9, scale, shift)
     if scale is not None:
-        if scale.shape != (c,) or shift.shape != (c,):
-            raise ValueError(f"{what}: scale / shift must be ({c},)")
         scale = scale.float().contiguous()
         shift = shift.float().contiguous()
     x, w9 = x.contiguous(), w9.contiguous()
-    _check_aligned(what, x, w9, scale, shift)
+    check_tma(what, x, w9, scale, shift)
+    plan = plan_conv(n, h, w, c, c4, _sms(x.device), stats,
+                     scale is not None)
     y = torch.empty((n, h, w, c4), dtype=torch.bfloat16, device=x.device)
-    col_tiles = -(-c4 // (64 if c4 <= 64 else 128))
-    groups = stats_groups(-(-(n * h * w) // 128), col_tiles, x.device)
     part = out = None
     if stats:
-        part = torch.empty((2, groups, c4), dtype=torch.float32,
+        part = torch.empty((2, plan["grid"], c4), dtype=torch.float32,
                            device=x.device)
         out = torch.empty((2, c4), dtype=torch.float32, device=x.device)
     rc = _build.load("cea_conv3x3")(
         x.data_ptr(), None if scale is None else scale.data_ptr(),
         None if shift is None else shift.data_ptr(), w9.data_ptr(),
         y.data_ptr(), None if part is None else part.data_ptr(),
-        None if out is None else out.data_ptr(), n, h, w, c, c4, groups,
+        None if out is None else out.data_ptr(), n, h, w, c, c4,
+        plan["wb"], plan["r"], plan["bi"], plan["bn"], plan["a_stages"],
+        plan["b_stages"], plan["grid"],
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, what)

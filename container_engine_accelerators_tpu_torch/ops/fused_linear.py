@@ -22,8 +22,10 @@ in torch ops outside the kernel (the reference's are `jnp.dot`s outside
 Pallas): the statistics' gradients fold into g as ds + 2 y dss, then the
 two products.  The wrapper takes the plain version only for CPU
 tensors; on a CUDA tensor it launches the kernel or raises.  The kernel
-takes bf16 operands with K and N multiples of 8 and any M; it raises on
-anything else.  The reference's `interpret` argument and its VMEM block
+takes bf16 operands with K and N multiples of 8 and any M >= 1; it
+raises on anything else.  `plan_matmul` chooses its launch (column
+tile, ring depth, persistent grid) in Python, where the CPU tests reach
+it.  The reference's `interpret` argument and its VMEM block
 plan (`_blocks`, `_ROW_BLOCK_CANDIDATES`) are not carried over.
 """
 
@@ -33,7 +35,14 @@ import torch
 
 from . import _build
 
-_ALIGN = 16  # bytes: the kernels read and write 16 bytes a thread
+_ALIGN = 16  # bytes: TMA's alignment of a tensor's base and strides
+# The GEMM core's tiling (csrc/fused_gemm.cuh): 128 output rows a tile,
+# 64 channels a k-step, 2-4 ring stages, shared memory an H100 block may
+# use.
+BM = 128
+BK = 64
+MAX_STAGES = 4
+SMEM_LIMIT = 232448
 
 
 def fused_matmul_plain(a, b, scale=None, shift=None):
@@ -46,29 +55,72 @@ def fused_matmul_plain(a, b, scale=None, shift=None):
     return acc.to(a.dtype), acc.sum(0), (acc * acc).sum(0)
 
 
-def _check_aligned(what, *tensors):
+def check_tma(what, *tensors):
+    """Raise unless each tensor (None skipped) can back a TMA map: its
+    base 16-byte aligned, dense row-major, every stride but the last a
+    multiple of 16 bytes."""
     for t in tensors:
-        if t is not None and t.data_ptr() % _ALIGN:
+        if t is None:
+            continue
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: the CUDA kernel takes contiguous "
+                             "operands")
+        if t.data_ptr() % _ALIGN:
             raise ValueError(f"{what}: every operand must be {_ALIGN}-byte "
                              "aligned for the CUDA kernel")
+        if any(s * t.element_size() % _ALIGN for s in t.stride()[:-1]):
+            raise ValueError(f"{what}: strides {t.stride()} are not "
+                             f"multiples of {_ALIGN} bytes")
 
 
-def stats_groups(m_tiles: int, col_tiles: int, device) -> int:
-    """Blocks that share the M tiles of each column tile: about two
-    resident blocks per SM in all, at most one block per tile."""
-    sms = _build.sm_count(device.index if device.index is not None
-                          else torch.cuda.current_device())
-    return max(1, min(m_tiles, -(-2 * sms // col_tiles)))
+def smem_bytes(bn, a_stages, b_stages, a_rows, n, c, stats, affine):
+    """Shared memory of one block of the GEMM core (its `Smem`): barriers,
+    the A ring (tiles of a_rows rows of 128 bytes, 1 KB aligned), the B
+    ring, y's staging tile, the statistics' scratch, scale / shift, and
+    1 KB of alignment."""
+    cpad = -(-c // BK) * BK
+    a_stage = -(-a_rows * 128 // 1024) * 1024
+    return (1024 + a_stages * a_stage + b_stages * bn * 128 + BM * bn * 2
+            + ((2 * 8 * 2 * bn * 4 + 8 * n) if stats else 0)
+            + (8 * cpad if affine else 0) + 1024)
 
 
-def _launch(what, a, b, scale, shift):
-    """(y, s, ss) from the CUDA kernel, after checking what it takes: a
-    (M, K) and b (K, N) bf16 on one CUDA device, K and N multiples of 8;
-    scale / shift (K,) f32 or both None."""
-    for t in (a, b, scale, shift):
-        if t is not None and (not t.is_cuda or t.device != a.device):
-            raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors "
-                             "on one device")
+def plan_gemm(what, pixel_tiles, n, c, sms, stats, affine, a_rows=BM,
+              conv=False):
+    """The launch of the GEMM core over `pixel_tiles` tiles of output
+    rows: dict(bn, a_stages, b_stages, a_rows, grid, tiles) with the
+    column tile bn (64 for N <= 64, else 128), the deepest rings that fit
+    in shared memory (a matmul's A and B tiles go together; the conv
+    keeps two A tiles, each read by nine taps), and one persistent block
+    per SM (at most one per tile)."""
+    bn = 64 if n <= 64 else 128
+    tiles = pixel_tiles * -(-n // bn)
+    for b_stages in range(MAX_STAGES, 1, -1):
+        a_stages = 2 if conv else b_stages
+        if smem_bytes(bn, a_stages, b_stages, a_rows, n, c, stats,
+                      affine) <= SMEM_LIMIT:
+            break
+    else:
+        raise ValueError(f"{what}: N ({n}) and C ({c}) need more shared "
+                         "memory than a block has")
+    return dict(bn=bn, a_stages=a_stages, b_stages=b_stages, a_rows=a_rows,
+                grid=max(1, min(tiles, sms)), tiles=tiles)
+
+
+def plan_matmul(m, k, n, sms, stats=True, affine=False):
+    """plan_gemm for a (m, k) @ (k, n) matmul: tiles of BM rows."""
+    return plan_gemm("matmul_stats", -(-m // BM), n, k, sms, stats, affine)
+
+
+def _sms(device):
+    return _build.sm_count(device.index if device.index is not None
+                           else torch.cuda.current_device())
+
+
+def check_matmul(what, a, b, scale=None, shift=None):
+    """(m, k, n) after checking what the kernel takes, on any device: a
+    (M, K) and b (K, N) bf16, K and N multiples of 8, M >= 1; scale /
+    shift (K,) or both None."""
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         raise ValueError(f"{what}: the CUDA kernel takes bf16 operands, got "
                          f"{a.dtype} and {b.dtype}")
@@ -80,22 +132,38 @@ def _launch(what, a, b, scale, shift):
     if k % 8 or n % 8:
         raise ValueError(f"{what}: the CUDA kernel needs K ({k}) and N ({n}) "
                          "to be multiples of 8")
+    if m < 1:
+        raise ValueError(f"{what}: the CUDA kernel needs M >= 1, got {m}")
+    if (scale is None) != (shift is None):
+        raise ValueError(f"{what}: scale and shift come together")
+    if scale is not None and (scale.shape != (k,) or shift.shape != (k,)):
+        raise ValueError(f"{what}: scale / shift must be ({k},)")
+    return m, k, n
+
+
+def _launch(what, a, b, scale, shift):
+    """(y, s, ss) from the CUDA kernel, after checking what it takes: a
+    (M, K) and b (K, N) bf16 on one CUDA device (check_matmul)."""
+    for t in (a, b, scale, shift):
+        if t is not None and (not t.is_cuda or t.device != a.device):
+            raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors "
+                             "on one device")
+    m, k, n = check_matmul(what, a, b, scale, shift)
     if scale is not None:
-        if scale.shape != (k,) or shift.shape != (k,):
-            raise ValueError(f"{what}: scale / shift must be ({k},)")
         scale = scale.float().contiguous()
         shift = shift.float().contiguous()
     a, b = a.contiguous(), b.contiguous()
-    _check_aligned(what, a, b, scale, shift)
+    check_tma(what, a, b, scale, shift)
+    plan = plan_matmul(m, k, n, _sms(a.device), True, scale is not None)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
-    col_tiles = -(-n // (64 if n <= 64 else 128))
-    groups = stats_groups(-(-m // 128), col_tiles, a.device)
-    part = torch.empty((2, groups, n), dtype=torch.float32, device=a.device)
+    part = torch.empty((2, plan["grid"], n), dtype=torch.float32,
+                       device=a.device)
     stats = torch.empty((2, n), dtype=torch.float32, device=a.device)
     rc = _build.load("cea_fused_matmul")(
         a.data_ptr(), None if scale is None else scale.data_ptr(),
         None if shift is None else shift.data_ptr(), b.data_ptr(),
-        y.data_ptr(), part.data_ptr(), stats.data_ptr(), m, k, n, groups,
+        y.data_ptr(), part.data_ptr(), stats.data_ptr(), m, k, n,
+        plan["bn"], plan["a_stages"], plan["b_stages"], plan["grid"],
         torch.cuda.current_stream(a.device).cuda_stream,
     )
     _build.check(rc, what)

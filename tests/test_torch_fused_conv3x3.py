@@ -125,3 +125,49 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         TC.conv3x3(x, w9)
     TC.conv3x3_bn_stats(x, None, None, torch.zeros((3, 3, 8, 8)))
     assert TC.conv3x3.launches == before
+
+
+# The conv's tile plan and the checks on what the kernel takes (pure
+# Python; the kernel itself is held on the card by chip_smoke).
+@pytest.mark.parametrize("n,h,w,box", [
+    (256, 56, 56, (8, 8, 2)), (256, 28, 28, (7, 6, 3)),
+    (256, 14, 14, (14, 3, 3)), (256, 7, 7, (7, 7, 2)),
+    (3, 9, 11, (11, 9, 1)), (2, 7, 7, (7, 7, 2)), (2, 5, 300, (25, 5, 1)),
+    (256, 1, 1, (1, 1, 26)),
+])
+def test_plan_conv_box_fills_the_tile(n, h, w, box):
+    c, c4 = 64, 200
+    plan = TC.plan_conv(n, h, w, c, c4, 132)
+    wb, r, bi = box
+    assert (plan["wb"], plan["r"], plan["bi"]) == box
+    assert wb * r * bi <= TC.BM
+    # The A tile is the box with a one-pixel halo, within a TMA box.
+    assert plan["a_rows"] == (wb + 2) * (r + 2) * bi <= TC.HALO_ROWS
+    assert plan["a_stages"] == 2 and 2 <= plan["b_stages"] <= 4
+    pixel_tiles = -(-w // wb) * -(-h // r) * -(-n // bi)
+    assert plan["tiles"] == pixel_tiles * -(-c4 // plan["bn"])
+    assert plan["grid"] == min(plan["tiles"], 132)
+    # No box of whole image rows of one image (the simplest choice)
+    # needs fewer tiles.
+    if w <= TC.BM:
+        assert pixel_tiles <= -(-h // min(h, TC.BM // w)) * n
+
+
+@pytest.mark.parametrize("c,c4,word", [(12, 8, r"C \(12\)"),
+                                       (24, 20, r"C4 \(20\)")])
+def test_check_conv_refuses_channels_off_8(c, c4, word):
+    x = torch.zeros((1, 4, 4, c), dtype=torch.bfloat16)
+    w9 = torch.zeros((9, c, c4), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=word):
+        TC.check_conv("t", x, w9)
+
+
+def test_check_conv_takes_ragged_shapes():
+    x = torch.zeros((3, 9, 11, 24), dtype=torch.bfloat16)
+    w9 = torch.zeros((9, 24, 40), dtype=torch.bfloat16)
+    sc = torch.ones(24)
+    assert TC.check_conv("t", x, w9, sc, sc) == (3, 9, 11, 24, 40)
+    with pytest.raises(ValueError, match="bf16"):
+        TC.check_conv("t", x.float(), w9)
+    with pytest.raises(ValueError, match=r"\(24,\)"):
+        TC.check_conv("t", x, w9, torch.ones(8), torch.ones(8))

@@ -146,3 +146,101 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     TL.affine_relu_matmul_stats(a, sc, sc, b)
     assert (TL.fused_matmul.launches,
             TL.fused_affine_matmul.launches) == before
+
+
+# The kernel's launch plan and the checks on what it takes: pure Python,
+# so they are held here; the kernel itself only on the card (chip_smoke).
+PLAN_SHAPES = [(802816, 64, 64), (802816, 64, 256), (200704, 512, 128),
+               (50176, 1024, 512), (12544, 2048, 512), (12544, 512, 2048),
+               (1000, 72, 200), (1, 8, 8)]
+
+
+@pytest.mark.parametrize("affine", [False, True], ids=["plain", "affine"])
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_plan_covers_every_tile_and_fits(m, k, n, affine):
+    plan = TL.plan_matmul(m, k, n, 132, True, affine)
+    assert plan["bn"] == (64 if n <= 64 else 128)
+    assert plan["tiles"] == -(-m // TL.BM) * -(-n // plan["bn"])
+    assert plan["grid"] == min(plan["tiles"], 132)
+    assert 2 <= plan["b_stages"] <= TL.MAX_STAGES
+    assert plan["a_stages"] == plan["b_stages"]  # A and B tiles go together
+    assert plan["a_rows"] == TL.BM
+
+    def smem(stages):
+        return TL.smem_bytes(plan["bn"], stages, stages, TL.BM, n, k, True,
+                             affine)
+
+    assert smem(plan["b_stages"]) <= TL.SMEM_LIMIT
+    # The deepest ring that fits: one more stage would not.
+    if plan["b_stages"] < TL.MAX_STAGES:
+        assert smem(plan["b_stages"] + 1) > TL.SMEM_LIMIT
+
+
+def test_plan_refuses_what_shared_memory_cannot_hold():
+    with pytest.raises(ValueError, match=r"N \(40000\)"):
+        TL.plan_matmul(128, 64, 40000, 132)
+    # Without the statistics' per-block row the same N fits.
+    assert TL.plan_matmul(128, 64, 40000, 132, stats=False)["b_stages"] >= 2
+
+
+@pytest.mark.parametrize("m", [1, 127, 1000, 4097])
+@pytest.mark.parametrize("k,n", [(72, 200), (8, 8), (64, 2048)])
+def test_check_matmul_takes_multiples_of_8_and_any_m(m, k, n):
+    a = torch.zeros((m, k), dtype=torch.bfloat16)
+    b = torch.zeros((k, n), dtype=torch.bfloat16)
+    assert TL.check_matmul("t", a, b) == (m, k, n)
+    sc = torch.ones(k)
+    assert TL.check_matmul("t", a, b, sc, sc) == (m, k, n)
+    TL.check_tma("t", a, b, sc, sc)
+
+
+@pytest.mark.parametrize("k,n,word", [(12, 8, r"K \(12\)"),
+                                      (8, 20, r"N \(20\)")])
+def test_check_matmul_refuses_k_or_n_off_8(k, n, word):
+    a = torch.zeros((16, k), dtype=torch.bfloat16)
+    b = torch.zeros((k, n), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=word):
+        TL.check_matmul("t", a, b)
+
+
+def test_check_matmul_refuses_other_dtypes_shapes_and_empty_m():
+    b = torch.zeros((8, 8), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16"):
+        TL.check_matmul("t", torch.zeros((4, 8)), b)
+    with pytest.raises(ValueError, match="shapes"):
+        TL.check_matmul("t", torch.zeros((4, 16), dtype=torch.bfloat16), b)
+    with pytest.raises(ValueError, match="M >= 1"):
+        TL.check_matmul("t", torch.zeros((0, 8), dtype=torch.bfloat16), b)
+    with pytest.raises(ValueError, match="together"):
+        TL.check_matmul("t", torch.zeros((4, 8), dtype=torch.bfloat16), b,
+                        torch.ones(8), None)
+
+
+def test_check_tma_refuses_misaligned_or_strided_operands():
+    buf = torch.zeros(16 * 8 + 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        TL.check_tma("t", buf[1:].view(16, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        TL.check_tma("t", buf[:128].view(16, 8).t())
+    TL.check_tma("t", buf[:128].view(16, 8), None)
+
+
+def test_ptxas_report_is_parsed_per_entry_function():
+    # The build keeps registers, spills and serialized-wgmma lines, which
+    # chip_smoke records (and fails on the last).
+    from container_engine_accelerators_tpu_torch.ops import _build
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function 'k1' for 'sm_90a'",
+        "ptxas info    : Function properties for k1",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 162 registers, used 2 barriers",
+        "ptxas info    : Compiling entry function 'k2' for 'sm_90a'",
+        "ptxas info    : (C7520) Potential Performance Loss: "
+        "wgmma.mma_async instructions are serialized due to x in 'k2'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 94 registers, used 2 barriers",
+    ])
+    got = _build.parse_ptxas(log)
+    assert got["kernels"] == {"k1": [162, 8, 4], "k2": [94, 0, 0]}
+    assert len(got["serialized"]) == 1 and "k2" in got["serialized"][0]
