@@ -11,10 +11,15 @@ Phases, one JSON line each (stdout):
   2. build    — nvcc builds every csrc/*.cu for sm_90a (in parallel);
   3. kernels  — each kernel against its plain version at the main path's
                 shapes (paged attention bf16 / f32 / int8 at b 16, 20
-                pages of 64, 8 heads of 128; the int8 matmul at every
-                projection shape and the f32-x head at rows 16 and 1),
-                with bitwise null-page invariance, and the times of the
-                kernel, the plain version and one PyTorch yardstick call;
+                pages of 64, 8 heads of 128, and a ragged batch of 3
+                rows of 11 pages; the int8 matmul at every projection
+                shape, the f32-x head at rows 16 and 1, and ragged
+                shapes), with bitwise null-page invariance, two launches
+                bitwise equal, a planted 1% fault that must fail the
+                check, one device launch and one allocation a call, and
+                the times of the kernel, the plain version and one
+                PyTorch yardstick call (the int8 matmul also with
+                clusters of 8);
   4. engine   — the bf16 engine, then the int8 engine, at the repo's LM
                 width (dim 1024, depth 8, heads 8, vocab 32000, max_seq
                 1280, 16 slots, page 64, prefill chunk 256) with seeded
@@ -121,10 +126,13 @@ def bf16_ulp(x: float) -> float:
 class Timer:
     """Device time per call with the L2 flushed before each call (the
     main path finds its weights and pools cold): CUDA events around
-    `iters` (flush, call) pairs, minus the same loop of flushes alone.
-    The flush (a 256 MB memset) gives the host time to enqueue each
-    call ahead of the card, so the host's dispatch cost is not counted
-    as device time."""
+    `iters` (flush, call) pairs, minus the same loop of flushes alone;
+    the median of three such differences, taken in turn, as one pair
+    of loops can be off by far more than a small call lasts (one read
+    the 32.8 MB head below its bytes bound; PERF.md).  The flush
+    (a 256 MB memset) gives the host time to enqueue each call ahead of
+    the card, so the host's dispatch cost is not counted as device
+    time."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -147,9 +155,9 @@ class Timer:
     def ms(self, fn, iters=50, warmup=3):
         for _ in range(warmup):
             fn()
-        with_fn = self._loop(fn, iters)
-        alone = self._loop(None, iters)
-        return max(with_fn - alone, 0.0) / iters
+        diffs = sorted(self._loop(fn, iters) - self._loop(None, iters)
+                       for _ in range(3))
+        return max(diffs[1], 0.0) / iters
 
 
 def bound_ms(nbytes: float, ops: float, kind: str):
@@ -168,12 +176,14 @@ def nvidia_smi_line() -> str:
 
 
 # -- phase 3: kernels ------------------------------------------------------
-def paged_case(torch, kv_dtype, q_dtype, full_view, gen):
+def paged_case(torch, kv_dtype, q_dtype, full_view, gen, b=N_SLOTS,
+               pages=CFG["max_seq"] // PAGE, d=128):
     """Pools and block tables at the main path's shape: b 16 rows of 20
-    pages of 64, 8 heads of 128.  full_view: every row sees its whole
-    view; else each row's visibility ends at a random position and its
+    pages of 64, 8 heads of d 128.  full_view: every row sees its whole
+    view; else each row's visibility ends at a random position (row 0:
+    the whole view, row 1: a page boundary, row 2: mid-page) and its
     unmapped tail points at the null page 0."""
-    b, pages, h, d = N_SLOTS, CFG["max_seq"] // PAGE, CFG["heads"], 128
+    h = CFG["heads"]
     n_pages = b * pages + 1
     dev = "cuda"
     q = torch.randn((b, h, d), generator=gen).to(dev, q_dtype)
@@ -194,6 +204,7 @@ def paged_case(torch, kv_dtype, q_dtype, full_view, gen):
     else:
         pos = torch.randint(0, view, (b,), generator=gen)
         pos[0], pos[1] = view - 1, 2 * PAGE - 1  # full, page boundary
+        pos[2] = (pages // 2) * PAGE + 17  # mid-page
         for i in range(b):
             bt[i, int(pos[i]) // PAGE + 1:] = 0  # unmapped tail
         bt[2, 0] = bt[0, 0]  # a shared prefix page
@@ -201,29 +212,149 @@ def paged_case(torch, kv_dtype, q_dtype, full_view, gen):
     return q, k, v, bt.to(dev), mask.to(dev), ks, vs
 
 
+def device_kernels(prof):
+    """The profiler's device kernel events: the device events less the
+    step annotations that a profiler schedule puts on the device's
+    timeline (ProfilerStep#N), which span the whole step."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("ProfilerStep")]
+
+
+# The profiler keeps a device event only where its timestamp, mapped onto
+# the host's clock, falls inside the active step, and on the H100 that
+# mapping errs by milliseconds, either way, within one engine window
+# (`launch_lags_ms` reads it; PERF.md): enough to drop the last
+# layer's kernels of a window that ends right after them, or to pull a
+# warm-up kernel in.  So the device idles this long between a step's
+# work and each of the active step's ends.
+PROFILE_PAD_S = 0.25
+
+
+def launch_lags_ms(prof):
+    """(least, median) of each device kernel's start less its launch's
+    host start, in ms, as the profiler's two clocks place them: a value
+    below zero is the mapping's error, which PROFILE_PAD_S must
+    exceed."""
+    launch, lags = {}, []
+    events = prof.profiler.kineto_results.events()
+    for e in events:
+        if "LaunchKernel" in e.name():
+            launch[e.correlation_id()] = e.start_ns()
+    for e in events:
+        if ("CUDA" in str(e.device_type()) and "LaunchKernel" not in e.name()
+                and e.correlation_id() in launch):
+            lags.append((e.start_ns() - launch[e.correlation_id()]) / 1e6)
+    if not lags:
+        return None
+    lags.sort()
+    return [lags[0], lags[len(lags) // 2]]
+
+
+def traced_kernels(torch, fn):
+    """The names of the device kernels that fn() launches, from the
+    profiler's active step after a warm-up step of the same fn(), the
+    work of each step kept PROFILE_PAD_S from the active step's ends."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for active in (False, True):
+            if active:
+                time.sleep(PROFILE_PAD_S)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+            prof.step()
+    return [e.name for e in device_kernels(prof)]
+
+
+def one_launch(torch, fn, kernel, calls=10):
+    """(device kernels a call, tensors allocated a call) of fn.  Kernels:
+    the device events of `calls` calls (traced_kernels), all of which
+    must be named `kernel`, over the calls; a kernel of another name
+    reads as its name.  Allocations: the caching allocator's count over
+    one call (the output is one)."""
+    torch.cuda.synchronize()
+    n0 = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    fn()
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats().get("allocation.all.allocated", 0) - n0
+
+    def run():
+        for _ in range(calls):
+            fn()
+
+    names = traced_kernels(torch, run)
+    other = sorted({n[:80] for n in names if kernel not in n})
+    return (other or len(names) / calls), allocs
+
+
+def _launch_faults(what, kernels, allocs):
+    """Exactly one device kernel and one allocation a call; a count the
+    profiler did not record fails too."""
+    if kernels != 1 or allocs != 1:
+        return [f"{what}: {kernels} device kernels and {allocs} "
+                "allocations a call (want 1 and 1)"]
+    return []
+
+
+PAGED_PLANTED = 1.01  # the planted fault: the row holding max|out|
+RAGGED_PAGED = dict(b=3, pages=11)  # 11 pages: not a multiple of a split
+# Head dims without an instance of their own, on the ragged batch: d 96
+# (rows of whole 16-byte pieces) and d 98 (not, for any type: copied
+# element by element).
+OTHER_HEAD_DIMS = (96, 98)
+
+
+def _paged_err(torch, got, want, q_dtype):
+    """(max_abs_err, tolerance) of one paged output against its plain
+    version: 1e-5 for f32 q, else one bf16 ulp of max|out|."""
+    err = (got.float() - want.float()).abs().max().item()
+    if q_dtype == torch.float32:
+        return err, 1e-5
+    return err, bf16_ulp(want.float().abs().max().item())
+
+
 def check_paged(torch, PA, timer, name, kv_dtype, q_dtype, gen):
-    """Kernel vs plain (varied layout + full view), poison invariance on
-    page 0, and times at the full view."""
+    """Kernel vs plain (varied layout + full view, and a ragged batch),
+    poison invariance on page 0, two launches bitwise equal, a planted
+    fault that must fail, one device launch and one allocation a call,
+    and times at the full view."""
     rec = {"name": name}
-    errs = []
-    for full in (False, True):
+    errs, faults = [], []
+    cases = [(False, {}), (True, {}), (False, RAGGED_PAGED)] + [
+        (False, dict(RAGGED_PAGED, d=d)) for d in OTHER_HEAD_DIMS
+    ]
+    for full, shape in cases:
         q, k, v, bt, mask, ks, vs = paged_case(
-            torch, kv_dtype, q_dtype, full, gen
+            torch, kv_dtype, q_dtype, full, gen, **shape
         )
-        out = PA._launch(q, k, v, bt, mask, ks, vs)
+
+        def launch():
+            return PA._launch(q, k, v, bt, mask, ks, vs)
+
+        out = launch()
         ref = PA.paged_attention_plain(
             q, k, v, bt, mask, k_scale=ks, v_scale=vs
         )
         torch.cuda.synchronize()
         assert torch.isfinite(out.float()).all(), name
-        err = (out.float() - ref.float()).abs().max().item()
-        if q_dtype == torch.float32:
-            tol = 1e-5
-        else:
-            tol = bf16_ulp(ref.float().abs().max().item())
+        err, tol = _paged_err(torch, out, ref, q_dtype)
         errs.append(err)
         if err > tol:
-            raise AssertionError(f"{name}: max_err {err} > tol {tol}")
+            raise AssertionError(f"{name} {shape}: max_err {err} > tol {tol}")
+        if not _bitwise(torch, (out,), (launch(),)):
+            faults.append(f"{name} {shape}: two launches differ")
+        bad = out.float().clone()
+        i = int(ref.float().abs().flatten(1).amax(1).argmax())
+        bad[i] *= PAGED_PLANTED
+        if _paged_err(torch, bad, ref, q_dtype)[0] <= tol:
+            faults.append(f"{name}: a {PAGED_PLANTED}x fault on a row passes")
         if not full:
             # Garbage in the null page must not move one output bit.
             k0, v0 = k[0].clone(), v[0].clone()
@@ -235,12 +366,14 @@ def check_paged(torch, PA, timer, name, kv_dtype, q_dtype, gen):
             else:
                 k[0].fill_(float("nan"))
                 v[0].fill_(float("inf"))
-            poisoned = PA._launch(q, k, v, bt, mask, ks, vs)
+            poisoned = launch()
             torch.cuda.synchronize()
             if not torch.equal(poisoned, out):
-                raise AssertionError(f"{name}: null page 0 leaked")
+                raise AssertionError(f"{name} {shape}: null page 0 leaked")
             k[0].copy_(k0)
             v[0].copy_(v0)
+    if faults:
+        raise AssertionError(f"paged attention: {faults}")
     rec["max_abs_err"] = max(errs)
     rec["tolerance"] = tol
     rec["tolerance_reason"] = (
@@ -248,10 +381,36 @@ def check_paged(torch, PA, timer, name, kv_dtype, q_dtype, gen):
         if q_dtype == torch.float32 else
         "both sum in f32 and round once to bf16: one bf16 ulp of max|out|"
     )
-    # Times at the full view (every row attends all 20 pages).
+    rec["ragged"] = RAGGED_PAGED
+    rec["other_head_dims"] = list(OTHER_HEAD_DIMS)
+    rec["bitwise_equal"] = True
+    rec["planted_fault_fails"] = True
+    # The full view (the last case but one) for the launch count and
+    # the times: every row attends all 20 pages.
+    q, k, v, bt, mask, ks, vs = paged_case(
+        torch, kv_dtype, q_dtype, True, gen
+    )
+    kernels, allocs = one_launch(
+        torch, lambda: PA._launch(q, k, v, bt, mask, ks, vs),
+        "paged_attention_kernel",
+    )
+    rec["device_kernels_per_call"] = kernels
+    rec["allocations_per_call"] = allocs
+    faults = _launch_faults(name, kernels, allocs)
+    if faults:
+        raise AssertionError(faults)
     b, pages, h, d = N_SLOTS, CFG["max_seq"] // PAGE, CFG["heads"], 128
     view = pages * PAGE
     rec["ms"] = timer.ms(lambda: PA._launch(q, k, v, bt, mask, ks, vs))
+    # The run-time-d instance at the same full view, for its cost.
+    rec["ms_other_head_dims"] = {}
+    for d_o in OTHER_HEAD_DIMS:
+        qo, ko, vo, bto, masko, kso, vso = paged_case(
+            torch, kv_dtype, q_dtype, True, gen, d=d_o
+        )
+        rec["ms_other_head_dims"][d_o] = timer.ms(
+            lambda: PA._launch(qo, ko, vo, bto, masko, kso, vso))
+        del qo, ko, vo
     rec["plain_ms"] = timer.ms(lambda: PA.paged_attention_plain(
         q, k, v, bt, mask, k_scale=ks, v_scale=vs))
     # Yardstick: SDPA over a pre-gathered (and pre-dequantized) dense
@@ -286,34 +445,79 @@ QMM_SHAPES = [  # (name, rows, in, out, x dtype, launches per decode step)
     ("head", N_SLOTS, 1024, 32000, "f32", 1),
     ("head_prefill", 1, 1024, 32000, "f32", 0),
 ]
+# Ragged shapes, held, not timed: rows 1, 3, 17 and 40 (several m16
+# tiles), out 1000 (8-byte weight copies) and 8, in 40 and 4104 (a
+# partial last stage; 4104 splits over 8 blocks of 576 rows), and in 37
+# (x rows not 16-byte aligned: x staged by plain loads).
+QMM_EDGE_SHAPES = [  # (rows, in, out, x dtype)
+    (1, 40, 1000, "bf16"), (3, 4104, 8, "bf16"), (17, 4104, 1000, "bf16"),
+    (40, 40, 8, "bf16"), (17, 40, 1000, "f32"), (40, 4104, 1000, "f32"),
+    (3, 37, 64, "bf16"), (1, 4104, 8, "f32"),
+]
+QMM_PLANTED = 1.01  # the planted fault: 1% on the column of max|out|
+
+
+def _qmm_case(torch, QM, gen, rows, din, dout, xt):
+    """Operands of one int8-matmul shape and the kernel's launch, held
+    against the plain version, a second launch (bitwise) and a planted
+    fault: (x, w_i8, scale, readings, faults)."""
+    xdt = torch.bfloat16 if xt == "bf16" else torch.float32
+    w = torch.randn((din, dout), generator=gen) / math.sqrt(din)
+    w_i8, scale = QM.quantize_weight(w.cuda())
+    x = torch.randn((rows, din), generator=gen).to("cuda", xdt)
+    out = QM._launch(x, w_i8, scale)
+    ref = QM.int8_weight_matmul_plain(x, w_i8, scale)
+    torch.cuda.synchronize()
+    what = f"int8 matmul {rows}x{din}x{dout} {xt}"
+    assert torch.isfinite(out.float()).all(), what
+    mag = ref.float().abs().max().item()
+    tol = (2.0 ** -7 if xt == "bf16" else 1e-4) * mag
+    err = (out.float() - ref.float()).abs().max().item()
+    faults = []
+    if err > tol:
+        faults.append(f"{what}: max_err {err} > tol {tol}")
+    # The planted fault moves the column holding max|out| by 1% of its
+    # values, away from the plain version: a 1.01x scaling that moved an
+    # element toward it could cancel the kernel's own bf16 rounding (up
+    # to ~0.5% of max|out| at in 40) and be no fault at all.
+    c = int(ref.float().abs().amax(0).argmax())
+    bad = out.float().clone()
+    away = torch.where(bad[:, c] >= ref.float()[:, c], 1.0, -1.0)
+    bad[:, c] += (QMM_PLANTED - 1) * bad[:, c].abs() * away
+    if (bad - ref.float()).abs().max().item() <= tol:
+        faults.append(f"{what}: a {QMM_PLANTED}x fault on a column passes")
+    bitwise = _bitwise(torch, (out,), (QM._launch(x, w_i8, scale),))
+    if not bitwise:
+        faults.append(f"{what}: two launches differ")
+    return x, w_i8, scale, dict(
+        max_abs_err=err, tolerance=tol, rel_err=err / mag,
+        plan=list(QM.qmm_plan(rows, din, dout, SMS, xdt)),
+        bitwise_equal=bitwise,
+    ), faults
+
+
+SMS = 132  # set from the card in main()
 
 
 def check_qmm(torch, QM, timer, gen):
-    """Every projection shape: kernel vs plain, and times.  The record's
-    times are per decode step: the sum over the 33 launches one step
-    makes (8 layers x qkv/proj/fc0/fc1 + the head)."""
-    per_shape = []
+    """Every projection shape and the ragged ones: kernel vs plain, a
+    second launch and a planted fault; one device launch and one
+    allocation a call; times at the projection shapes.  The record's
+    times are per decode step: the
+    sum over the 33 launches one step makes (8 layers x qkv/proj/fc0/fc1
+    + the head)."""
+    per_shape, edges, faults = [], [], []
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    nbytes_step = ops_bf16 = ops_f32 = 0.0
-    worst = 0.0
+    nbytes_step = ops_step = 0.0
     for name, rows, din, dout, xt, per_step in QMM_SHAPES:
-        xdt = torch.bfloat16 if xt == "bf16" else torch.float32
-        w = torch.randn((din, dout), generator=gen) / math.sqrt(din)
-        w_i8, scale = QM.quantize_weight(w.cuda())
-        x = torch.randn((rows, din), generator=gen).to("cuda", xdt)
-        out = QM._launch(x, w_i8, scale)
-        ref = QM.int8_weight_matmul_plain(x, w_i8, scale)
-        torch.cuda.synchronize()
-        assert torch.isfinite(out.float()).all(), name
-        err = (out.float() - ref.float()).abs().max().item()
-        mag = ref.float().abs().max().item()
-        tol = (2.0 ** -7 if xt == "bf16" else 1e-4) * mag
-        if err > tol:
-            raise AssertionError(
-                f"int8 matmul {name}: max_err {err} > tol {tol}"
-            )
-        worst = max(worst, err / mag)
-        w_lib = (w_i8.float() * scale[None, :]).to(xdt)
+        x, w_i8, scale, r, f = _qmm_case(torch, QM, gen, rows, din, dout,
+                                         xt)
+        faults += f
+        kernels, allocs = one_launch(
+            torch, lambda: QM._launch(x, w_i8, scale), "qmm_kernel"
+        )
+        faults += _launch_faults(f"int8 matmul {name}", kernels, allocs)
+        w_lib = (w_i8.float() * scale[None, :]).to(x.dtype)
         t = {
             "ms": timer.ms(lambda: QM._launch(x, w_i8, scale)),
             "plain_ms": timer.ms(
@@ -322,35 +526,41 @@ def check_qmm(torch, QM, timer, gen):
             "library_ms": timer.ms(lambda: torch.matmul(x, w_lib)),
         }
         nbytes = din * dout + dout * 4 + rows * (din + dout) * x.element_size()
-        ops = 2.0 * rows * din * dout
-        b_ms, b_by = bound_ms(nbytes, ops, xt)
+        # The kernel runs the product on the bf16 tensor cores, f32 x as
+        # three bf16 parts: bound by bytes at every shape.
+        ops = 2.0 * rows * din * dout * (3 if xt == "f32" else 1)
+        b_ms, b_by = bound_ms(nbytes, ops, "bf16")
         per_shape.append(dict(
             shape=name, rows=rows, in_dim=din, out_dim=dout, x=xt,
-            max_abs_err=err, tolerance=tol, bound_ms=b_ms, bound_by=b_by,
-            **t,
+            bound_ms=b_ms, bound_by=b_by,
+            device_kernels_per_call=kernels, allocations_per_call=allocs,
+            **r, **t,
         ))
         for key in tot:
             tot[key] += per_step * t[key]
         nbytes_step += per_step * nbytes
-        if xt == "bf16":
-            ops_bf16 += per_step * ops
-        else:
-            ops_f32 += per_step * ops
-    t_bytes = nbytes_step / HBM_BYTES_PER_S * 1e3
-    t_ops = (ops_bf16 / PEAK_OPS["bf16"] + ops_f32 / PEAK_OPS["f32"]) * 1e3
+        ops_step += per_step * ops
+    for rows, din, dout, xt in QMM_EDGE_SHAPES:
+        r, f = _qmm_case(torch, QM, gen, rows, din, dout, xt)[3:]
+        faults += f
+        edges.append(dict(rows=rows, in_dim=din, out_dim=dout, x=xt, **r))
+    if faults:
+        raise AssertionError(f"int8 matmul: {faults}")
+    b_ms, b_by = bound_ms(nbytes_step, ops_step, "bf16")
     rec = {
         "name": "int8_weight_matmul",
-        "max_abs_err": max(s["max_abs_err"] for s in per_shape),
-        "worst_rel_err": worst,
+        "max_abs_err": max(s["max_abs_err"] for s in per_shape + edges),
+        "worst_rel_err": max(s["rel_err"] for s in per_shape + edges),
         "tolerance_reason": (
             "bf16 x: 2**-7 x max|out| (the plain version rounds the "
             "dequantized weight to bf16; both round the output to bf16); "
             "f32 x: 1e-4 x max|out| (f32 sums in another order, scale "
-            "after the sum vs before)"
+            "after the sum vs before, x as three bf16 parts)"
         ),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": b_ms,
+        "bound_by": b_by,
         "per_step_weight_bytes": nbytes_step,
+        "edge_shapes": edges,
         **tot,
     }
     return rec, per_shape
@@ -443,30 +653,40 @@ def kernel_kind(name: str) -> str:
 def device_profile(torch, fn, top=6):
     """Run fn() under torch.profiler and return the device busy share
     (device kernel time over the window's wall time) and the top
-    kernels.  Only starting the profiler is guarded: where it cannot
-    start, or records no device activity, the share reads "not
-    measured".  fn itself runs unguarded."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    kernels.  fn runs in the profiler's active step, after a warm-up
+    step of one small kernel, and PROFILE_PAD_S from the step's ends;
+    the window's wall time is fn's alone.  Only starting the profiler
+    is guarded: where it cannot start, or records no device activity,
+    the share reads "not measured".  fn itself runs unguarded."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
     try:
         prof.start()
     except RuntimeError as e:
         prof, why = None, repr(e)[:200]
+    if prof is not None:
+        torch.empty(1, device="cuda").fill_(0.0)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+        prof.step()
+        time.sleep(PROFILE_PAD_S)
     t0 = time.monotonic()
     fn()
     torch.cuda.synchronize()
     wall_us = (time.monotonic() - t0) * 1e6
     if prof is None:
         return {"device_busy_share": "not measured", "error": why}
+    time.sleep(PROFILE_PAD_S)
+    prof.step()
     prof.stop()
-    by_name, spans = {}, []
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            by_name[e.name] = by_name.get(e.name, 0.0) + us
-            spans.append((e.time_range.start, e.time_range.end))
+    by_name, calls, spans = {}, {}, []
+    for e in device_kernels(prof):
+        us = e.time_range.elapsed_us()
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        calls[e.name] = calls.get(e.name, 0) + 1
+        spans.append((e.time_range.start, e.time_range.end))
     # Busy time is the union of the device spans, so that overlapping
     # records are not counted twice.
     busy, reach = 0.0, float("-inf")
@@ -478,13 +698,14 @@ def device_profile(torch, fn, top=6):
         return {"device_busy_share": "not measured",
                 "error": "no device events recorded"}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    by_kind, port = {}, {}
+    by_kind, port, port_calls = {}, {}, {}
     for name, us in by_name.items():
         kind = kernel_kind(name)
         by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
         if kind == "port kernels":  # each by its function's name
             short = name.split("(anonymous namespace)::")[-1].split("(")[0]
             port[short] = port.get(short, 0.0) + us / 1e3
+            port_calls[short] = port_calls.get(short, 0) + calls[name]
     return {
         "window_s": wall_us / 1e6,
         "device_busy_share": busy / wall_us,
@@ -492,23 +713,49 @@ def device_profile(torch, fn, top=6):
         "top_kernels_ms": [[name[:100], us / 1e3] for name, us in ranked],
         "kernel_ms_by_kind": by_kind,
         "port_kernels_ms": port,
+        "port_kernel_calls": port_calls,
+        "launch_to_start_ms": launch_lags_ms(prof),
     }
 
 
-def profile_window(torch, eng, gen):
+def wait_idle(eng, timeout=60.0):
+    """Until the engine's thread has nothing queued, no row active and no
+    step in flight: it launches nothing more until the next submit.  (A
+    request returns when its last token is committed, and the pipelined
+    engine has dispatched its next step before that commit.)"""
+    t0 = time.monotonic()
+    while True:
+        with eng._cv:
+            if (eng.queue_depth == 0 and eng.active_rows == 0
+                    and eng._pending is None):
+                return
+        assert time.monotonic() - t0 < timeout, "the engine never idled"
+        time.sleep(0.001)
+
+
+def profile_window(torch, eng, gen, counts):
     """The profile over a decode-dominated window (16 rows, 64-token
-    prompts, 32 new tokens); each request must return its 32 tokens."""
+    prompts, 32 new tokens); each request must return its 32 tokens.
+    The window runs from an idle engine to an idle engine, and `counts()`
+    (the wrappers' launch counts) is read at both ends: the launches of
+    the window are exactly those the profiler saw."""
     prompts = torch.randint(0, CFG["vocab"], (N_SLOTS, 64), generator=gen)
-    d0 = eng._dispatch_count
-    outs = []
+    outs, ends = [], []
 
     def window():
+        wait_idle(eng)
+        ends.append((eng._dispatch_count, counts()))
         hs = [eng.submit_nowait(p, 32) for p in prompts.numpy()]
         outs.extend(h.wait(timeout=900)[0] for h in hs)
+        wait_idle(eng)
+        ends.append((eng._dispatch_count, counts()))
 
+    wait_idle(eng)  # no step of the last run lands in the profile
     rec = device_profile(torch, window)
     assert all(len(o) == 32 for o in outs), [len(o) for o in outs]
-    rec["dispatches"] = eng._dispatch_count - d0
+    (d0, c0), (d1, c1) = ends
+    rec["dispatches"] = d1 - d0
+    rec["wrapper_calls"] = {k: c1[k] - c0[k] for k in c0}
     return rec
 
 
@@ -558,7 +805,26 @@ def run_engine(torch, model, quant, gen_reqs):
         dec_tok = sum(len(h.wait(timeout=900)[0]) for h in dec)
         dec_wall = time.monotonic() - t1
         dec_steps = eng._dispatch_count - d0
-        profile = profile_window(torch, eng, gen_reqs)
+        profile = profile_window(torch, eng, gen_reqs, lambda: {
+            "paged_attention": PA.paged_attention.launches,
+            "int8_weight_matmul": QM.int8_weight_matmul.launches,
+        })
+        # One device launch a call: the only kernels of the port in the
+        # window are the two ops' single kernels (no split merge, no
+        # second pass), and their device events number exactly the
+        # wrappers' calls.  A window the profiler did not record fails.
+        calls = profile.get("port_kernel_calls")
+        assert calls is not None, f"{tag}: no device events: {profile}"
+        events = {"paged_attention": 0, "int8_weight_matmul": 0}
+        for k, n in calls.items():
+            op = ("paged_attention" if k.startswith("paged_attention_"
+                                                    "kernel")
+                  else "int8_weight_matmul" if k.startswith("qmm_kernel")
+                  else None)
+            assert op is not None, f"unexpected port kernel {k}"
+            events[op] += n
+        profile["device_events"] = events
+        assert events == profile["wrapper_calls"], profile
     finally:
         eng.close()
     closed = eng.snapshot()
@@ -1769,6 +2035,8 @@ def main() -> int:
     })
     if (props.major, props.minor) != (9, 0):
         raise RuntimeError(f"needs compute capability 9.0, got {props}")
+    global SMS
+    SMS = props.multi_processor_count
 
     emit({"phase": "build", "seconds": _build.build_all(),
           "flags": list(_build.NVCC_FLAGS), "ptxas": _build.PTXAS})
@@ -1786,9 +2054,12 @@ def main() -> int:
         k_int8 = check_paged(torch, PA, timer, "paged_attention_int8",
                              torch.int8, torch.bfloat16, gen)
         k_qmm, qmm_shapes = check_qmm(torch, QM, timer, gen)
+        # The Timer's floor: one launch of a one-element fill kernel.
+        one = torch.empty(1, device="cuda")
+        floor_ms = timer.ms(lambda: one.fill_(1.0))
     emit({"phase": "kernels", "paged_attention": [k_bf16, k_f32, k_int8],
           "int8_weight_matmul": k_qmm, "int8_matmul_shapes": qmm_shapes,
-          "card": smi})
+          "timer_floor_ms": floor_ms, "card": smi})
 
     model = G.make_decoder(device="cuda", **CFG)
     model.init_random(torch.Generator().manual_seed(SEED))

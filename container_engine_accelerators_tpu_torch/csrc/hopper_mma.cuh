@@ -463,4 +463,54 @@ __device__ __forceinline__ void wgmma_ss_t<128>(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// -- cp.async and the int8 decode streams ------------------------------------
+// Per-thread asynchronous copies of 16, 8 or 4 bytes into shared memory
+// (the serving kernels, quant_matmul.cu and paged_attention.cu, which
+// stream many small pieces whose addresses come from run-time tables).
+// `src_bytes` below the copy's size zero-fills the rest (0: the whole
+// copy, and src is not read).  A thread sees its own copies after
+// cp_async_wait; other threads after a barrier that follows the wait.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Until at most N of this thread's copy groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four int8 (the bytes of w, lowest first) to f32, exactly, without I2F:
+// each biased byte (b + 128) is placed under the exponent of 2**23 by one
+// byte permute, and one subtraction removes 2**23 + 128.
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float (&f)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[i] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
+           8388736.0f;
+  }
+}
+
 }  // namespace cea

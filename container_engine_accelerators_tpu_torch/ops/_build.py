@@ -44,8 +44,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points: symbol -> (source under csrc/, argtypes).
 ENTRY_POINTS = {
-    "cea_paged_attention": ("paged_attention", [_P] * 9 + [_I] * 8 + [_P]),
-    "cea_int8_matmul": ("quant_matmul", [_P] * 5 + [_I] * 6 + [_P]),
+    "cea_paged_attention": ("paged_attention", [_P] * 8 + [_I] * 8 + [_P]),
+    "cea_int8_matmul": ("quant_matmul", [_P] * 4 + [_I] * 6 + [_P]),
     "cea_flash_fwd": (
         "flash_attention", [_P] * 5 + [_L] * 9 + [_I] * 4 + [_P],
     ),

@@ -9,13 +9,16 @@ dequant-in-kernel twin.
 The kernel walks each row's block table itself and runs an online
 softmax over the row's pages: K/V are read straight from the page pool,
 never gathered into a dense view.  The pages of a row are split over
-several blocks (flash decoding: grid (row, head, split)) so a decode
-batch fills the card, and a merge pass combines the splits in a fixed
-order.  It is bound by bytes — one read of every visible K/V page — and
-skips pages whose lanes are all masked (bit-identical to folding them
-in), so a row costs its visible length, not the mapped view.  Masked
-lanes never touch the accumulator, so garbage in the null page 0
-cannot change one output bit.  See the source's header for the thread layout.
+the blocks of one thread-block cluster (flash decoding: grid (split,
+head, row)) so a decode batch fills the card, and the splits are merged
+in rank order inside the same launch, through distributed shared
+memory.  It is bound by bytes — one read of every visible K/V row,
+streamed by cp.async through a ring of chunks — and skips chunks whose
+lanes are all masked (bit-identical to folding them in), so a row costs
+its visible length, not the mapped view.  Masked lanes never touch the
+accumulator, so garbage in the null page 0 cannot change one output
+bit.  `paged_plan` chooses the splits; see the source's header for the
+thread layout.
 
 The plain version is the gather math of the reference's transformer
 path (transformer.py:242-265; the int8 form quant_generate.py:299-320):
@@ -31,18 +34,30 @@ import torch
 
 from . import _build
 
-MAX_HEAD_DIM = 256
-_BLOCKS_PER_SM = 8  # blocks wanted in flight on each SM
+MAX_HEAD_DIM = 256  # the kernel takes any head dim up to this
+MAX_CLUSTER = 8  # splits of one (row, head): one portable cluster
+_BLOCKS_PER_SM = 8  # blocks wanted on each SM
 
 
-def split_plan(b: int, heads: int, pages: int, sms: int):
-    """(splits, pages per split) of the kernel's grid: enough splits of
-    each row's pages that b x heads x splits blocks fill a card of
-    `sms` SMs, and no empty split."""
+def paged_plan(b: int, heads: int, pages: int, sms: int):
+    """(splits, pages per split) of the kernel's grid: enough splits
+    (1..MAX_CLUSTER, one cluster) of each row's pages that b x heads x
+    splits blocks fill a card of `sms` SMs, and no empty split."""
     target = _BLOCKS_PER_SM * sms
-    want = max(1, min(pages, -(-target // max(1, b * heads))))
+    want = max(1, min(pages, MAX_CLUSTER,
+                      -(-target // max(1, b * heads))))
     per_split = -(-pages // want)
     return -(-pages // per_split), per_split
+
+
+def check_head_dim(d: int) -> None:
+    """The kernel's head-dim rule: any d from 1 to MAX_HEAD_DIM (32,
+    64, 128 and 256 have instances of their own; any other d runs the
+    d-256 instance with d given at run time)."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"paged_attention: d_head {d} not in 1..{MAX_HEAD_DIM}"
+        )
 
 
 def paged_attention_plain(q, k_pool, v_pool, block_tables, kv_mask, *,
@@ -111,8 +126,7 @@ def _launch(q, k_pool, v_pool, block_tables, kv_mask, k_scale, v_scale):
             f"paged_attention: pool {tuple(k_pool.shape)} does not match "
             f"q {tuple(q.shape)}"
         )
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"paged_attention: d_head {d} > {MAX_HEAD_DIM}")
+    check_head_dim(d)
     if tuple(block_tables.shape) != (b, pages) or tuple(
         kv_mask.shape
     ) != (b, pages * page):
@@ -133,18 +147,14 @@ def _launch(q, k_pool, v_pool, block_tables, kv_mask, k_scale, v_scale):
             "paged_attention: scales must be (n_pages, page, heads) f32"
         )
     fn = _build.load("cea_paged_attention")
-    splits, _ = split_plan(b, heads, pages, _build.sm_count(q.device.index))
+    splits, _ = paged_plan(b, heads, pages, _build.sm_count(q.device.index))
     out = torch.empty_like(q)
-    work = torch.empty(
-        (b * heads * splits * (d + 2),), dtype=torch.float32,
-        device=q.device,
-    )
     rc = fn(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
         block_tables.data_ptr(), kv_mask.data_ptr(), out.data_ptr(),
-        work.data_ptr(), q_type, kv_type, b, pages, page, heads, d, splits,
+        q_type, kv_type, b, pages, page, heads, d, splits,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "paged_attention")

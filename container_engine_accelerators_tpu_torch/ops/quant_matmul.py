@@ -8,13 +8,14 @@ pallas_call :145); entries `quantize_weight` (:66) and
 
 Decode streams every weight once per token, so the matmul is bound by
 the weight bytes; storing W as int8 with a per-output-channel f32 scale
-halves them against bf16.  The kernel converts each int8 weight in
-registers and keeps f32 sums, applying the scale once per output in the
-epilogue, so device memory sees only int8 weight bytes.  At decode
-shapes it is a skinny GEMM (rows = the slot count, or 1 for the prefill
-head); the wrapper splits the `in` range over blocks so enough of them
-are in flight, and a second pass adds the slices in a fixed order.  See
-the source's header for the layout.
+halves them against bf16.  The kernel is one launch: a block streams a
+64-column tile of W over a slice of the `in` range through a cp.async
+ring, turns each int8 tile into bf16 on chip and multiplies it on the
+tensor cores (mma.sync, f32 accumulate; f32 x as three bf16 parts,
+`split_bf16x3`), and the slices of one column tile, a thread-block
+cluster, add their partials in rank order through distributed shared
+memory before the scale is applied.  `qmm_plan` chooses the slices.
+See the source's header for the layout.
 
 The plain version is the reference's fallback (:110-113): dequantize,
 then one f32-accumulated dot.  The wrapper takes it only for CPU
@@ -27,11 +28,21 @@ import torch
 
 from . import _build
 
-_ROWS_TILE = 16
-_COLS_TILE = 256
-_MAX_KRANGE = 256
-_MIN_KRANGE = 64
-_BLOCKS_PER_SM = 2  # first-pass blocks wanted in flight on each SM
+_ROWS_TILE = 16  # rows of x per block (one m16 tile)
+# The planner's choices, from timing every projection shape on the H100
+# at clusters of 1-8 (PERF.md): about one block for every two SMs,
+# a bf16 block's slice at most 4 stages, and clusters of at most 4 (8
+# was slower at every shape).
+_SM_SHARE = 0.45
+_MAX_STAGES_BF16 = 4
+_PLAN_CLUSTER = 4
+
+
+def block_shape(x_dtype):
+    """(weight columns, weight rows a stage) of one block, as
+    csrc/quant_matmul.cu `Layout`: (128, 64) for f32 x, (64, 128) for
+    bf16 x."""
+    return (128, 64) if x_dtype == torch.float32 else (64, 128)
 
 
 def quantize_weight(w):
@@ -51,15 +62,37 @@ def int8_weight_matmul_plain(x, w_i8, scale):
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
-def split_plan(rows: int, in_dim: int, out_dim: int, sms: int):
-    """(ksplit, krange): how many `in` slices the kernel's first pass
-    runs on a card of `sms` SMs and how many weight rows each covers."""
-    tiles = -(-out_dim // _COLS_TILE) * -(-rows // _ROWS_TILE)
-    lo = -(-in_dim // _MAX_KRANGE)
-    hi = max(lo, in_dim // _MIN_KRANGE)
-    ksplit = min(max(lo, -(-(_BLOCKS_PER_SM * sms) // tiles)), hi)
-    krange = -(-in_dim // ksplit)
-    krange = -(-krange // 8) * 8
+def split_bf16x3(x):
+    """(hi, mid, lo) bf16 with hi + mid + lo == x to f32's 24 bits: how
+    the kernel feeds f32 x to the bf16 tensor cores (three products into
+    one f32 accumulator; int8 times bf16 is exact in f32)."""
+    hi = x.float().to(torch.bfloat16)
+    r = x.float() - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def qmm_plan(rows: int, in_dim: int, out_dim: int, sms: int,
+             x_dtype=torch.bfloat16):
+    """(ks, krange): the kernel's cluster size along `in` and the weight
+    rows each of its blocks covers (whole stages).  ks is the least
+    power of two up to 4 that gives about one block to every two of
+    `sms` SMs over the (column, 16-row) tiles and, for bf16 x, at most 4
+    stages to a block; the cap of 4 comes first, so fc1 (4096 in, 32
+    stages of 128 rows) gets ks 4 and 8 stages a block.  ks * krange
+    covers in_dim and no block is empty."""
+    cols, stage = block_shape(x_dtype)
+    tiles = -(-out_dim // cols) * -(-rows // _ROWS_TILE)
+    stages = -(-in_dim // stage)
+    ks = 1
+    while ks < min(_PLAN_CLUSTER, stages) and (
+        tiles * ks < _SM_SHARE * sms
+        or (x_dtype != torch.float32
+            and -(-stages // ks) > _MAX_STAGES_BF16)
+    ):
+        ks *= 2
+    krange = -(-in_dim // (ks * stage)) * stage
     return -(-in_dim // krange), krange
 
 
@@ -93,18 +126,14 @@ def _launch(x, w_i8, scale):
             f"out_dim ({out_dim}) must be a multiple of 8 and W 8-byte "
             f"aligned"
         )
-    ksplit, krange = split_plan(
-        rows, in_dim, out_dim, _build.sm_count(x.device.index)
+    ks, krange = qmm_plan(
+        rows, in_dim, out_dim, _build.sm_count(x.device.index), x.dtype
     )
     fn = _build.load("cea_int8_matmul")
     out = torch.empty((rows, out_dim), dtype=x.dtype, device=x.device)
-    partial = torch.empty(
-        (ksplit * rows * out_dim,), dtype=torch.float32, device=x.device
-    )
     rc = fn(
-        x.data_ptr(), w_i8.data_ptr(), scale.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), x_type, rows, in_dim,
-        out_dim, ksplit, krange,
+        x.data_ptr(), w_i8.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        x_type, rows, in_dim, out_dim, ks, krange,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "int8_weight_matmul")

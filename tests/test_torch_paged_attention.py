@@ -155,6 +155,33 @@ class TestPlainAgainstReference:
         assert np.array_equal(k, before[0]) and np.array_equal(v, before[1])
 
 
+@pytest.mark.parametrize("d", [1, 3, 32, 64, 80, 96, 100, 128, 256])
+def test_head_dim_rule_accepts_any_d_up_to_256(d):
+    # The kernel serves every head dim the reference serves up to 256:
+    # 32 / 64 / 128 / 256 by their own instances, any other by the
+    # d-256 instance at run time.
+    TPA.check_head_dim(d)
+
+
+@pytest.mark.parametrize("d", [0, 257, 512])
+def test_head_dim_rule_rejects_past_256_by_name(d):
+    with pytest.raises(ValueError, match=r"d_head .* not in 1\.\.256"):
+        TPA.check_head_dim(d)
+
+
+@pytest.mark.parametrize("d", [96, 100])
+def test_plain_matches_gather_at_other_head_dims(d):
+    # The head dims that only the run-time instance serves on the card
+    # (d 100: rows that are no whole number of 16-byte pieces).
+    q, k, v, bt, mask = _mk_case(7, d=d)
+    k, ks = _quantize(k)
+    v, vs = _quantize(v)
+    np.testing.assert_allclose(
+        _port(q, k, v, bt, mask, ks, vs),
+        _gather_ref(q, k, v, bt, mask, ks, vs), rtol=0, atol=ATOL,
+    )
+
+
 class TestNoFallback:
     def test_non_cpu_tensor_never_takes_the_plain_version(self):
         # A tensor off the CPU goes to the kernel path, which takes only
@@ -196,9 +223,15 @@ class TestNoFallback:
     "b,heads,pages", [(16, 8, 20), (1, 8, 20), (3, 2, 4), (64, 16, 2)]
 )
 @pytest.mark.parametrize("sms", _torch_port.H100_SMS)
-def test_split_plan_covers_every_page_once(b, heads, pages, sms):
-    # The kernel's grid: every logical page belongs to exactly one split
-    # and no split is empty, whatever the batch.
-    splits, per_split = TPA.split_plan(b, heads, pages, sms)
-    assert 1 <= splits <= pages
-    assert splits * per_split >= pages > (splits - 1) * per_split
+def test_paged_plan_covers_every_page_once(b, heads, pages, sms):
+    # The kernel's cluster over a row's pages: block r covers logical
+    # pages [r * per_split, (r + 1) * per_split), so every page belongs
+    # to exactly one split, no split is empty and the cluster holds 1-8
+    # blocks, whatever the batch.
+    splits, per_split = TPA.paged_plan(b, heads, pages, sms)
+    assert 1 <= splits <= 8
+    covered = np.zeros(pages, np.int64)
+    for r in range(splits):
+        assert r * per_split < pages
+        covered[r * per_split:(r + 1) * per_split] += 1
+    assert (covered == 1).all()

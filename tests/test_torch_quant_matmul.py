@@ -78,13 +78,46 @@ def test_plain_matches_reference_bf16(rows):
      (16, 4096, 1024), (16, 1024, 32000), (1, 1024, 32000), (3, 40, 64)],
 )
 @pytest.mark.parametrize("sms", _torch_port.H100_SMS)
-def test_split_plan_covers_in_dim(rows, din, dout, sms):
-    # The kernel's first pass: every weight row lands in exactly one
-    # slice, slices fit the block's shared-memory staging (<= 256 rows,
-    # a multiple of the 8 warps), and no slice is empty.
-    ksplit, krange = TQM.split_plan(rows, din, dout, sms)
-    assert krange <= 256 and krange % 8 == 0
-    assert ksplit * krange >= din > (ksplit - 1) * krange
+def test_qmm_plan_covers_in_dim_once(rows, din, dout, sms):
+    # The kernel's cluster along `in`: block y of a column tile covers
+    # weight rows [y * krange, (y + 1) * krange) of in_dim, so every row
+    # lands in exactly one block, no block is empty, the cluster holds
+    # 1-8 blocks and krange whole 64-row stages.
+    xdt = torch.float32 if dout == 32000 else torch.bfloat16  # the head
+    ks, krange = TQM.qmm_plan(rows, din, dout, sms, xdt)
+    assert 1 <= ks <= 8
+    assert krange % 64 == 0
+    covered = np.zeros(din, np.int64)
+    for y in range(ks):
+        covered[y * krange:(y + 1) * krange] += 1
+        assert y * krange < din
+    assert (covered == 1).all()
+
+
+def test_f32_three_part_split_matches_reference():
+    # The kernel's f32-x path: x = hi + mid + lo in bf16, three products
+    # with the int8 weight (each exact in f32) into one f32 sum, the
+    # scale after the sum.  Emulated in plain torch at the vocab head's
+    # shape cut to out 2048, held to the reference's f32 matmul within
+    # the card check's limit, 1e-4 x max|out|.
+    w = _weight(5, 1024, 2048)
+    x = np.random.default_rng(6).standard_normal((16, 1024)).astype(
+        np.float32
+    )
+    ji8, js = QM.quantize_weight(jnp.asarray(w))
+    ref = np.asarray(QM.int8_weight_matmul(jnp.asarray(x), ji8, js))
+    parts = TQM.split_bf16x3(torch.from_numpy(x))
+    assert all(p.dtype == torch.bfloat16 for p in parts)
+    w8 = torch.from_numpy(np.array(ji8)).double()
+    acc = sum(p.double() @ w8 for p in parts).float()
+    got = (acc * torch.from_numpy(np.array(js))).numpy()
+    limit = 1e-4 * np.abs(ref).max()
+    assert np.abs(got - ref).max() <= limit
+    # The parts carry x to f32's 24 bits.
+    rebuilt = sum(p.double() for p in parts)
+    assert (rebuilt - torch.from_numpy(x).double()).abs().max() <= (
+        2.0 ** -23 * np.abs(x).max()
+    )
 
 
 def test_cuda_path_raises_on_non_cuda_tensor():
