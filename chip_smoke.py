@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main paths — paged LM serving decode,
-single-card LM training and single-card ResNet-50 training — on one
-NVIDIA H100, and hold every kernel on those paths against its plain
-PyTorch version.
+"""Drive the PyTorch port's main paths — LM serving decode (paged,
+fused and contiguous), single-card LM training and single-card
+ResNet-50 training — on one NVIDIA H100, and hold every kernel on those
+paths against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -20,13 +20,29 @@ Phases, one JSON line each (stdout):
                 the times of the kernel, the plain version and one
                 PyTorch yardstick call (the int8 matmul also with
                 clusters of 8);
-  4. engine   — the bf16 engine, then the int8 engine, at the repo's LM
-                width (dim 1024, depth 8, heads 8, vocab 32000, max_seq
-                1280, 16 slots, page 64, prefill chunk 256) with seeded
-                random weights: 8 greedy requests (two sharing a
-                512-token prefix) through the paged prefix-cached
-                lag-window engine, launch counters read around each run,
-                tokens checked against the port's solo oracle;
+  4. engine   — the bf16 engines, then the int8 engines, at the repo's
+                LM width (dim 1024, depth 8, heads 8, vocab 32000,
+                max_seq 1280, 16 slots, page 64, prefill chunk 256) with
+                seeded random weights, each in three configurations: the
+                paged prefix-cached lag-window engine (engine_bf16,
+                engine_int8), the same with fused blocks of up to 4
+                decode steps, one CUDA graph a width (engine_*_fused),
+                and the contiguous-slot engine (paged=False,
+                engine_*_contig).  Each runs 8 greedy requests (two
+                sharing a 512-token prefix) with the launch counters read
+                around them (exactly depth paged calls and >= 33 int8
+                matmul calls a decode step; a fused block of k is k
+                steps, replays counted call by call), tokens held to the
+                port's solo oracle; the paged engines then run 16 rows x
+                (64 + 128) and a profiled window of 16 x (64 + 32) whose
+                device events must equal the wrappers' calls; the fused
+                engines also fail one block until the retries are spent,
+                and the supervisor's revival must recapture the graphs
+                against the fresh cache, give the same tokens and leave
+                no page in use.  The fused and contiguous records carry
+                their figures over the one-token engine's of the same
+                run (`vs_one_token`) and each request's first divergence
+                from its tokens;
   5. train_kernels — flash attention forward and backward at (8, 2048,
                 8, 128) and (8, 2048, 16, 64) bf16, q / k / v the strided
                 views of one qkv projection, each timed beside the plain
@@ -759,7 +775,110 @@ def profile_window(torch, eng, gen, counts):
     return rec
 
 
-def run_engine(torch, model, quant, gen_reqs):
+# The engine configurations each engine phase runs, by phase suffix:
+# the one-token paged engine, fused blocks up to FUSED_STEPS wide
+# (ladder 2, 4; one CUDA graph a width), and the contiguous-slot engine.
+FUSED_STEPS = 4
+ENGINE_MODES = {
+    "": {},
+    "_fused": {"decode_steps": FUSED_STEPS},
+    "_contig": {"paged": False},
+}
+
+
+def steps_run(eng, snap0, snap1, dispatches, captures0):
+    """Decode steps the engine's kernels ran between two snapshots: one
+    per one-token dispatch, k per fused block of width k, and k per
+    capture of width k (its eager warm-up block; the capture itself
+    launches nothing)."""
+    blocks = snap1["fused_blocks"] - snap0["fused_blocks"]
+    fused = snap1["fused_steps"] - snap0["fused_steps"]
+    warm = 0
+    if eng._fused is not None:
+        warm = sum(c["width"] for c in eng._fused.captures[captures0:])
+    return dispatches - blocks + fused + warm
+
+
+def first_divergence(got, want):
+    return next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                None if len(got) == len(want) else min(len(got), len(want)))
+
+
+def fused_revival(torch, eng, gen):
+    """The fused engine's revival: greedy requests run once; then one
+    fused block fails on every attempt until the engine's retries are
+    spent (the rows of that run fail, the scheduler crashes); the
+    supervisor revives the engine with a fresh cache; the graphs must be
+    captured again against that cache, the same requests must give the
+    same tokens as before the fault, and no page may stay in use."""
+    from container_engine_accelerators_tpu_torch.serving import (
+        EngineSupervisor,
+    )
+
+    vocab = CFG["vocab"]
+    check = [(torch.randint(0, vocab, (n,), generator=gen).numpy(), 64)
+             for n in (64, 200, 333, 96)]
+    victims = [torch.randint(0, vocab, (80,), generator=gen).numpy()
+               for _ in range(2)]
+    sup = EngineSupervisor(eng, max_restarts=2).start()
+    try:
+        before = [eng.submit(p, n, timeout=900)[0] for p, n in check]
+        wait_idle(eng)
+        real, calls, fails = eng._fused_fn, [0], [0]
+        limit = eng._step_retries + 1  # every attempt of one block
+
+        def flaky(*a, **k):
+            calls[0] += 1
+            if calls[0] >= 3 and fails[0] < limit:
+                fails[0] += 1
+                raise RuntimeError("injected fused-decode fault")
+            return real(*a, **k)
+
+        eng._fused_fn = flaky
+        caps0 = len(eng._fused.captures)
+        restarts0 = eng.snapshot()["restarts"]
+        failed = 0
+        for h in [eng.submit_nowait(p, 64) for p in victims]:
+            try:
+                h.wait(timeout=900)
+            except RuntimeError:
+                failed += 1
+        t0 = time.monotonic()
+        while eng.snapshot()["restarts"] <= restarts0:
+            assert time.monotonic() - t0 < 60, "the engine never revived"
+            time.sleep(0.01)
+        assert fails[0] == limit and failed == len(victims), (fails, failed)
+        revived = eng.snapshot()
+        assert revived["kv_pages_in_use"] == 0, revived
+        assert not eng._fused.widths, eng._fused.widths
+        after = [eng.submit(p, n, timeout=900)[0] for p, n in check]
+        wait_idle(eng)
+        recaptured = sorted(c["width"] for c in eng._fused.captures[caps0:])
+        assert recaptured == sorted(eng._fused.widths), recaptured
+        if eng.device.type == "cuda":  # graphs exist only on the card
+            assert recaptured and eng._fused._bound[1] is eng._cache, (
+                recaptured)
+        assert after == before, [first_divergence(a, b)
+                                 for a, b in zip(after, before)]
+    finally:
+        sup.stop()
+    return {
+        "injected_failures": fails[0], "rows_failed": failed,
+        "restarts": revived["restarts"] - restarts0,
+        "kv_pages_in_use_after_revive": revived["kv_pages_in_use"],
+        "recaptured_widths": recaptured,
+        "same_tokens_after_revive": after == before,
+    }
+
+
+def run_engine(torch, model, quant, gen_reqs, mode="", base=None):
+    """One engine phase (ENGINE_MODES[mode]): a warm-up request, then
+    requests() with the launch counters read around it, and for the
+    paged engines a decode run (16 rows x (64 + 128)) and a profiled
+    window (profile_window); the fused engine adds its revival check.
+    Every token is held to the oracle's argmax within TOP2_TOL; `base`
+    (the one-token engine's record of the same run) gives each request's
+    first divergence from its tokens and the ratios of the figures."""
     from container_engine_accelerators_tpu_torch.models import generate as G
     from container_engine_accelerators_tpu_torch.models import (
         quant_generate as QG,
@@ -772,16 +891,25 @@ def run_engine(torch, model, quant, gen_reqs):
         ContinuousBatchingEngine,
     )
 
-    tag = "int8" if quant else "bf16"
+    tag = ("int8" if quant else "bf16") + mode
+    paged = mode != "_contig"
     dev = model.device
+
+    def counts():
+        return {"paged_attention": PA.paged_attention.launches,
+                "int8_weight_matmul": QM.int8_weight_matmul.launches}
+
     eng = ContinuousBatchingEngine(
         model, N_SLOTS, quant=quant, page_size=PAGE, prefill_chunk=CHUNK,
-        device=dev,
+        device=dev, **ENGINE_MODES[mode],
     )
+    extra = {}
     try:
         eng.submit([1, 2, 3, 4, 5, 6, 7, 8], 2, timeout=600)  # warm-up
-        base = eng.snapshot()
+        wait_idle(eng)
+        base_snap = eng.snapshot()
         steps0 = eng._dispatch_count
+        caps0 = len(eng._fused.captures) if eng._fused else 0
         reqs = requests(gen_reqs, torch)
         PA.paged_attention.launches = 0
         QM.int8_weight_matmul.launches = 0
@@ -789,71 +917,115 @@ def run_engine(torch, model, quant, gen_reqs):
         handles = [eng.submit_nowait(p, n) for p, n in reqs]
         outs = [h.wait(timeout=900)[0] for h in handles]
         wall = time.monotonic() - t0
-        launches = {
-            "paged_attention": PA.paged_attention.launches,
-            "int8_weight_matmul": QM.int8_weight_matmul.launches,
-        }
+        wait_idle(eng)
+        launches = counts()
         dispatches = eng._dispatch_count - steps0
         snap = eng.snapshot()
-        # Decode-dominated run: all 16 slots busy with short prompts,
-        # so the wall time per dispatch approaches the step time.
-        d0 = eng._dispatch_count
-        t1 = time.monotonic()
-        dec = [eng.submit_nowait(toks, 128) for toks in
-               torch.randint(0, CFG["vocab"], (N_SLOTS, 64),
-                             generator=gen_reqs).numpy()]
-        dec_tok = sum(len(h.wait(timeout=900)[0]) for h in dec)
-        dec_wall = time.monotonic() - t1
-        dec_steps = eng._dispatch_count - d0
-        profile = profile_window(torch, eng, gen_reqs, lambda: {
-            "paged_attention": PA.paged_attention.launches,
-            "int8_weight_matmul": QM.int8_weight_matmul.launches,
-        })
-        # One device launch a call: the only kernels of the port in the
-        # window are the two ops' single kernels (no split merge, no
-        # second pass), and their device events number exactly the
-        # wrappers' calls.  A window the profiler did not record fails.
-        calls = profile.get("port_kernel_calls")
-        assert calls is not None, f"{tag}: no device events: {profile}"
-        events = {"paged_attention": 0, "int8_weight_matmul": 0}
-        for k, n in calls.items():
-            op = ("paged_attention" if k.startswith("paged_attention_"
-                                                    "kernel")
-                  else "int8_weight_matmul" if k.startswith("qmm_kernel")
-                  else None)
-            assert op is not None, f"unexpected port kernel {k}"
-            events[op] += n
-        profile["device_events"] = events
-        assert events == profile["wrapper_calls"], profile
+        n_steps = steps_run(eng, base_snap, snap, dispatches, caps0)
+        if paged:
+            # Decode-dominated run: all 16 slots busy with short
+            # prompts, so the wall time per dispatch approaches the
+            # step (or block) time.
+            d0, s0 = eng._dispatch_count, eng.snapshot()
+            t1 = time.monotonic()
+            dec = [eng.submit_nowait(toks, 128) for toks in
+                   torch.randint(0, CFG["vocab"], (N_SLOTS, 64),
+                                 generator=gen_reqs).numpy()]
+            # The decode stretch: from the last admission to the end,
+            # every decode step with up to 16 rows and no prefill.
+            while eng.snapshot()["admitted"] < s0["admitted"] + N_SLOTS:
+                time.sleep(0.002)
+            t_adm, d_adm, s_adm = (time.monotonic(), eng._dispatch_count,
+                                   eng.snapshot())
+            dec_tok = sum(len(h.wait(timeout=900)[0]) for h in dec)
+            t_end = time.monotonic()
+            dec_wall = t_end - t1
+            dec_disp = eng._dispatch_count - d0
+            wait_idle(eng)
+            s1 = eng.snapshot()
+            caps = len(eng._fused.captures) if eng._fused else 0
+            stretch = steps_run(eng, s_adm, s1, eng._dispatch_count - d_adm,
+                                caps)
+            extra["decode_run"] = {
+                "rows": N_SLOTS, "prompt": 64, "new": 128,
+                "tokens_per_s": dec_tok / dec_wall,
+                "wall_per_token_ms": dec_wall / dec_tok * 1e3,
+                "step_ms": dec_wall / max(dec_disp, 1) * 1e3,
+                "dispatches_per_token": dec_disp / dec_tok,
+                "fused_blocks_per_token":
+                    (s1["fused_blocks"] - s0["fused_blocks"]) / dec_tok,
+                "decode_stretch_s": t_end - t_adm,
+                "decode_stretch_steps": stretch,
+                "decode_stretch_step_ms": (t_end - t_adm) / max(stretch, 1)
+                * 1e3,
+            }
+            s0 = eng.snapshot()
+            profile = profile_window(torch, eng, gen_reqs, counts)
+            s1 = eng.snapshot()
+            n_tok = N_SLOTS * 32
+            profile["tokens"] = n_tok
+            profile["dispatches_per_token"] = profile["dispatches"] / n_tok
+            profile["fused_blocks_per_token"] = (
+                s1["fused_blocks"] - s0["fused_blocks"]) / n_tok
+            profile["wall_per_token_ms"] = profile["window_s"] / n_tok * 1e3
+            if "device_ms" in profile:  # prefill's device time included
+                profile["device_ms_per_step"] = profile["device_ms"] / (
+                    profile["wrapper_calls"]["paged_attention"]
+                    / CFG["depth"])
+            # One device launch a call: the only kernels of the port in
+            # the window are the two ops' single kernels (no split
+            # merge, no second pass), and their device events number
+            # exactly the wrappers' calls, replays of a CUDA graph
+            # included.  A window the profiler did not record fails.
+            calls = profile.get("port_kernel_calls")
+            assert calls is not None, f"{tag}: no device events: {profile}"
+            events = {"paged_attention": 0, "int8_weight_matmul": 0}
+            for k, n in calls.items():
+                op = ("paged_attention" if k.startswith(
+                    "paged_attention_kernel")
+                      else "int8_weight_matmul" if k.startswith("qmm_kernel")
+                      else None)
+                assert op is not None, f"unexpected port kernel {k}"
+                events[op] += n
+            profile["device_events"] = events
+            assert events == profile["wrapper_calls"], profile
+            extra["profile"] = profile
+        if eng._fused is not None:
+            extra["graph_captures"] = list(eng._fused.captures)
+            extra["revival"] = fused_revival(torch, eng, gen_reqs)
     finally:
         eng.close()
     closed = eng.snapshot()
     n_tok = sum(len(o) for o in outs)
     assert all(len(o) == n for o, (_, n) in zip(outs, reqs)), tag
-    assert snap["prefix_hits"] - base["prefix_hits"] >= 1, snap
-    assert snap["kv_pages_in_use"] == snap["prefix_cached_pages"], snap
-    assert closed["kv_pages_in_use"] == 0, closed
     depth = CFG["depth"]
-    assert launches["paged_attention"] == depth * dispatches, (
-        launches, dispatches)
+    if paged:
+        assert snap["prefix_hits"] - base_snap["prefix_hits"] >= 1, snap
+        assert snap["kv_pages_in_use"] == snap["prefix_cached_pages"], snap
+        assert closed["kv_pages_in_use"] == 0, closed
+        assert launches["paged_attention"] == depth * n_steps, (
+            launches, n_steps)
+    else:
+        assert launches["paged_attention"] == 0, launches
     if quant:
-        assert launches["int8_weight_matmul"] >= (4 * depth + 1) * dispatches
+        assert launches["int8_weight_matmul"] >= (4 * depth + 1) * n_steps
     else:
         assert launches["int8_weight_matmul"] == 0, launches
+    if mode == "_fused":
+        assert snap["fused_blocks"] > base_snap["fused_blocks"], snap
 
     qparams = eng._qparams if quant else None
     deq = eng._deq if quant else None
     first_div, margins, distinct = [], [], []
     oracle_fn = QG.generate_prefill_quant if quant else G.generate_prefill
     for (prompt, n), got in zip(reqs, outs):
-        kw = {"qparams": qparams} if quant else {}
-        solo = oracle_fn(
-            model, prompt[None], len(prompt), n, 0.0,
-            torch.Generator(device=dev), **kw,
-        )[0].tolist()
-        div = next((j for j, (a, b) in enumerate(zip(got, solo)) if a != b),
-                   None)
-        first_div.append(div)
+        if base is None:
+            kw = {"qparams": qparams} if quant else {}
+            solo = oracle_fn(
+                model, prompt[None], len(prompt), n, 0.0,
+                torch.Generator(device=dev), **kw,
+            )[0].tolist()
+            first_div.append(first_divergence(got, solo))
         distinct.append(len(set(got)))
         lg = oracle_logits(torch, model, prompt, got, quant, qparams, deq)
         top = lg.float().max(dim=-1).values
@@ -866,30 +1038,61 @@ def run_engine(torch, model, quant, gen_reqs):
                 f"{tag} engine: token off the oracle's argmax by {gap} "
                 f"logits (> {TOP2_TOL}) in request {len(margins) - 1}"
             )
-    return {
+    rec = {
         "phase": f"engine_{tag}",
+        "engine_options": ENGINE_MODES[mode],
         "requests": len(reqs),
         "tokens": n_tok,
         "wall_s": wall,
         "tokens_per_s": n_tok / wall,
+        "wall_per_token_ms": wall / n_tok * 1e3,
         "decode_dispatches": dispatches,
+        "decode_steps_run": n_steps,
+        "fused_blocks": snap["fused_blocks"] - base_snap["fused_blocks"],
+        "dispatches_per_token": dispatches / n_tok,
         "wall_per_dispatch_ms": wall / max(dispatches, 1) * 1e3,
-        "decode_run": {
-            "rows": N_SLOTS, "prompt": 64, "new": 128,
-            "tokens_per_s": dec_tok / dec_wall,
-            "step_ms": dec_wall / max(dec_steps, 1) * 1e3,
-        },
-        "profile": profile,
+        **extra,
         "launches": launches,
-        "prefix_hits": snap["prefix_hits"] - base["prefix_hits"],
-        "prefix_hit_tokens": snap["prefix_hit_tokens"]
-        - base["prefix_hit_tokens"],
-        "kv_pages_in_use_after_close": closed["kv_pages_in_use"],
-        "first_divergence_vs_oracle": first_div,
+        "kv_pages_in_use_after_close": closed.get("kv_pages_in_use"),
         "max_gap_to_oracle_argmax": max(margins),
         "top2_tolerance": TOP2_TOL,
         "distinct_tokens": distinct,
-    }, launches
+        "outs": outs,
+    }
+    if paged:
+        rec["prefix_hits"] = snap["prefix_hits"] - base_snap["prefix_hits"]
+        rec["prefix_hit_tokens"] = (snap["prefix_hit_tokens"]
+                                    - base_snap["prefix_hit_tokens"])
+    if base is None:
+        rec["first_divergence_vs_oracle"] = first_div
+    else:
+        rec["first_divergence_vs_one_token"] = [
+            first_divergence(a, b) for a, b in zip(outs, base["outs"])]
+        rec["vs_one_token"] = ratios(rec, base)
+    return rec, launches
+
+
+def ratios(rec, base):
+    """This engine's figures over the one-token engine's of the same run
+    (the host moves absolute tokens/s between runs)."""
+    out = {}
+    for path in (("tokens_per_s",), ("wall_per_token_ms",),
+                 ("dispatches_per_token",),
+                 ("decode_run", "tokens_per_s"),
+                 ("decode_run", "wall_per_token_ms"),
+                 ("decode_run", "dispatches_per_token"),
+                 ("decode_run", "decode_stretch_step_ms"),
+                 ("profile", "device_busy_share"),
+                 ("profile", "device_ms"),
+                 ("profile", "window_s"),
+                 ("profile", "dispatches_per_token")):
+        a, b = rec, base
+        for key in path:
+            a = a.get(key) if isinstance(a, dict) else None
+            b = b.get(key) if isinstance(b, dict) else None
+        if isinstance(a, (int, float)) and isinstance(b, (int, float)) and b:
+            out[".".join(path)] = a / b
+    return out
 
 
 # -- phases 5-6: LM training -----------------------------------------------
@@ -2063,14 +2266,19 @@ def main() -> int:
 
     model = G.make_decoder(device="cuda", **CFG)
     model.init_random(torch.Generator().manual_seed(SEED))
-    engine_bf16, l_bf16 = run_engine(
-        torch, model, False, torch.Generator().manual_seed(SEED + 1)
-    )
-    emit({**engine_bf16, "card": smi})
-    engine_int8, l_int8 = run_engine(
-        torch, model, True, torch.Generator().manual_seed(SEED + 1)
-    )
-    emit({**engine_int8, "card": smi})
+    engine_launches = {}
+    for quant in (False, True):
+        base = None
+        for mode in ENGINE_MODES:
+            rec, launches = run_engine(
+                torch, model, quant, torch.Generator().manual_seed(SEED + 1),
+                mode, base,
+            )
+            engine_launches[(quant, mode)] = launches
+            base = base or rec
+            emit({**{k: v for k, v in rec.items() if k != "outs"},
+                  "card": smi})
+    l_bf16, l_int8 = engine_launches[(False, "")], engine_launches[(True, "")]
     del model
     torch.cuda.empty_cache()
 
@@ -2137,6 +2345,15 @@ def main() -> int:
         })
         if "launches_from" in rec:
             kernels[-1]["launches_from"] = rec["launches_from"]
+    # The serving kernels' launches on the fused engines' requests run
+    # (CUDA-graph replays counted call by call).
+    fused = {"paged_attention_bf16": (False, "paged_attention"),
+             "paged_attention_int8": (True, "paged_attention"),
+             "int8_weight_matmul": (True, "int8_weight_matmul")}
+    for k in kernels:
+        if k["name"] in fused:
+            quant, op = fused[k["name"]]
+            k["launches_fused"] = engine_launches[(quant, "_fused")][op]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

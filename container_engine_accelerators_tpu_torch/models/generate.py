@@ -1,10 +1,12 @@
 """LM decode seams in PyTorch: the port of
 container_engine_accelerators_tpu/models/generate.py for the paged
-serving path (`make_decoder` :36, `_sample` :122, the oracle
-`generate_prefill` :241, `init_decode_cache` :356, `prefill_chunk` :446,
+and the contiguous serving paths (`make_decoder` :36, `_sample` :122,
+the oracle `generate_prefill` :241, `init_decode_cache` :356,
+`prefill_chunk` :446, `prefill_finish_into_slot` :491,
 `init_paged_cache` :566, `paged_scatter_row` :595,
 `paged_preload_scratch` :627, `paged_prefill_finish` :702,
-`paged_decode_step` :757).
+`paged_decode_step` :757, `paged_decode_steps` :813, `decode_step`
+:1026).
 
 Differences of idiom, not of math:
   - parameters live in the model (an nn.Module), so no `params`
@@ -17,7 +19,11 @@ Differences of idiom, not of math:
     two generators give different numbers: sampled rows are held to
     the same keep mask, greedy rows to equal tokens;
   - offsets that the reference traces (chunk start, preload length)
-    are host ints here, since PyTorch runs eagerly.
+    are host ints here, since PyTorch runs eagerly;
+  - the reference's lax.scan over k chained steps is a Python loop of k
+    steps; on the card the engine captures that loop into one CUDA
+    graph (serving/decode_graph.py), so nothing in a step's body may
+    read a device value back to the host.
 """
 
 from __future__ import annotations
@@ -195,6 +201,58 @@ def prefill_chunk(model: TransformerLM, scratch, chunk, start: int):  # hot-path
     return scratch
 
 
+@torch.no_grad()
+def prefill_finish_into_slot(  # hot-path
+    model: TransformerLM,
+    cache,
+    scratch,
+    chunk,
+    row_idx: int,
+    start: int,
+    prompt_len: int,
+    temperature,
+    generator: torch.Generator,
+    top_k=None,
+    top_p=None,
+):
+    """The final chunk of an admission into the contiguous engine cache
+    (init_decode_cache): run it through the scratch, sample tok0 from
+    the last real prompt row, and copy the scratch over row `row_idx`
+    WHOLESALE (the slot's previous occupant's KV included; the bucket
+    tail stays invisible under slot == position visibility and is
+    overwritten by generated tokens).  Returns (cache, tok0 (1,)
+    int32)."""
+    if not model.decode:
+        raise ValueError(
+            "prefill_finish_into_slot needs a decode=True model"
+        )
+    chunk = _as(chunk, torch.int64, model.device)
+    if chunk.shape[0] != 1:
+        raise ValueError(
+            f"prefill_finish_into_slot admits one request at a time, got "
+            f"batch {chunk.shape[0]}"
+        )
+    c = chunk.shape[1]
+    hidden, head_k, head_b = model(
+        chunk, positions=start + torch.arange(c, device=model.device),
+        cache=scratch, write_pos=start, head_impl="chunked",
+    )
+    hidden_row = hidden[:, prompt_len - 1 - start]
+    tok0 = _sample(hidden_row @ head_k + head_b, temperature, generator,
+                   top_k, top_p)
+    write_slot_row(cache, scratch, row_idx)
+    return cache, tok0
+
+
+def write_slot_row(cache, row, row_idx: int):
+    """Copy a batch-1 contiguous cache `row` over row `row_idx` of the
+    engine cache, leaf by leaf, in place.  Returns `cache`."""
+    for dst_blk, src_blk in zip(cache, row):
+        for name, dst in dst_blk.items():
+            dst[row_idx] = src_blk[name][0].to(dst.dtype)
+    return cache
+
+
 def init_paged_cache(model: TransformerLM, n_pages: int, page_size: int,
                      device="cuda"):
     """Zero PAGED KV pools on `device`: per block {"k", "v"} of
@@ -323,6 +381,74 @@ def paged_decode_step(  # hot-path
     logits = model(
         tok[:, None], positions=pos[:, None], cache=cache,
         kv_mask=kv_mask, write_pos=pos, block_tables=bt,
+    )
+    nxt = _sample(logits[:, 0], temperature, generator, top_k, top_p)
+    return cache, nxt
+
+
+@torch.no_grad()
+def paged_decode_steps(  # hot-path
+    model: TransformerLM,
+    cache,
+    tok,
+    pos,
+    active,
+    block_tables,
+    temperature,
+    generator: torch.Generator,
+    n_steps: int,
+    top_k=None,
+    top_p=None,
+):
+    """`n_steps` chained paged_decode_step calls: each step's sampled
+    token and `pos + 1` feed the next, and every step's k/v land at the
+    row's next (page, offset) through its block table.  Step semantics
+    are exactly paged_decode_step's, so greedy tokens equal n_steps
+    separate calls.  Every row advances all n_steps; the caller
+    truncates at stop / cancel / max_new when it commits.  Nothing here
+    syncs with the host, so the chain can be captured into one CUDA
+    graph.  Returns (cache, toks (B, n_steps) int32): column j is the
+    token at position pos + 1 + j."""
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    if not model.decode:
+        raise ValueError("paged_decode_steps needs a decode=True model")
+    cols = []
+    for _ in range(n_steps):
+        cache, tok = paged_decode_step(
+            model, cache, tok, pos, active, block_tables, temperature,
+            generator, top_k, top_p,
+        )
+        cols.append(tok)
+        pos = pos + 1
+    return cache, torch.stack(cols, dim=1)
+
+
+@torch.no_grad()
+def decode_step(  # hot-path
+    model: TransformerLM,
+    cache,
+    tok,
+    pos,
+    active,
+    temperature,
+    generator: torch.Generator,
+    top_k=None,
+    top_p=None,
+):
+    """Advance every active row of the contiguous engine cache by one
+    token: row b writes slot pos[b] (slot == position) and sees slots
+    <= pos[b].  Inactive rows clamp to position 0 (their sampled token
+    is ignored; slot 0 is rewritten by the slot's next admission).
+    Returns (cache, next_tok (B,) int32)."""
+    if not model.decode:
+        raise ValueError("decode_step needs a decode=True model")
+    pos = torch.where(active, pos, 0)
+    slots = torch.arange(model.max_seq, device=pos.device)
+    kv_mask = slots[None, :] <= pos[:, None]
+    logits = model(
+        tok[:, None], positions=pos[:, None], cache=cache,
+        kv_mask=kv_mask, write_pos=pos,
     )
     nxt = _sample(logits[:, 0], temperature, generator, top_k, top_p)
     return cache, nxt

@@ -7,7 +7,9 @@ container_engine_accelerators_tpu/models/quant_generate.py
 `generate_prefill_quant` :365, `init_quant_decode_cache` :460,
 `init_quant_paged_cache` :490, `quant_paged_preload_scratch` :527,
 `quant_paged_prefill_finish` :569, `quant_paged_engine_decode_step`
-:634).
+:634, `quant_paged_engine_decode_steps` :672,
+`quant_prefill_finish_into_slot` :1062, `quant_engine_decode_step`
+:1132).
 
 Every 2D matmul weight of the decoder (qkv, proj, both MLP matmuls, the
 vocab head) is stored int8 with a per-output-channel f32 scale and runs
@@ -16,7 +18,9 @@ the bf16 model with DEQUANTIZED weights (one model for prefill and
 decode); decode runs `quant_decode_step`, whose activations are bf16 as
 in the reference, whatever the model's dtype.  With quant_kv the KV
 pool is int8 with per-(slot, head) scales and attention dequantizes
-inside ops.paged_attention.  Caches update in place.
+inside ops.paged_attention; over the contiguous engine cache attention
+stays torch ops, as the reference leaves it to XLA.  Caches update in
+place.
 """
 
 from __future__ import annotations
@@ -26,7 +30,13 @@ import torch
 from .._device import resolve_device
 from ..ops.paged_attention import paged_attention
 from ..ops.quant_matmul import int8_weight_matmul, quantize_weight
-from .generate import _as, _sample, init_decode_cache, paged_scatter_row
+from .generate import (
+    _as,
+    _sample,
+    init_decode_cache,
+    paged_scatter_row,
+    write_slot_row,
+)
 from .transformer import TransformerLM, gelu_tanh
 
 _DENSE = ("qkv", "proj", "fc0", "fc1")
@@ -168,7 +178,8 @@ def quant_decode_step(qparams, cache, tok, pos, t, kv_mask, heads,  # hot-path
         flat = _paged_flat_idx(bt, t, page)
     else:
         view_len = page  # contiguous: dim 1 is max_seq
-    pe = qparams["pos_emb"][_as(pos, torch.int64, dev)]
+    table = qparams["pos_emb"]  # clamped, as the reference's gather is
+    pe = table[_as(pos, torch.int64, dev).clamp(max=table.shape[0] - 1)]
     if pe.ndim == 1:
         pe = pe[None]
     x = (embed[tok.long()] + pe).to(torch.bfloat16)  # (b, dim)
@@ -413,6 +424,103 @@ def quant_paged_engine_decode_step(  # hot-path
     bt = torch.where(active[:, None], block_tables, 0)
     cache, logits = quant_decode_step(
         qparams, cache, tok, pos, pos, None, heads, block_tables=bt
+    )
+    nxt = _sample(logits, temperature, generator, top_k, top_p)
+    return cache, nxt
+
+
+@torch.no_grad()
+def quant_paged_engine_decode_steps(  # hot-path
+    qparams,
+    cache,
+    tok,
+    pos,
+    active,
+    block_tables,
+    temperature,
+    generator: torch.Generator,
+    heads: int,
+    n_steps: int,
+    top_k=None,
+    top_p=None,
+):
+    """generate.paged_decode_steps for the int8 engine: `n_steps`
+    chained quant_paged_engine_decode_step calls, each step's token and
+    `pos + 1` feeding the next (greedy tokens equal n_steps separate
+    calls; the caller truncates at commit).  Returns (cache, toks (B,
+    n_steps) int32)."""
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    cols = []
+    for _ in range(n_steps):
+        cache, tok = quant_paged_engine_decode_step(
+            qparams, cache, tok, pos, active, block_tables, temperature,
+            generator, heads, top_k, top_p,
+        )
+        cols.append(tok)
+        pos = pos + 1
+    return cache, torch.stack(cols, dim=1)
+
+
+@torch.no_grad()
+def quant_prefill_finish_into_slot(  # hot-path
+    deq_model: TransformerLM,
+    qparams,
+    cache,
+    scratch,
+    chunk,
+    row_idx: int,
+    start: int,
+    prompt_len: int,
+    temperature,
+    generator: torch.Generator,
+    top_k=None,
+    top_p=None,
+):
+    """generate.prefill_finish_into_slot for the int8 engine: the final
+    chunk runs through the dequantized model on the scratch, tok0
+    samples through the QUANT head, and the scratch's KV (quantized when
+    the cache is int8) is written over engine-cache row `row_idx`.
+    Returns (cache, tok0 (1,) int32)."""
+    chunk = _as(chunk, torch.int64, deq_model.device)
+    if chunk.shape[0] != 1:
+        raise ValueError(
+            f"quant_prefill_finish_into_slot admits one request at a "
+            f"time, got batch {chunk.shape[0]}"
+        )
+    c = chunk.shape[1]
+    hidden, _, _ = deq_model(
+        chunk, positions=start + torch.arange(c, device=deq_model.device),
+        cache=scratch, write_pos=start, head_impl="chunked",
+    )
+    hidden_row = hidden[:, prompt_len - 1 - start]
+    logits0 = _qmm(hidden_row, qparams["head"]) + qparams["head"]["bias"]
+    tok0 = _sample(logits0, temperature, generator, top_k, top_p)
+    fresh = quantize_kv_cache(scratch) if "k_scale" in cache[0] else scratch
+    write_slot_row(cache, fresh, row_idx)
+    return cache, tok0
+
+
+@torch.no_grad()
+def quant_engine_decode_step(  # hot-path
+    qparams,
+    cache,
+    tok,
+    pos,
+    active,
+    temperature,
+    generator: torch.Generator,
+    heads: int,
+    top_k=None,
+    top_p=None,
+):
+    """generate.decode_step for the int8 engine: every active row
+    advances one token through quant_decode_step with per-row slots
+    (slot == position); inactive rows clamp to position 0.  Returns
+    (cache, next_tok (B,) int32)."""
+    pos = torch.where(active, pos, 0)
+    cache, logits = quant_decode_step(
+        qparams, cache, tok, pos, pos, None, heads
     )
     nxt = _sample(logits, temperature, generator, top_k, top_p)
     return cache, nxt

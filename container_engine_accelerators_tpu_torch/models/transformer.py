@@ -19,19 +19,23 @@ Training (`build_lm_training`, single chip, dense head): attention
 through `attn_fn` (flash, ops/flash_attention.py, or the dense math),
 the loss through ops/fused_xent.py or ops/losses.py, AdamW as optax's.
 
-Decode paths ported in this slice (a `cache` argument selects them):
+Decode paths ported (a `cache` argument selects them):
   - the PAGED single-token step (:177-265): the cache holds page pools
     (n_pages, page, heads, d_head); this step's k/v land at each row's
     (page, offset) through its block table, positions past the mapped
     view land in the reserved null page 0, and attention runs through
     ops.paged_attention (the CUDA kernel on the card, the gather math on
     the CPU);
+  - the PER-ROW contiguous path (:266-318): a (b,) `write_pos` puts
+    row b's s new k/v rows at [write_pos[b], write_pos[b] + s) of its
+    own row, and a per-row kv_mask carries the visibility (the
+    contiguous-slot engine's decode step);
   - the SCALAR `write_pos` contiguous path (:319-354): the s new k/v
     rows land at [write_pos, write_pos + s) of a (b, cache_len, heads,
     d_head) buffer and query i sees slots <= write_pos + i (chunked
     prefill and the oracle).
-The per-row contiguous path and the s > 1 verify windows (:266-318)
-come with the speculative-decode slice (ROADMAP A2).
+The paged s > 1 verify windows (:177-240) come with the
+speculative-decode slice (ROADMAP A3/A5e).
 
 Caches are lists with one {"k", "v"} dict per block, updated IN PLACE
 (the reference returns a new cache; the port mutates to keep one copy
@@ -119,8 +123,48 @@ class Dense(nn.Module):
         return torch.matmul(x.to(self.dtype), kernel) + bias
 
 
+def _rowwise_attention(q, k, v, ck, cv, kv_mask, write_pos):
+    """The per-row contiguous path (reference :266-318): row b's s new
+    k/v rows land at slots [write_pos[b], write_pos[b] + s) of its own
+    (cache_len, heads, d_head) buffer, in place, and kv_mask (b,
+    cache_len), or (b, s, cache_len) when s > 1, carries the whole
+    visibility.  A single-token write past the buffer writes nothing, as
+    the reference's one-hot select does; a window clips to the last
+    slot, as its scatter does."""
+    b, s, h, d = q.shape
+    cache_len = ck.shape[1]
+    if kv_mask is None or kv_mask.ndim not in (2, 3) or (
+        s > 1 and kv_mask.ndim != 3
+    ):
+        raise ValueError(
+            "write_pos requires a per-row (b, cache_len) kv_mask carrying "
+            "full visibility (per-query (b, s, cache_len) when s > 1)"
+        )
+    rows = torch.arange(b, device=q.device)
+    wp = write_pos.long()
+    if s == 1:
+        inside = (wp >= 0) & (wp < cache_len)
+        at = torch.where(inside, wp, 0)
+        for buf, new in ((ck, k), (cv, v)):
+            keep = buf[rows, at]
+            buf[rows, at] = torch.where(
+                inside[:, None, None], new[:, 0].to(buf.dtype), keep
+            )
+    else:
+        cols = torch.clamp(
+            wp[:, None] + torch.arange(s, device=q.device), 0, cache_len - 1
+        )
+        ck[rows[:, None], cols] = k.to(ck.dtype)
+        cv[rows[:, None], cols] = v.to(cv.dtype)
+    qf = q.float() / (d ** 0.5)
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, ck.float())
+    vis = kv_mask[:, None, None, :] if kv_mask.ndim == 2 else kv_mask[:, None]
+    p = torch.softmax(torch.where(vis, scores, -1e30), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, cv.float()).to(q.dtype)
+
+
 def _decode_attention(q, k, v, cache, kv_mask, write_pos, block_tables):
-    """DecoderBlock._decode_attention for the two ported paths (module
+    """DecoderBlock._decode_attention for the ported paths (module
     docstring).  Writes this call's k/v into `cache` in place."""
     b, s, h, d = q.shape
     ck, cv = cache["k"], cache["v"]
@@ -128,7 +172,7 @@ def _decode_attention(q, k, v, cache, kv_mask, write_pos, block_tables):
         if s != 1:
             raise NotImplementedError(
                 "paged verify windows (s > 1) come with the "
-                "speculative-decode slice (ROADMAP A2)"
+                "speculative-decode slice (ROADMAP A3)"
             )
         if write_pos is None or not torch.is_tensor(write_pos) or (
             write_pos.ndim != 1
@@ -152,11 +196,12 @@ def _decode_attention(q, k, v, cache, kv_mask, write_pos, block_tables):
             q[:, 0].contiguous(), ck, cv, block_tables, kv_mask
         )
         return out[:, None].to(q.dtype)
-    if write_pos is None or (torch.is_tensor(write_pos) and write_pos.ndim):
+    if torch.is_tensor(write_pos) and write_pos.ndim == 1:
+        return _rowwise_attention(q, k, v, ck, cv, kv_mask, write_pos)
+    if write_pos is None:
         raise NotImplementedError(
-            "the decode cache takes a scalar write_pos in this slice; "
-            "per-row contiguous writes come with the speculative-decode "
-            "slice (ROADMAP A2)"
+            "the decode cache takes an explicit write_pos: the shared "
+            "cache index of the reference's flax cache is not ported"
         )
     if kv_mask is not None and kv_mask.ndim not in (1, 2):
         raise ValueError("scalar write_pos takes a (cache_len,) kv_mask")
@@ -286,11 +331,14 @@ class TransformerLM(nn.Module):
         return self
 
     def apply_embed(self, tokens, positions=None):
-        """Token + learned positional embedding (apply_embed :357)."""
+        """Token + learned positional embedding (apply_embed :357).  A
+        position past the table reads its last row, as the reference's
+        gather clamps (a fused block's dead tail may run past max_seq:
+        its tokens are never committed)."""
         s = tokens.shape[1]
         x = self.embed[tokens.long()].to(self.dtype)
         pos = self.pos_emb[:s] if positions is None else self.pos_emb[
-            positions.long()
+            positions.long().clamp(max=self.max_seq - 1)
         ]
         if pos.ndim == 2:
             pos = pos[None]

@@ -1,9 +1,11 @@
 """Continuous-batching decode engine on PyTorch: the port of
-container_engine_accelerators_tpu/serving/engine.py on its default
-path — the paged KV pool with the radix prefix cache, chunked prefill,
-and single-token decode steps, for the bf16 engine (quant=False) and
-the int8 weight + int8 KV engine (quant=True), with the one-step lag
-window (pipeline=True) or synchronous commits (pipeline=False).
+container_engine_accelerators_tpu/serving/engine.py — the paged KV pool
+with the radix prefix cache (the default) or the contiguous-slot cache
+(paged=False), chunked prefill, single-token decode steps and fused
+multi-step decode blocks (decode_steps > 1), for the bf16 engine
+(quant=False) and the int8 weight + int8 KV engine (quant=True), with
+the one-step lag window (pipeline=True) or synchronous commits
+(pipeline=False).
 
 One engine owns a persistent decode batch of `n_slots` rows and a
 scheduler thread that, every iteration, advances admission by at most
@@ -20,7 +22,20 @@ physical pages through a per-row block table; the radix prefix cache
 adopts a partially matched page copy-on-write, so a divergent
 continuation never writes a page another row reads.  Decode attention
 walks the block tables in the paged-attention kernel and the int8
-engine's projections run through the int8 matmul kernel (ops/).
+engine's projections run through the int8 matmul kernel (ops/).  The
+contiguous-slot engine (paged=False) keeps one (max_seq, ...) cache row
+per slot, slot == position, and has no prefix reuse; its attention stays
+torch ops, as the reference leaves it to XLA.
+
+Fused multi-step decode (decode_steps = k > 1, paged engines only): on a
+QUIET turn (nothing queued or prefilling, every live row greedy and
+uncancelled with more than one token of headroom) the engine commits
+the outstanding window, then dispatches one block of the largest width
+on the ladder 2, 4, ..., k that every row's budget allows, and commits
+the block's (B, width) tokens at the next turn with the stop / cancel /
+max_new truncation applied per row.  Other turns fall through to the
+one-token step.  On the card each width is one CUDA graph replay
+(serving/decode_graph.py).
 
 Differences of idiom from the reference:
   - every device seam updates the cache IN PLACE (the reference donates
@@ -33,9 +48,9 @@ Differences of idiom from the reference:
     retried step draws fresh noise (greedy rows are unaffected).
 
 Options whose modules come in later slices raise NotImplementedError
-naming their ROADMAP item: paged=False (A2), mesh (A10), decode_steps
-> 1 (A5d), spec_k > 0 (A5e), host/disk KV tiers (A5f), observe=True
-(A5g).  With observe off the engine carries a null recorder.
+naming their ROADMAP item: spec_k > 0 (A5e), host/disk KV tiers (A5f),
+observe=True (A5g), mesh (A10).  With observe off the engine carries a
+null recorder.
 
 Failure semantics are the reference's: a failed admission fails only
 its ticket; a failed step retries with capped backoff, then fails the
@@ -61,6 +76,7 @@ from ..models import generate as G
 from ..models import quant_generate as QG
 from ..models.transformer import TransformerLM
 from . import kvpool
+from .decode_graph import FusedDecode
 from .errors import QueueFullError, StepFailure
 from .prefix_cache import RadixPrefixCache
 
@@ -252,6 +268,16 @@ class _Pending:
         self.t_dispatch = t_dispatch
 
 
+class _FusedPending(_Pending):
+    """One dispatched-but-uncommitted FUSED BLOCK: the rows that rode it
+    as (slot, seq, base position, block width) and the (B, width)
+    device token array, read back once at _commit_fused.  Shares
+    _Pending's drain contract: _drain_pending waits for `nxt` and drops
+    the block uncommitted on every failure path."""
+
+    __slots__ = ()
+
+
 class _Prefill:
     """One in-progress chunked admission: the reserved slot, the
     bucket-padded prompt, the (start, width) chunk plan, the batch-1
@@ -282,9 +308,11 @@ class _Prefill:
 class _StageSet:
     """One set of host staging buffers for a dispatch: torch tensors
     (pinned on the card, so the copy can be non_blocking) and numpy
-    views of the same memory for the scheduler to fill."""
+    views of the same memory for the scheduler to fill.  `bt` (the
+    block tables) only for a paged engine (pages_per_row > 0); the
+    fused set (fused=True) holds only what a block reads."""
 
-    def __init__(self, n_slots, pages_per_row, vocab, pin):
+    def __init__(self, n_slots, pages_per_row, vocab, pin, fused=False):
         def mk(shape, dtype, fill):
             return torch.full(shape, fill, dtype=dtype, pin_memory=pin)
 
@@ -293,11 +321,13 @@ class _StageSet:
             "pos": mk((n_slots,), torch.int32, 0),
             "active": mk((n_slots,), torch.bool, False),
             "temps": mk((n_slots,), torch.float32, 0.0),
-            "top_k": mk((n_slots,), torch.int32, vocab),
-            "top_p": mk((n_slots,), torch.float32, 1.0),
-            "over": mk((n_slots,), torch.bool, True),
-            "bt": mk((n_slots, pages_per_row), torch.int32, 0),
         }
+        if not fused:
+            self.t["top_k"] = mk((n_slots,), torch.int32, vocab)
+            self.t["top_p"] = mk((n_slots,), torch.float32, 1.0)
+            self.t["over"] = mk((n_slots,), torch.bool, True)
+        if pages_per_row:
+            self.t["bt"] = mk((n_slots, pages_per_row), torch.int32, 0)
         self.np = {k: v.numpy() for k, v in self.t.items()}
 
     def to(self, device):
@@ -316,10 +346,14 @@ class ContinuousBatchingEngine:
     chunked-prefill width (power of two, floored at the grid; 0 = one
     chunk per admission).  pipeline: the one-step lag
     window (False commits each step before the next dispatch — the
-    parity control).  page_size: tokens per page (power of two);
-    kv_pages: pool capacity in pages (default n_slots x pages per
-    max_seq row); prefix_cache: radix prefix reuse.  max_queue: bound on
-    queued prompt rows.  step_retries / retry_backoff_s /
+    parity control).  paged: the block-table KV pool (the default);
+    False keeps one contiguous max_seq cache row per slot.  page_size:
+    tokens per page (power of two); kv_pages: pool capacity in pages
+    (default n_slots x pages per max_seq row); prefix_cache: radix
+    prefix reuse (paged only).  decode_steps: the widest fused block
+    (module docstring); 0 or 1 keeps the one-token path, and a
+    non-paged engine forces it to 0.  max_queue: bound on queued prompt
+    rows.  step_retries / retry_backoff_s /
     retry_backoff_cap_s: transient step-failure absorption.  rng_seed
     seeds the engine's sampling generator.  device: where the engine
     runs (default the card; raises without one unless "cpu")."""
@@ -365,10 +399,11 @@ class ContinuousBatchingEngine:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        ds = int(decode_steps)
+        if ds < 0:
+            raise ValueError(f"decode_steps must be >= 0, got {decode_steps}")
         for wanted, item in (
-            (not paged, "the contiguous-slot engine (paged=False), A2"),
             (mesh is not None, "a device mesh, A10"),
-            (int(decode_steps) > 1, "fused multi-step decode, A5d"),
             (int(spec_k) > 0, "speculative decoding, A5e"),
             (int(kv_host_bytes) > 0 or kv_disk_dir,
              "host/disk KV tiers, A5f"),
@@ -394,20 +429,33 @@ class ContinuousBatchingEngine:
                 edge *= 2
             chunk = edge
         self._prefill_chunk = chunk
+        self._paged = bool(paged)
         self._page = int(page_size)
-        if self._page < 1 or (self._page & (self._page - 1)):
-            raise ValueError(
-                f"page_size must be a power of two >= 1, got {page_size}"
+        self._pages_per_row = 0
+        self._pool = self._prefix = None
+        if self._paged:
+            if self._page < 1 or (self._page & (self._page - 1)):
+                raise ValueError(
+                    f"page_size must be a power of two >= 1, got "
+                    f"{page_size}"
+                )
+            self._pages_per_row = -(-model.max_seq // self._page)
+            total = (
+                int(kv_pages) if kv_pages
+                else self.n_slots * self._pages_per_row
             )
-        self._pages_per_row = -(-model.max_seq // self._page)
-        total = (
-            int(kv_pages) if kv_pages
-            else self.n_slots * self._pages_per_row
-        )
-        if total < 1:
-            raise ValueError(f"kv_pages must be >= 1, got {kv_pages}")
-        self._pool = kvpool.PagePool(total)
-        self._prefix = RadixPrefixCache(self._page) if prefix_cache else None
+            if total < 1:
+                raise ValueError(f"kv_pages must be >= 1, got {kv_pages}")
+            self._pool = kvpool.PagePool(total)
+            if prefix_cache:
+                self._prefix = RadixPrefixCache(self._page)
+        if ds > 1 and not self._paged:
+            log.info(
+                "fused multi-step decode disabled: the chained decode "
+                "seam scatters through block tables (paged engines only)"
+            )
+            ds = 0
+        self._decode_steps = ds
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(rng_seed))
         self._max_queue = max_queue
@@ -417,50 +465,98 @@ class ContinuousBatchingEngine:
 
         # The device seams, as attributes so a fault injector can wrap
         # them: the chunk seam (a non-final prefill chunk into the
-        # scratch), the final chunk (sample tok0, scatter the scratch
-        # into the row's pages), the decode step, and the prefix
-        # preload.  The int8 engine prefills through the model with
+        # scratch), the final chunk (sample tok0, then scatter the
+        # scratch into the row's pages, or copy it over the row's slot
+        # when not paged), the decode step, the prefix preload, and the
+        # fused block.  The int8 engine prefills through the model with
         # DEQUANTIZED weights, so both engines run chunks on a float
-        # model.
+        # model.  prefill_fn's `where` is the row's block table (paged)
+        # or its slot; decode_fn's `bt` is None when not paged.
         self._prefill_chunk_fn = G.prefill_chunk
+        paged_ = self._paged
         if self.quant:
             self._qparams = QG.quantize_decode_params(model)
             self._deq = QG.dequantize_decode_params(self._qparams, model)
             qp, deq, heads = self._qparams, self._deq, model.heads
 
-            def prefill_fn(cache, scratch, chunk, bt, start, wfrom, plen,
+            def prefill_fn(cache, scratch, chunk, where, start, wfrom, plen,
                            temp, gen, **kw):
-                return QG.quant_paged_prefill_finish(
-                    deq, qp, cache, scratch, chunk, bt, start, wfrom,
-                    plen, temp, gen, **kw
-                )
-
-            def decode_fn(cache, prev, tok, use, pos, act, bt, temp, gen,
-                          **kw):
-                return QG.quant_paged_engine_decode_step(
-                    qp, cache, torch.where(use, tok, prev), pos, act, bt,
-                    temp, gen, heads, **kw
-                )
-
-            self._preload_fn = QG.quant_paged_preload_scratch
-        else:
-            def prefill_fn(cache, scratch, chunk, bt, start, wfrom, plen,
-                           temp, gen, **kw):
-                return G.paged_prefill_finish(
-                    model, cache, scratch, chunk, bt, start, wfrom, plen,
+                if paged_:
+                    return QG.quant_paged_prefill_finish(
+                        deq, qp, cache, scratch, chunk, where, start,
+                        wfrom, plen, temp, gen, **kw
+                    )
+                return QG.quant_prefill_finish_into_slot(
+                    deq, qp, cache, scratch, chunk, where, start, plen,
                     temp, gen, **kw
                 )
 
             def decode_fn(cache, prev, tok, use, pos, act, bt, temp, gen,
                           **kw):
-                return G.paged_decode_step(
-                    model, cache, torch.where(use, tok, prev), pos, act,
-                    bt, temp, gen, **kw
+                tok = torch.where(use, tok, prev)
+                if paged_:
+                    return QG.quant_paged_engine_decode_step(
+                        qp, cache, tok, pos, act, bt, temp, gen, heads,
+                        **kw
+                    )
+                return QG.quant_engine_decode_step(
+                    qp, cache, tok, pos, act, temp, gen, heads, **kw
+                )
+
+            def steps_fn(qp, cache, tok, pos, act, bt, temp, gen, n):
+                return QG.quant_paged_engine_decode_steps(
+                    qp, cache, tok, pos, act, bt, temp, gen, heads, n
+                )
+
+            self._preload_fn = QG.quant_paged_preload_scratch
+        else:
+            def prefill_fn(cache, scratch, chunk, where, start, wfrom, plen,
+                           temp, gen, **kw):
+                if paged_:
+                    return G.paged_prefill_finish(
+                        model, cache, scratch, chunk, where, start, wfrom,
+                        plen, temp, gen, **kw
+                    )
+                return G.prefill_finish_into_slot(
+                    model, cache, scratch, chunk, where, start, plen, temp,
+                    gen, **kw
+                )
+
+            def decode_fn(cache, prev, tok, use, pos, act, bt, temp, gen,
+                          **kw):
+                tok = torch.where(use, tok, prev)
+                if paged_:
+                    return G.paged_decode_step(
+                        model, cache, tok, pos, act, bt, temp, gen, **kw
+                    )
+                return G.decode_step(
+                    model, cache, tok, pos, act, temp, gen, **kw
+                )
+
+            def steps_fn(model, cache, tok, pos, act, bt, temp, gen, n):
+                return G.paged_decode_steps(
+                    model, cache, tok, pos, act, bt, temp, gen, n
                 )
 
             self._preload_fn = G.paged_preload_scratch
         self._prefill_fn = prefill_fn
         self._decode_fn = decode_fn
+        # Fused blocks (decode_steps > 1): widths on the power-of-two
+        # ladder from 2, capped at and ending with decode_steps; one
+        # CUDA graph per width on the card (serving/decode_graph.py).
+        # `_fused_fn(weights, cache, inputs, width)` is the seam a fault
+        # injector wraps.
+        self._fused = None
+        self._fused_fn = None
+        self._fused_buckets: List[int] = []
+        if self._decode_steps > 1:
+            self._fused = FusedDecode(steps_fn, self._gen, self.device)
+            self._fused_fn = self._fused.run
+            w = 2
+            while w < self._decode_steps:
+                self._fused_buckets.append(w)
+                w *= 2
+            self._fused_buckets.append(self._decode_steps)
         # The float model the chunk seam runs (dequantized for int8).
         self._prefill_params = self._deq if self.quant else model
         self._cache = self._build_cache()
@@ -471,7 +567,7 @@ class ContinuousBatchingEngine:
         # Canonical per-slot block tables (logical page -> physical
         # page; 0 = the null page).  Written at admission finish,
         # zeroed at retire and on every failure path; copied into the
-        # dispatch staging each step.
+        # dispatch staging each step.  Zero columns when not paged.
         self._bt_master = np.zeros(  # guarded-by: _cv
             (self.n_slots, self._pages_per_row), np.int32
         )
@@ -486,6 +582,14 @@ class ContinuousBatchingEngine:
             for _ in range(2)
         )
         self._stage_i = 0
+        # Fused-block staging: ONE set is enough, because a fused turn
+        # commits the outstanding window before it rewrites the set, and
+        # that readback waited for every copy out of it.
+        self._fused_stage = (
+            _StageSet(self.n_slots, self._pages_per_row, model.vocab, pin,
+                      fused=True)
+            if self._fused is not None else None
+        )
         # The `prev` operand when no step is in flight: every row
         # overrides it through the merge mask, only its shape matters.
         self._last_nxt = self._zeros_tok()
@@ -517,6 +621,11 @@ class ContinuousBatchingEngine:
             "prefix_inserted_pages": 0,
             "prefix_evictions": 0,
             "cow_copies": 0,
+            # Fused blocks dispatched and the tokens they committed;
+            # "steps" counts commits (host round-trips) of both kinds.
+            "fused_blocks": 0,
+            "fused_steps": 0,  # decode steps dispatched inside blocks
+            "fused_tokens": 0,
         }
         self._obs = _NullObservability()
         self._obs.attach_engine(self)
@@ -628,11 +737,12 @@ class ContinuousBatchingEngine:
                 1 for s in self._slots if s is not None
             )
             snap["queue_depth"] = len(self._queue)
-        snap["kv_pages_total"] = self._pool.total
-        snap["kv_pages_in_use"] = self._pool.in_use
-        snap["prefix_cached_pages"] = (
-            self._prefix.page_count() if self._prefix else 0
-        )
+        if self._paged:
+            snap["kv_pages_total"] = self._pool.total
+            snap["kv_pages_in_use"] = self._pool.in_use
+            snap["prefix_cached_pages"] = (
+                self._prefix.page_count() if self._prefix else 0
+            )
         return snap
 
     @property
@@ -659,6 +769,8 @@ class ContinuousBatchingEngine:
         if self._crashed.is_set() or not self._thread.is_alive():
             self._fail_all(RuntimeError("engine closed"))
             self._release_retained_prefixes()
+            if self._fused is not None:
+                self._fused.reset()  # the graphs' pool goes back
 
     @property
     def active_rows(self) -> int:
@@ -681,6 +793,8 @@ class ContinuousBatchingEngine:
                 "engine scheduler crashed"
             )
         self._fail_active_rows(err)
+        if self._fused is not None:
+            self._fused.reset()  # its graphs point at the old cache
         self._cache = self._build_cache()
         self._reset_paged_state()
         with self._cv:
@@ -706,7 +820,17 @@ class ContinuousBatchingEngine:
 
     # -- scheduler -------------------------------------------------------
     def _build_cache(self):
-        """A fresh page pool (+ the reserved null page 0)."""
+        """A fresh page pool (+ the reserved null page 0), or fresh
+        contiguous slot rows when not paged."""
+        if not self._paged:
+            if self.quant:
+                return QG.init_quant_decode_cache(
+                    self._model, self.n_slots, quant_kv=self._quant_kv,
+                    device=self.device,
+                )
+            return G.init_decode_cache(
+                self._model, self.n_slots, device=self.device
+            )
         n_phys = self._pool.total + 1
         if self.quant:
             return QG.init_quant_paged_cache(
@@ -735,6 +859,8 @@ class ContinuousBatchingEngine:
     def _reset_paged_state(self):
         """Host bookkeeping reset paired with every cache rebuild: after
         it kv_pages_in_use == 0."""
+        if not self._paged:
+            return
         self._pool.reset()
         if self._prefix is not None:
             self._prefix.clear()
@@ -750,6 +876,8 @@ class ContinuousBatchingEngine:
     # owns-pages
     def _release_seq_pages(self, seq):
         """Drop a row's page references exactly once."""
+        if not self._paged:
+            return
         with self._cv:
             pages, seq.page_refs = seq.page_refs, []
         for pid in pages:
@@ -960,6 +1088,10 @@ class ContinuousBatchingEngine:
         p_bucket = self._bucket(seq.plen)
         padded = np.zeros((1, p_bucket), np.int32)
         padded[0, : seq.plen] = seq.prompt
+        if not self._paged:
+            return _Prefill(
+                seq, free, padded, self._plan_chunks(p_bucket, seq.plen)
+            )
         page = self._page
         last_page = min(
             (seq.plen + seq.max_new - 1) // page,
@@ -1148,7 +1280,8 @@ class ContinuousBatchingEngine:
             if seq.top_p is not None:
                 kwargs["top_p"] = float(seq.top_p)
             self._cache, tok0 = self._prefill_fn(
-                self._cache, pf.scratch, chunk, pf.bt_row, start,
+                self._cache, pf.scratch, chunk,
+                pf.bt_row if self._paged else pf.slot, start,
                 pf.write_from, seq.plen, seq.temp, self._gen, **kwargs,
             )
             pf.scratch = None
@@ -1186,7 +1319,8 @@ class ContinuousBatchingEngine:
                 seq.page_refs = pf.shared_ids + pf.priv
                 pf.shared_ids, pf.priv = [], []
                 donor, pf.donor = pf.donor, None
-                self._bt_master[pf.slot] = pf.bt_row
+                if self._paged:
+                    self._bt_master[pf.slot] = pf.bt_row
         if donor is not None:
             self._pool.unref(donor)
         if not alive:
@@ -1273,7 +1407,24 @@ class ContinuousBatchingEngine:
         the in-flight device array; fresh rows override it through the
         merge mask.  A failed dispatch retries with capped backoff;
         exhausted retries drain the window, fail only the active rows
-        and crash the scheduler for a supervised revival."""
+        and crash the scheduler for a supervised revival.  With
+        decode_steps > 1 a quiet turn dispatches a fused block instead
+        (_step_fused)."""
+        if self._fused is not None:
+            k = self._fused_turn_wants_block()
+            if k:
+                self._step_fused(k)
+                return
+            # An outstanding FUSED block commits first: its (B, k)
+            # tokens cannot ride the one-token dispatch's merge.
+            with self._cv:
+                pending = self._pending
+                if isinstance(pending, _FusedPending):
+                    self._pending = None
+                else:
+                    pending = None
+            if pending is not None:
+                self._commit_fused(pending)
         self._stage_i ^= 1
         st = self._stages[self._stage_i]
         s = st.np
@@ -1289,7 +1440,8 @@ class ContinuousBatchingEngine:
         with self._cv:
             occupants = list(enumerate(self._slots))
             pending = self._pending
-            np.copyto(s["bt"], self._bt_master)
+            if self._paged:
+                np.copyto(s["bt"], self._bt_master)
         in_flight = {}
         if pending is not None:
             in_flight = {i: (q, d) for i, q, d in pending.rows}
@@ -1330,50 +1482,16 @@ class ContinuousBatchingEngine:
             d = st.to(self.device)
             kwargs = {"top_k": d["top_k"], "top_p": d["top_p"]} if adv else {}
             prev = pending.nxt if pending is not None else self._last_nxt
-            delay = self._retry_backoff_s
-            attempt = 0
             self._dispatch_count += 1
-            while True:
-                try:
-                    with self._obs.step_annotation(self._dispatch_count):
-                        self._cache, nxt = self._decode_fn(
-                            self._cache, prev, d["tok"], d["over"],
-                            d["pos"], d["active"], d["bt"], d["temps"],
-                            self._gen, **kwargs,
-                        )
-                    self._last_nxt = nxt
-                    break
-                except Exception as e:  # pylint: disable=broad-except
-                    attempt += 1
-                    if attempt > self._step_retries:
-                        failure = StepFailure(
-                            f"decode_step failed after {attempt - 1} "
-                            f"retries: {e}"
-                        )
-                        failure.__cause__ = e
-                        with self._cv:
-                            self.stats["step_failures"] += 1
-                        self._obs.event(
-                            "step_fail", attempts=attempt,
-                            err=repr(e)[:120],
-                        )
-                        n = self._fail_active_rows(failure)
-                        log.error(
-                            "persistent decode_step failure: %d active "
-                            "row(s) failed, %d queued row(s) "
-                            "preserved: %s",
-                            n, self.queue_depth, e,
-                        )
-                        raise failure
-                    with self._cv:
-                        self.stats["step_retries"] += 1
-                    log.warning(
-                        "decode_step failed (attempt %d/%d), retrying "
-                        "in %.3fs: %r",
-                        attempt, self._step_retries, delay, e,
-                    )
-                    time.sleep(delay)
-                    delay = min(delay * 2.0, self._retry_backoff_cap_s)
+            nxt = self._with_retries(
+                "decode_step",
+                lambda: self._decode_fn(
+                    self._cache, prev, d["tok"], d["over"], d["pos"],
+                    d["active"], d.get("bt"), d["temps"], self._gen,
+                    **kwargs,
+                ),
+            )
+            self._last_nxt = nxt
             new_pending = _Pending(live, nxt, time.monotonic())
         with self._cv:
             self._pending = new_pending
@@ -1385,16 +1503,57 @@ class ContinuousBatchingEngine:
                 self._pending = None
             self._commit_pending(new_pending)
 
-    def _commit_pending(self, pending):  # hot-path
-        """Commit one lagged step: the decode loop's ONE readback.  A
-        failure here is a device-side failure of the dispatched step:
-        the active rows fail."""
+    def _with_retries(self, what, dispatch):  # hot-path
+        """Run `dispatch()` -> (cache, tokens) under the step-retry
+        contract: a failure retries with capped backoff (a retried step
+        draws fresh noise; greedy rows are unaffected); exhausted
+        retries drain the window, fail the active rows and raise
+        StepFailure, which crashes the scheduler for revival.  Returns
+        the tokens and keeps the cache."""
+        delay = self._retry_backoff_s
+        attempt = 0
+        while True:
+            try:
+                with self._obs.step_annotation(self._dispatch_count):
+                    self._cache, toks = dispatch()
+                return toks
+            except Exception as e:  # pylint: disable=broad-except
+                attempt += 1
+                if attempt > self._step_retries:
+                    failure = StepFailure(
+                        f"{what} failed after {attempt - 1} retries: {e}"
+                    )
+                    failure.__cause__ = e
+                    with self._cv:
+                        self.stats["step_failures"] += 1
+                    self._obs.event(
+                        "step_fail", attempts=attempt, err=repr(e)[:120],
+                    )
+                    n = self._fail_active_rows(failure)
+                    log.error(
+                        "persistent %s failure: %d active row(s) failed, "
+                        "%d queued row(s) preserved: %s",
+                        what, n, self.queue_depth, e,
+                    )
+                    raise failure
+                with self._cv:
+                    self.stats["step_retries"] += 1
+                log.warning(
+                    "%s failed (attempt %d/%d), retrying in %.3fs: %r",
+                    what, attempt, self._step_retries, delay, e,
+                )
+                time.sleep(delay)
+                delay = min(delay * 2.0, self._retry_backoff_cap_s)
+
+    def _readback(self, pending, what):  # hot-path
+        """A window's one readback (host numpy).  A failure here is a
+        device-side failure of the dispatched work: the active rows
+        fail and StepFailure raises."""
         try:
-            nxt = pending.nxt.cpu().numpy()
+            return pending.nxt.cpu().numpy()
         except Exception as e:  # pylint: disable=broad-except
             failure = StepFailure(
-                f"decode_step failed in flight (commit-side "
-                f"readback): {e}"
+                f"{what} failed in flight (commit-side readback): {e}"
             )
             failure.__cause__ = e
             with self._cv:
@@ -1404,11 +1563,15 @@ class ContinuousBatchingEngine:
             )
             n = self._fail_active_rows(failure)
             log.error(
-                "in-flight decode step failed at commit: %d active "
-                "row(s) failed, %d queued row(s) preserved: %s",
-                n, self.queue_depth, e,
+                "in-flight %s failed at commit: %d active row(s) failed, "
+                "%d queued row(s) preserved: %s",
+                what, n, self.queue_depth, e,
             )
             raise failure
+
+    def _commit_pending(self, pending):  # hot-path
+        """Commit one lagged step: the decode loop's ONE readback."""
+        nxt = self._readback(pending, "decode step")
         now = time.monotonic()
         with self._cv:
             self.stats["steps"] += 1
@@ -1424,3 +1587,136 @@ class ContinuousBatchingEngine:
         )
         for i, seq in survivors:
             self._commit(i, seq, int(nxt[i]), now=now)
+
+    # -- fused multi-step decode (decode_steps > 1) ----------------------
+    def _fused_turn_wants_block(self) -> int:  # hot-path
+        """The quiet-turn gate: the block width k >= 2 for this turn, or
+        0 to fall through to the one-token step.  Quiet means nothing
+        queued or prefilling (admission work is what the one-token
+        pipeline overlaps) and every live row greedy (temperature 0, no
+        top_k / top_p: a sampled row's noise would be drawn in another
+        order than k one-token steps draw it), uncancelled, with more
+        than one token of headroom.  The width is the largest bucket at
+        most every row's remaining budget."""
+        width = None
+        with self._cv:
+            if self._queue or self._prefilling is not None:
+                return 0
+            for seq in self._slots:
+                if seq is None:
+                    continue
+                if seq.ticket.cancelled:
+                    return 0  # the one-token turn retires it at once
+                if not seq.tokens or len(seq.tokens) >= seq.max_new:
+                    return 0  # mid-prefill, or finished not retired
+                if (seq.temp > 0.0 or seq.top_k is not None
+                        or seq.top_p is not None):
+                    return 0
+                rem = seq.max_new - len(seq.tokens)
+                if rem <= 1:
+                    return 0
+                width = rem if width is None else min(width, rem)
+        if width is None:
+            return 0
+        k = 0
+        for b in self._fused_buckets:
+            if b <= width:
+                k = b
+        return k
+
+    def _step_fused(self, k: int):  # hot-path
+        """One fused turn: COMMIT the outstanding window (either kind;
+        the block's base token is the last committed one), dispatch k
+        chained steps as one block, and publish it as the new window.
+        Cancel / stop / max_new apply at its commit, and _drain_pending
+        drops it on every failure path, as for a one-token step."""
+        with self._cv:
+            pending, self._pending = self._pending, None
+        if pending is not None:
+            if isinstance(pending, _FusedPending):
+                self._commit_fused(pending)
+            else:
+                self._commit_pending(pending)
+        new_pending = self._dispatch_fused(k)
+        if new_pending is None:
+            return
+        with self._cv:
+            self._pending = new_pending
+        if not self._pipeline:
+            with self._cv:
+                self._pending = None
+            self._commit_fused(new_pending)
+
+    def _dispatch_fused(self, k: int):  # hot-path
+        """Stage every live row and dispatch one block of k steps.  Rows
+        cancelled since the gate retire here (nothing is in flight), and
+        the staged temperatures stay 0 (the gate passed only greedy
+        rows).  A failure retries and crashes as a one-token step
+        does."""
+        st = self._fused_stage
+        s = st.np
+        s["tok"].fill(0)
+        s["pos"].fill(0)
+        s["active"].fill(False)
+        s["temps"].fill(0.0)
+        live = []
+        with self._cv:
+            occupants = list(enumerate(self._slots))
+            np.copyto(s["bt"], self._bt_master)
+        for i, seq in occupants:
+            if seq is None:
+                continue
+            if seq.ticket.cancelled:
+                self._retire(i, seq, reason="cancelled")
+                continue
+            if not seq.tokens or len(seq.tokens) >= seq.max_new:
+                continue
+            s["tok"][i] = seq.next_tok
+            s["pos"][i] = seq.pos
+            s["active"][i] = True
+            live.append((i, seq, seq.pos, k))
+        if not live:
+            return None
+        weights = self._qparams if self.quant else self._model
+        self._dispatch_count += 1
+        toks = self._with_retries(
+            "fused decode block",
+            lambda: self._fused_fn(weights, self._cache, st.t, k),
+        )
+        with self._cv:
+            self.stats["fused_blocks"] += 1
+            self.stats["fused_steps"] += k
+        return _FusedPending(live, toks, time.monotonic())
+
+    def _commit_fused(self, pending):  # hot-path
+        """Commit one fused block: its one readback, then per row in
+        step order until a cancel, a stop token or max_new ends the row
+        (the rest of the block is dead: the row's position never
+        advances past its last committed token, so the tail's KV stays
+        invisible and is overwritten later)."""
+        toks = self._readback(pending, "fused decode block")
+        now = time.monotonic()
+        with self._cv:
+            self.stats["steps"] += 1
+            self.stats["step_rows"] += len(pending.rows)
+            survivors = [
+                (i, seq, w) for i, seq, _p, w in pending.rows
+                if self._slots[i] is seq
+            ]
+        self._obs.step_committed(
+            len(pending.rows), now - pending.t_dispatch
+        )
+        committed = 0
+        for i, seq, w in survivors:
+            for j in range(w):
+                t = int(toks[i, j])
+                self._commit(i, seq, t, now=now)
+                committed += 1
+                if (seq.ticket.cancelled
+                        or (seq.stop_token is not None
+                            and t == seq.stop_token)
+                        or len(seq.tokens) >= seq.max_new):
+                    break
+        if committed:
+            with self._cv:
+                self.stats["fused_tokens"] += committed

@@ -353,14 +353,18 @@ class TestEntryPoints:
             eng.submit(rand_prompt(1, 4), 2, 0.0)
 
     @pytest.mark.parametrize("option,item", [
-        (dict(paged=False), "A2"), (dict(spec_k=2), "A5e"),
-        (dict(decode_steps=4), "A5d"), (dict(observe=True), "A5g"),
+        (dict(spec_k=2), "A5e"), (dict(observe=True), "A5g"),
         (dict(kv_host_bytes=1 << 20), "A5f"), (dict(mesh=object()), "A10"),
     ])
     def test_later_slices_raise_not_implemented(self, setup, option, item):
         _, pm = setup
         with pytest.raises(NotImplementedError, match=item):
             _engine(pm, 2, **option)
+
+    def test_negative_decode_steps_raises(self, setup):
+        _, pm = setup
+        with pytest.raises(ValueError, match="decode_steps"):
+            _engine(pm, 2, decode_steps=-1)
 
     def test_default_device_is_the_card(self, setup):
         # This box has no CUDA device: every entry point that defaults
