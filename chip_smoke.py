@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths — LM serving decode (paged,
-fused and contiguous), single-card LM training and single-card
+fused, contiguous and speculative), single-card LM training and single-card
 ResNet-50 training — on one NVIDIA H100, and hold every kernel on those
 paths against its plain PyTorch version.
 
@@ -13,8 +13,10 @@ Phases, one JSON line each (stdout):
                 shapes (paged attention bf16 / f32 / int8 at b 16, 20
                 pages of 64, 8 heads of 128, and a ragged batch of 3
                 rows of 11 pages; the int8 matmul at every projection
-                shape, the f32-x head at rows 16 and 1, and ragged
-                shapes), with bitwise null-page invariance, two launches
+                shape, the f32-x head at rows 16 and 1, every projection
+                and the head again at rows 32 and 64 (the int8 engine's
+                verify windows of width 2 and 4 over 16 slots), and
+                ragged shapes), with bitwise null-page invariance, two launches
                 bitwise equal, a planted 1% fault that must fail the
                 check, one device launch and one allocation a call, and
                 the times of the kernel, the plain version and one
@@ -23,26 +25,35 @@ Phases, one JSON line each (stdout):
   4. engine   — the bf16 engines, then the int8 engines, at the repo's
                 LM width (dim 1024, depth 8, heads 8, vocab 32000,
                 max_seq 1280, 16 slots, page 64, prefill chunk 256) with
-                seeded random weights, each in three configurations: the
+                seeded random weights, each in four configurations: the
                 paged prefix-cached lag-window engine (engine_bf16,
                 engine_int8), the same with fused blocks of up to 4
                 decode steps, one CUDA graph a width (engine_*_fused),
-                and the contiguous-slot engine (paged=False,
-                engine_*_contig).  Each runs 8 greedy requests (two
-                sharing a 512-token prefix) with the launch counters read
-                around them (exactly depth paged calls and >= 33 int8
-                matmul calls a decode step; a fused block of k is k
-                steps, replays counted call by call), tokens held to the
-                port's solo oracle; the paged engines then run 16 rows x
-                (64 + 128) and a profiled window of 16 x (64 + 32) whose
-                device events must equal the wrappers' calls; the fused
-                engines also fail one block until the retries are spent,
-                and the supervisor's revival must recapture the graphs
-                against the fresh cache, give the same tokens and leave
-                no page in use.  The fused and contiguous records carry
-                their figures over the one-token engine's of the same
-                run (`vs_one_token`) and each request's first divergence
-                from its tokens;
+                the contiguous-slot engine (paged=False,
+                engine_*_contig), and speculative decoding with windows
+                of up to 4 (spec_k=4, engine_*_spec: the int8 twin
+                drafts, one batched pass verifies; one CUDA graph per
+                draft width and per verify key).  Each runs 8 greedy
+                requests (two sharing a 512-token prefix) with the
+                launch counters read around them (exactly depth paged
+                calls a one-token or fused decode step, none in a
+                verify window; >= 33 int8 matmul calls a decode step,
+                and on the speculative engines exactly 33 a drafter pass
+                less one a chain, plus 33 a step or window and one an
+                admission in int8; replays counted call by call),
+                tokens held to the port's solo oracle; the paged engines
+                then run 16 rows x (64 + 128) and a profiled window of
+                16 x (64 + 32) whose device events must equal the
+                wrappers' calls; the fused and speculative engines also
+                fail one block (window) until the retries are spent, and
+                the supervisor's revival must recapture the graphs
+                against the fresh caches, give the same tokens and leave
+                no page in use.  A speculative engine fails if its
+                drafter degraded in any run, drafted nothing, or never
+                dispatched a window of width 4.  The fused, contiguous
+                and speculative records carry their figures over the
+                one-token engine's of the same run (`vs_one_token`) and
+                each request's first divergence from its tokens;
   5. train_kernels — flash attention forward and backward at (8, 2048,
                 8, 128) and (8, 2048, 16, 64) bf16, q / k / v the strided
                 views of one qkv projection, each timed beside the plain
@@ -453,13 +464,22 @@ def check_paged(torch, PA, timer, name, kv_dtype, q_dtype, gen):
     return rec
 
 
+PASS_SHAPES = [  # (name, in, out, x dtype, launches per decoder pass)
+    ("qkv", 1024, 3072, "bf16", CFG["depth"]),
+    ("proj", 1024, 1024, "bf16", CFG["depth"]),
+    ("fc0", 1024, 4096, "bf16", CFG["depth"]),
+    ("fc1", 4096, 1024, "bf16", CFG["depth"]),
+    ("head", 1024, 32000, "f32", 1),
+]
+# Verify windows of the int8 speculative engine: 16 slots x width W rows
+# go through each matmul of one pass.
+VERIFY_WIDTHS = (2, 4)
 QMM_SHAPES = [  # (name, rows, in, out, x dtype, launches per decode step)
-    ("qkv", N_SLOTS, 1024, 3072, "bf16", CFG["depth"]),
-    ("proj", N_SLOTS, 1024, 1024, "bf16", CFG["depth"]),
-    ("fc0", N_SLOTS, 1024, 4096, "bf16", CFG["depth"]),
-    ("fc1", N_SLOTS, 4096, 1024, "bf16", CFG["depth"]),
-    ("head", N_SLOTS, 1024, 32000, "f32", 1),
+    *[(name, N_SLOTS, din, dout, xt, n) for name, din, dout, xt, n
+      in PASS_SHAPES],
     ("head_prefill", 1, 1024, 32000, "f32", 0),
+    *[(f"{name}_w{w}", N_SLOTS * w, din, dout, xt, 0)
+      for w in VERIFY_WIDTHS for name, din, dout, xt, _ in PASS_SHAPES],
 ]
 # Ragged shapes, held, not timed: rows 1, 3, 17 and 40 (several m16
 # tiles), out 1000 (8-byte weight copies) and 8, in 40 and 4104 (a
@@ -521,10 +541,15 @@ def check_qmm(torch, QM, timer, gen):
     allocation a call; times at the projection shapes.  The record's
     times are per decode step: the
     sum over the 33 launches one step makes (8 layers x qkv/proj/fc0/fc1
-    + the head)."""
+    + the head); `per_verify_pass` sums the same 33 at each verify
+    window's rows."""
     per_shape, edges, faults = [], [], []
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
     nbytes_step = ops_step = 0.0
+    verify = {N_SLOTS * w: dict.fromkeys(
+        ("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+        for w in VERIFY_WIDTHS}
+    launches_per_pass = {n: k for n, _, _, _, k in PASS_SHAPES}
     for name, rows, din, dout, xt, per_step in QMM_SHAPES:
         x, w_i8, scale, r, f = _qmm_case(torch, QM, gen, rows, din, dout,
                                          xt)
@@ -556,6 +581,12 @@ def check_qmm(torch, QM, timer, gen):
             tot[key] += per_step * t[key]
         nbytes_step += per_step * nbytes
         ops_step += per_step * ops
+        base = name.split("_w")[0]
+        if rows in verify and base in launches_per_pass:
+            k = launches_per_pass[base]
+            for key in tot:
+                verify[rows][key] += k * t[key]
+            verify[rows]["bound_ms"] += k * b_ms
     for rows, din, dout, xt in QMM_EDGE_SHAPES:
         r, f = _qmm_case(torch, QM, gen, rows, din, dout, xt)[3:]
         faults += f
@@ -577,6 +608,7 @@ def check_qmm(torch, QM, timer, gen):
         "bound_by": b_by,
         "per_step_weight_bytes": nbytes_step,
         "edge_shapes": edges,
+        "per_verify_pass": {f"rows_{r}": v for r, v in verify.items()},
         **tot,
     }
     return rec, per_shape
@@ -777,26 +809,84 @@ def profile_window(torch, eng, gen, counts):
 
 # The engine configurations each engine phase runs, by phase suffix:
 # the one-token paged engine, fused blocks up to FUSED_STEPS wide
-# (ladder 2, 4; one CUDA graph a width), and the contiguous-slot engine.
+# (ladder 2, 4; one CUDA graph a width), the contiguous-slot engine, and
+# speculative windows up to SPEC_K wide (bench.py's serving_spec
+# default).
 FUSED_STEPS = 4
+SPEC_K = 4
 ENGINE_MODES = {
     "": {},
     "_fused": {"decode_steps": FUSED_STEPS},
     "_contig": {"paged": False},
+    "_spec": {"spec_k": SPEC_K},
 }
+# What the engine logs when its drafter degrades a window to width 1.
+DRAFT_DEGRADE = ("draft chain failed", "drafter-cache fill failed",
+                 "drafter-cache refill failed")
 
 
-def steps_run(eng, snap0, snap1, dispatches, captures0):
-    """Decode steps the engine's kernels ran between two snapshots: one
-    per one-token dispatch, k per fused block of width k, and k per
-    capture of width k (its eager warm-up block; the capture itself
-    launches nothing)."""
-    blocks = snap1["fused_blocks"] - snap0["fused_blocks"]
-    fused = snap1["fused_steps"] - snap0["fused_steps"]
-    warm = 0
-    if eng._fused is not None:
-        warm = sum(c["width"] for c in eng._fused.captures[captures0:])
-    return dispatches - blocks + fused + warm
+def delta(snap0, snap1, key):
+    return snap1[key] - snap0[key]
+
+
+def steps_run(snap0, snap1, dispatches):
+    """Decode steps that ran the one-token decoder between two snapshots
+    (each a depth of paged-attention calls): one per one-token dispatch
+    and k per fused block of width k; a verify window runs none.  The
+    first call of a CUDA graph's key is the call itself, run eagerly,
+    and a capture launches nothing."""
+    return (dispatches - delta(snap0, snap1, "fused_blocks")
+            + delta(snap0, snap1, "fused_steps")
+            - delta(snap0, snap1, "spec_verify_passes"))
+
+
+def qmm_per_pass():
+    """Int8 matmul calls of one decoder pass: 4 projections a layer and
+    the head (33 at depth 8)."""
+    return 4 * CFG["depth"] + 1
+
+
+def draft_qmm_calls(snap0, snap1):
+    """Int8 matmul calls of the drafter between two snapshots: a pass's
+    calls a pass, less the head of each chain's KV-write-only last
+    pass."""
+    return (qmm_per_pass() * delta(snap0, snap1, "spec_draft_passes")
+            - delta(snap0, snap1, "spec_draft_chains"))
+
+
+def spec_figures(snap0, snap1, tokens):
+    """A speculative engine's figures between two snapshots, over the
+    `tokens` it committed there."""
+    drafted = delta(snap0, snap1, "spec_drafted_tokens")
+    passes = delta(snap0, snap1, "spec_verify_passes")
+    return {
+        "drafted": drafted,
+        "accepted": delta(snap0, snap1, "spec_accepted_tokens"),
+        "accept_rate": (delta(snap0, snap1, "spec_accepted_tokens")
+                        / drafted if drafted else None),
+        "verify_passes": passes,
+        "draft_passes": delta(snap0, snap1, "spec_draft_passes"),
+        "draft_chains": delta(snap0, snap1, "spec_draft_chains"),
+        "tokens_per_verify_pass": (delta(snap0, snap1, "spec_window_tokens")
+                                   / passes if passes else None),
+        "tokens_per_row_window": (
+            delta(snap0, snap1, "spec_window_tokens")
+            / max(delta(snap0, snap1, "spec_window_rows"), 1)),
+        "verify_passes_per_token": passes / tokens,
+        "draft_passes_per_token":
+            delta(snap0, snap1, "spec_draft_passes") / tokens,
+    }
+
+
+class _Records(logging.Handler):
+    """Keeps the messages of the records it sees."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
 
 
 def first_divergence(got, want):
@@ -804,13 +894,38 @@ def first_divergence(got, want):
                 None if len(got) == len(want) else min(len(got), len(want)))
 
 
-def fused_revival(torch, eng, gen):
-    """The fused engine's revival: greedy requests run once; then one
-    fused block fails on every attempt until the engine's retries are
-    spent (the rows of that run fail, the scheduler crashes); the
-    supervisor revives the engine with a fresh cache; the graphs must be
-    captured again against that cache, the same requests must give the
-    same tokens as before the fault, and no page may stay in use."""
+def sampled_windows(torch, eng, gen, windows):
+    """A speculative engine's windows that carry sampled rows: a greedy
+    request beside one sampled at temperature 0.9 with top_k 40 and top_p
+    0.9 (it rides each window at width 1 and draws from the engine's
+    generator inside the verify graph).  Both must return their tokens,
+    and a verify window with the top-k / top-p operands must have run."""
+    prompts = torch.randint(0, CFG["vocab"], (2, 96), generator=gen).numpy()
+    before = dict(windows)
+    hs = [eng.submit_nowait(prompts[0], 48),
+          eng.submit_nowait(prompts[1], 48, temperature=0.9, top_k=40,
+                            top_p=0.9)]
+    outs = [h.wait(timeout=900)[0] for h in hs]
+    wait_idle(eng)
+    keys = [c["key"] for c in eng._spec_graphs[1].captures]
+    assert all(len(o) == 48 for o in outs), [len(o) for o in outs]
+    ran = {w: n - before.get(w, 0) for w, n in windows.items()}
+    sampled = [k for k in keys if not k[1] and k[2]]
+    if eng.device.type == "cuda":
+        assert sampled, keys
+    return {"windows_by_width": ran, "sampled_verify_keys": sampled,
+            "distinct_sampled_tokens": len(set(outs[1]))}
+
+
+def graph_revival(torch, eng, gen):
+    """A graphed engine's revival: greedy requests run once; then one
+    fused block (a fused engine) or one verify window (a speculative
+    engine) fails on every attempt until the engine's retries are spent
+    (the rows of that run fail, the scheduler crashes); the supervisor
+    revives the engine with a fresh cache and a zeroed drafter cache;
+    every graph must be captured again against those caches, the same
+    requests must give the same tokens as before the fault, and no page
+    may stay in use."""
     from container_engine_accelerators_tpu_torch.serving import (
         EngineSupervisor,
     )
@@ -824,18 +939,24 @@ def fused_revival(torch, eng, gen):
     try:
         before = [eng.submit(p, n, timeout=900)[0] for p, n in check]
         wait_idle(eng)
-        real, calls, fails = eng._fused_fn, [0], [0]
-        limit = eng._step_retries + 1  # every attempt of one block
+        seam = "_verify_fn" if eng._spec_k else "_fused_fn"
+        holders = {"fused": (eng._fused, lambda: eng._cache)}
+        if eng._spec_k:
+            holders = {"draft": (eng._spec_graphs[0],
+                                 lambda: eng._draft_cache),
+                       "verify": (eng._spec_graphs[1], lambda: eng._cache)}
+        real, calls, fails = getattr(eng, seam), [0], [0]
+        limit = eng._step_retries + 1  # every attempt of one call
 
         def flaky(*a, **k):
             calls[0] += 1
             if calls[0] >= 3 and fails[0] < limit:
                 fails[0] += 1
-                raise RuntimeError("injected fused-decode fault")
+                raise RuntimeError(f"injected {seam} fault")
             return real(*a, **k)
 
-        eng._fused_fn = flaky
-        caps0 = len(eng._fused.captures)
+        setattr(eng, seam, flaky)
+        caps0 = {n: len(h.captures) for n, (h, _) in holders.items()}
         restarts0 = eng.snapshot()["restarts"]
         failed = 0
         for h in [eng.submit_nowait(p, 64) for p in victims]:
@@ -850,23 +971,33 @@ def fused_revival(torch, eng, gen):
         assert fails[0] == limit and failed == len(victims), (fails, failed)
         revived = eng.snapshot()
         assert revived["kv_pages_in_use"] == 0, revived
-        assert not eng._fused.widths, eng._fused.widths
+        for name, (h, _) in holders.items():
+            assert not h.keys, (name, h.keys)
+        drafter_zero = None
+        if eng._spec_k:  # nothing runs between the revival and here
+            drafter_zero = not any(buf.any() for blk in eng._draft_cache
+                                   for buf in blk.values())
+            assert drafter_zero, "the drafter cache survived the revival"
         after = [eng.submit(p, n, timeout=900)[0] for p, n in check]
         wait_idle(eng)
-        recaptured = sorted(c["width"] for c in eng._fused.captures[caps0:])
-        assert recaptured == sorted(eng._fused.widths), recaptured
-        if eng.device.type == "cuda":  # graphs exist only on the card
-            assert recaptured and eng._fused._bound[1] is eng._cache, (
-                recaptured)
+        recaptured = {}
+        for name, (h, cache) in holders.items():
+            keys = sorted(c["key"] for c in h.captures[caps0[name]:])
+            assert keys == h.keys, (name, keys, h.keys)
+            if eng.device.type == "cuda":  # graphs exist only on the card
+                assert keys and h._bound[1] is cache(), (name, keys)
+            recaptured[name] = keys
         assert after == before, [first_divergence(a, b)
                                  for a, b in zip(after, before)]
     finally:
         sup.stop()
     return {
+        "injected_seam": seam,
         "injected_failures": fails[0], "rows_failed": failed,
         "restarts": revived["restarts"] - restarts0,
         "kv_pages_in_use_after_revive": revived["kv_pages_in_use"],
-        "recaptured_widths": recaptured,
+        "drafter_cache_zero_after_revive": drafter_zero,
+        "recaptured_keys": recaptured,
         "same_tokens_after_revive": after == before,
     }
 
@@ -875,7 +1006,8 @@ def run_engine(torch, model, quant, gen_reqs, mode="", base=None):
     """One engine phase (ENGINE_MODES[mode]): a warm-up request, then
     requests() with the launch counters read around it, and for the
     paged engines a decode run (16 rows x (64 + 128)) and a profiled
-    window (profile_window); the fused engine adds its revival check.
+    window (profile_window); the fused and speculative engines add their
+    revival check.
     Every token is held to the oracle's argmax within TOP2_TOL; `base`
     (the one-token engine's record of the same run) gives each request's
     first divergence from its tokens and the ratios of the figures."""
@@ -903,14 +1035,27 @@ def run_engine(torch, model, quant, gen_reqs, mode="", base=None):
         model, N_SLOTS, quant=quant, page_size=PAGE, prefill_chunk=CHUNK,
         device=dev, **ENGINE_MODES[mode],
     )
+    spec = bool(eng._spec_k)
+    logged = _Records()
+    engine_log = logging.getLogger(ContinuousBatchingEngine.__module__)
+    engine_log.addHandler(logged)
+    windows = {}  # verify windows dispatched, by width
+    if spec:
+        verify = eng._verify_fn
+
+        def counted(weights, cache, inputs, key):
+            windows[key[0]] = windows.get(key[0], 0) + 1
+            return verify(weights, cache, inputs, key)
+
+        eng._verify_fn = counted
     extra = {}
     try:
         eng.submit([1, 2, 3, 4, 5, 6, 7, 8], 2, timeout=600)  # warm-up
         wait_idle(eng)
         base_snap = eng.snapshot()
         steps0 = eng._dispatch_count
-        caps0 = len(eng._fused.captures) if eng._fused else 0
         reqs = requests(gen_reqs, torch)
+        windows.clear()
         PA.paged_attention.launches = 0
         QM.int8_weight_matmul.launches = 0
         t0 = time.monotonic()
@@ -919,9 +1064,10 @@ def run_engine(torch, model, quant, gen_reqs, mode="", base=None):
         wall = time.monotonic() - t0
         wait_idle(eng)
         launches = counts()
+        req_windows = dict(windows)
         dispatches = eng._dispatch_count - steps0
         snap = eng.snapshot()
-        n_steps = steps_run(eng, base_snap, snap, dispatches, caps0)
+        n_steps = steps_run(base_snap, snap, dispatches)
         if paged:
             # Decode-dominated run: all 16 slots busy with short
             # prompts, so the wall time per dispatch approaches the
@@ -937,15 +1083,15 @@ def run_engine(torch, model, quant, gen_reqs, mode="", base=None):
                 time.sleep(0.002)
             t_adm, d_adm, s_adm = (time.monotonic(), eng._dispatch_count,
                                    eng.snapshot())
+            with eng._cv:  # the run's tokens committed before the stretch
+                tok_adm = sum(len(q.tokens) for q in eng._slots if q)
             dec_tok = sum(len(h.wait(timeout=900)[0]) for h in dec)
             t_end = time.monotonic()
             dec_wall = t_end - t1
             dec_disp = eng._dispatch_count - d0
             wait_idle(eng)
             s1 = eng.snapshot()
-            caps = len(eng._fused.captures) if eng._fused else 0
-            stretch = steps_run(eng, s_adm, s1, eng._dispatch_count - d_adm,
-                                caps)
+            stretch = steps_run(s_adm, s1, eng._dispatch_count - d_adm)
             extra["decode_run"] = {
                 "rows": N_SLOTS, "prompt": 64, "new": 128,
                 "tokens_per_s": dec_tok / dec_wall,
@@ -956,22 +1102,34 @@ def run_engine(torch, model, quant, gen_reqs, mode="", base=None):
                     (s1["fused_blocks"] - s0["fused_blocks"]) / dec_tok,
                 "decode_stretch_s": t_end - t_adm,
                 "decode_stretch_steps": stretch,
-                "decode_stretch_step_ms": (t_end - t_adm) / max(stretch, 1)
-                * 1e3,
+                "decode_stretch_step_ms": ((t_end - t_adm) / stretch * 1e3
+                                           if stretch else None),
+                "decode_stretch_tokens": dec_tok - tok_adm,
+                "decode_stretch_wall_per_token_ms":
+                    (t_end - t_adm) / (dec_tok - tok_adm) * 1e3,
             }
+            if spec:
+                extra["decode_run"]["spec"] = spec_figures(s0, s1, dec_tok)
+            holders = [h for h in (eng._fused, *eng._spec_graphs) if h]
+            caps = sum(len(h.captures) for h in holders)
             s0 = eng.snapshot()
             profile = profile_window(torch, eng, gen_reqs, counts)
             s1 = eng.snapshot()
+            profile["graph_captures_in_window"] = sum(
+                len(h.captures) for h in holders) - caps
             n_tok = N_SLOTS * 32
             profile["tokens"] = n_tok
             profile["dispatches_per_token"] = profile["dispatches"] / n_tok
             profile["fused_blocks_per_token"] = (
                 s1["fused_blocks"] - s0["fused_blocks"]) / n_tok
             profile["wall_per_token_ms"] = profile["window_s"] / n_tok * 1e3
+            paged_steps = (profile["wrapper_calls"]["paged_attention"]
+                           / CFG["depth"])
             if "device_ms" in profile:  # prefill's device time included
-                profile["device_ms_per_step"] = profile["device_ms"] / (
-                    profile["wrapper_calls"]["paged_attention"]
-                    / CFG["depth"])
+                profile["device_ms_per_token"] = profile["device_ms"] / n_tok
+                if paged_steps:  # a verify window runs no paged call
+                    profile["device_ms_per_step"] = (profile["device_ms"]
+                                                     / paged_steps)
             # One device launch a call: the only kernels of the port in
             # the window are the two ops' single kernels (no split
             # merge, no second pass), and their device events number
@@ -989,11 +1147,22 @@ def run_engine(torch, model, quant, gen_reqs, mode="", base=None):
                 events[op] += n
             profile["device_events"] = events
             assert events == profile["wrapper_calls"], profile
+            if spec:
+                profile["spec"] = spec_figures(s0, s1, n_tok)
             extra["profile"] = profile
         if eng._fused is not None:
             extra["graph_captures"] = list(eng._fused.captures)
-            extra["revival"] = fused_revival(torch, eng, gen_reqs)
+        if spec:
+            extra["graph_captures"] = {
+                "draft": list(eng._spec_graphs[0].captures),
+                "verify": list(eng._spec_graphs[1].captures)}
+        if spec:
+            extra["sampled_windows"] = sampled_windows(torch, eng, gen_reqs,
+                                                       windows)
+        if eng._fused is not None or spec:
+            extra["revival"] = graph_revival(torch, eng, gen_reqs)
     finally:
+        engine_log.removeHandler(logged)
         eng.close()
     closed = eng.snapshot()
     n_tok = sum(len(o) for o in outs)
@@ -1007,12 +1176,27 @@ def run_engine(torch, model, quant, gen_reqs, mode="", base=None):
             launches, n_steps)
     else:
         assert launches["paged_attention"] == 0, launches
-    if quant:
-        assert launches["int8_weight_matmul"] >= (4 * depth + 1) * n_steps
+    draft = draft_qmm_calls(base_snap, snap)
+    if spec:
+        # Exact: the drafter's calls, and in int8 a pass's calls a
+        # one-token step or verify window and the quant head once an
+        # admission.
+        want = draft + (qmm_per_pass() * dispatches
+                        + delta(base_snap, snap, "admitted") if quant else 0)
+        assert launches["int8_weight_matmul"] == want, (launches, want)
+    elif quant:
+        assert launches["int8_weight_matmul"] >= qmm_per_pass() * n_steps
     else:
         assert launches["int8_weight_matmul"] == 0, launches
     if mode == "_fused":
         assert snap["fused_blocks"] > base_snap["fused_blocks"], snap
+    degraded = [m for m in logged.messages
+                if any(d in m for d in DRAFT_DEGRADE)]
+    if spec:
+        # No hidden degrade: no run of this phase injects a drafter fault.
+        assert not degraded, degraded
+        assert delta(base_snap, snap, "spec_drafted_tokens") > 0, snap
+        assert req_windows.get(SPEC_K, 0) > 0, req_windows
 
     qparams = eng._qparams if quant else None
     deq = eng._deq if quant else None
@@ -1059,6 +1243,11 @@ def run_engine(torch, model, quant, gen_reqs, mode="", base=None):
         "distinct_tokens": distinct,
         "outs": outs,
     }
+    if spec:
+        rec["spec"] = {**spec_figures(base_snap, snap, n_tok),
+                       "windows_by_width": req_windows,
+                       "drafter_int8_matmul_calls": draft,
+                       "drafter_degrade_logs": len(degraded)}
     if paged:
         rec["prefix_hits"] = snap["prefix_hits"] - base_snap["prefix_hits"]
         rec["prefix_hit_tokens"] = (snap["prefix_hit_tokens"]
@@ -1082,6 +1271,7 @@ def ratios(rec, base):
                  ("decode_run", "wall_per_token_ms"),
                  ("decode_run", "dispatches_per_token"),
                  ("decode_run", "decode_stretch_step_ms"),
+                 ("decode_run", "decode_stretch_wall_per_token_ms"),
                  ("profile", "device_busy_share"),
                  ("profile", "device_ms"),
                  ("profile", "window_s"),
@@ -2345,15 +2535,19 @@ def main() -> int:
         })
         if "launches_from" in rec:
             kernels[-1]["launches_from"] = rec["launches_from"]
-    # The serving kernels' launches on the fused engines' requests run
-    # (CUDA-graph replays counted call by call).
-    fused = {"paged_attention_bf16": (False, "paged_attention"),
-             "paged_attention_int8": (True, "paged_attention"),
-             "int8_weight_matmul": (True, "int8_weight_matmul")}
+    # The serving kernels' launches on the fused and speculative engines'
+    # requests runs (CUDA-graph replays counted call by call).
+    serving = {"paged_attention_bf16": (False, "paged_attention"),
+               "paged_attention_int8": (True, "paged_attention"),
+               "int8_weight_matmul": (True, "int8_weight_matmul")}
     for k in kernels:
-        if k["name"] in fused:
-            quant, op = fused[k["name"]]
+        if k["name"] in serving:
+            quant, op = serving[k["name"]]
             k["launches_fused"] = engine_launches[(quant, "_fused")][op]
+            k["launches_spec"] = engine_launches[(quant, "_spec")][op]
+            if op == "int8_weight_matmul":  # the bf16 engine's drafter
+                k["launches_spec_bf16"] = engine_launches[(False, "_spec")][
+                    op]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

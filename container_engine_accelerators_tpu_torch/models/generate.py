@@ -5,7 +5,8 @@ the oracle `generate_prefill` :241, `init_decode_cache` :356,
 `prefill_chunk` :446, `prefill_finish_into_slot` :491,
 `init_paged_cache` :566, `paged_scatter_row` :595,
 `paged_preload_scratch` :627, `paged_prefill_finish` :702,
-`paged_decode_step` :757, `paged_decode_steps` :813, `decode_step`
+`paged_decode_step` :757, `paged_decode_steps` :813, `_verify_sample`
+:890, `verify_step` :908, `paged_verify_step` :969, `decode_step`
 :1026).
 
 Differences of idiom, not of math:
@@ -422,6 +423,100 @@ def paged_decode_steps(  # hot-path
         cols.append(tok)
         pos = pos + 1
     return cache, torch.stack(cols, dim=1)
+
+
+def _verify_sample(logits, temperature, generator, top_k=None,  # hot-path
+                   top_p=None, greedy=False):
+    """Per-position token choice over a verify window: logits (b, s,
+    vocab) -> (b, s) int32.  Greedy rows take the argmax per position,
+    so column j is what the one-token step would have sampled after
+    committing the window's first j tokens (the accept rule's parity
+    anchor).  Sampled rows draw once per column from `generator` (they
+    ride a window at width 1: only column 0 is ever committed).
+    greedy=True (every row at temperature 0, no top_k / top_p) takes the
+    argmax of the whole window and draws nothing."""
+    if greedy:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return torch.stack(
+        [_sample(logits[:, j], temperature, generator, top_k, top_p)
+         for j in range(logits.shape[1])],
+        dim=1,
+    )
+
+
+def _window_mask(pos, s, view_len):
+    """(query positions (B, s), per-query kv_mask (B, s, view_len)): query
+    j of row b sits at pos[b] + j and sees slots <= pos[b] + j, the
+    committed history plus the window's causal prefix."""
+    qpos = pos[:, None] + torch.arange(s, device=pos.device)
+    slots = torch.arange(view_len, device=pos.device)
+    return qpos, slots[None, None, :] <= qpos[:, :, None]
+
+
+@torch.no_grad()
+def verify_step(  # hot-path
+    model: TransformerLM,
+    cache,
+    toks,
+    pos,
+    active,
+    temperature,
+    generator: torch.Generator,
+    top_k=None,
+    top_p=None,
+    greedy: bool = False,
+):
+    """decode_step widened to a speculative VERIFY window over the
+    contiguous engine cache: toks (B, s), column 0 each row's last
+    committed token and columns 1.. the drafter's proposals, at base
+    positions `pos` (B,).  All s k/v rows are written up-front to slots
+    [pos, pos + s) of each row; the engine commits the longest agreeing
+    prefix plus the first disagreeing target token and rewinds the rest
+    (the rejected slots stay invisible and are rewritten by the next
+    window).  Inactive rows clamp to position 0.  Returns (cache, out
+    (B, s) int32): out[:, j] is the target's token at position pos + j,
+    conditioned on toks[:, :j + 1]."""
+    if not model.decode:
+        raise ValueError("verify_step needs a decode=True model")
+    pos = torch.where(active, pos, 0)
+    qpos, kv_mask = _window_mask(pos, toks.shape[1], model.max_seq)
+    logits = model(toks, positions=qpos, cache=cache, kv_mask=kv_mask,
+                   write_pos=pos)
+    return cache, _verify_sample(logits, temperature, generator, top_k,
+                                 top_p, greedy)
+
+
+@torch.no_grad()
+def paged_verify_step(  # hot-path
+    model: TransformerLM,
+    cache,
+    toks,
+    pos,
+    active,
+    block_tables,
+    temperature,
+    generator: torch.Generator,
+    top_k=None,
+    top_p=None,
+    greedy: bool = False,
+):
+    """verify_step over the PAGED pool: the window's s k/v rows scatter
+    through each row's block table up-front (generated positions live in
+    the row's private pages, so a speculative write never touches a
+    shared prefix page), and a rejected suffix is a position rewind,
+    never a page copy.  Inactive rows clamp to position 0 and get a
+    zeroed block-table row (their writes land in the null page).
+    Returns (cache, out (B, s) int32), as verify_step."""
+    if not model.decode:
+        raise ValueError("paged_verify_step needs a decode=True model")
+    pos = torch.where(active, pos, 0)
+    bt = torch.where(active[:, None], block_tables, 0)
+    page = cache[0]["k"].shape[1]
+    qpos, kv_mask = _window_mask(pos, toks.shape[1], bt.shape[1] * page)
+    logits = model(toks, positions=qpos, cache=cache, kv_mask=kv_mask,
+                   write_pos=pos, block_tables=bt)
+    return cache, _verify_sample(logits, temperature, generator, top_k,
+                                 top_p, greedy)
 
 
 @torch.no_grad()

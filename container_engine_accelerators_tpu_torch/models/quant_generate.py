@@ -8,6 +8,7 @@ container_engine_accelerators_tpu/models/quant_generate.py
 `init_quant_paged_cache` :490, `quant_paged_preload_scratch` :527,
 `quant_paged_prefill_finish` :569, `quant_paged_engine_decode_step`
 :634, `quant_paged_engine_decode_steps` :672,
+`quant_verify_step` :721, `draft_chain` :870, `draft_fill_row` :914,
 `quant_prefill_finish_into_slot` :1062, `quant_engine_decode_step`
 :1132).
 
@@ -33,6 +34,7 @@ from ..ops.quant_matmul import int8_weight_matmul, quantize_weight
 from .generate import (
     _as,
     _sample,
+    _verify_sample,
     init_decode_cache,
     paged_scatter_row,
     write_slot_row,
@@ -130,13 +132,20 @@ def quantize_kv_cache(cache):
 
 def _cache_write(buf, new, t):
     """Write new (b, 1, ...) at slot t of buf (b, max_seq, ...): a shared
-    scalar slot, or one slot per row for a (b,) t."""
+    scalar slot, or one slot per row for a (b,) t.  A per-row slot past
+    the buffer writes nothing, as the reference's one-hot select does
+    (the draft chain's passes may run past max_seq at a row's end)."""
     if not torch.is_tensor(t) or t.ndim == 0:
         t = int(t)
         buf[:, t:t + 1] = new.to(buf.dtype)
     else:
         rows = torch.arange(buf.shape[0], device=buf.device)
-        buf[rows, t.long()] = new[:, 0].to(buf.dtype)
+        t = t.long()
+        inside = (t >= 0) & (t < buf.shape[1])
+        at = torch.where(inside, t, 0)
+        keep = buf[rows, at]
+        inside = inside.view((-1,) + (1,) * (keep.ndim - 1))
+        buf[rows, at] = torch.where(inside, new[:, 0].to(buf.dtype), keep)
 
 
 def _paged_flat_idx(bt, t, page):
@@ -156,7 +165,7 @@ def _paged_write(buf, new, flat):
 
 
 def quant_decode_step(qparams, cache, tok, pos, t, kv_mask, heads,  # hot-path
-                      block_tables=None):
+                      block_tables=None, with_head=True):
     """One generated token through the quantized decoder.  tok (b,) at
     positions `pos` (scalar or (b,)), writing slot `t` (scalar, or (b,)
     with block_tables: the paged pool).  cache: per block {"k", "v"}
@@ -164,7 +173,9 @@ def quant_decode_step(qparams, cache, tok, pos, t, kv_mask, heads,  # hot-path
     kv_mask: None, (view,) or (b, view).  Returns (cache, logits (b,
     vocab) f32).  The paged per-row form attends through
     ops.paged_attention; the contiguous form keeps the reference's
-    einsum math."""
+    einsum math.  with_head=False skips the last LayerNorm and the vocab
+    head and returns (cache, None): the KV-write-only pass that ends a
+    draft chain."""
     embed = qparams["embed"]
     dim = embed.shape[1]
     d_head = dim // heads
@@ -236,6 +247,8 @@ def quant_decode_step(qparams, cache, tok, pos, t, kv_mask, heads,  # hot-path
             (_qmm(h2, blk["fc0"]) + blk["fc0"]["bias"]).to(x.dtype)
         )
         x = x + (_qmm(m, blk["fc1"]) + blk["fc1"]["bias"]).to(x.dtype)
+    if not with_head:
+        return cache, None
     xf = _ln(x, qparams["ln_f"])
     logits = _qmm(xf.float(), qparams["head"]) + qparams["head"]["bias"]
     return cache, logits
@@ -524,3 +537,176 @@ def quant_engine_decode_step(  # hot-path
     )
     nxt = _sample(logits, temperature, generator, top_k, top_p)
     return cache, nxt
+
+
+@torch.no_grad()
+def quant_verify_step(  # hot-path
+    qparams,
+    cache,
+    toks,
+    pos,
+    active,
+    temperature,
+    generator: torch.Generator,
+    heads: int,
+    block_tables=None,
+    top_k=None,
+    top_p=None,
+    greedy: bool = False,
+):
+    """generate.verify_step for the int8 engine: a speculative window
+    toks (B, s) (column 0 the last committed token, the rest the
+    drafter's proposals) in one batched pass through the quantized
+    decoder, its B * s rows through each int8 matmul at once.  All s k/v
+    rows write up-front: per-row contiguous slots [pos, pos + s) (clipped
+    to the last slot), or (page, offset) pairs through `block_tables`
+    (inactive rows' tables zeroed: the null page).  Query j sees slots
+    <= pos + j only, so each position's logits are what
+    quant_decode_step gives after committing the window's first j
+    tokens.  Attention runs the reference's einsum math over the
+    (dequantized) view.  Returns (cache, out (B, s) int32)."""
+    embed = qparams["embed"]
+    dim = embed.shape[1]
+    d_head = dim // heads
+    dev = embed.device
+    b, s = toks.shape
+    pos = torch.where(active, pos, 0).long()
+    page = cache[0]["k"].shape[1]
+    slot = pos[:, None] + torch.arange(s, device=dev)  # (b, s)
+    if block_tables is not None:
+        bt = torch.where(active[:, None], block_tables, 0).long()
+        view_len = bt.shape[1] * page
+        page_i = torch.clamp(slot // page, 0, bt.shape[1] - 1)
+        flat = torch.where(slot < view_len,
+                           bt.gather(1, page_i) * page + slot % page, 0)
+    else:
+        bt = None
+        view_len = page  # contiguous: dim 1 is max_seq
+        rows = torch.arange(b, device=dev)[:, None]
+        cols = torch.clamp(slot, 0, view_len - 1)
+
+    def write(buf, val):
+        if bt is None:
+            buf[rows, cols] = val.to(buf.dtype)
+        else:
+            buf.view((-1,) + tuple(buf.shape[2:]))[flat] = val.to(buf.dtype)
+
+    def view(buf):
+        if bt is None:
+            return buf
+        return buf[bt.reshape(-1)].reshape(
+            (b, view_len) + tuple(buf.shape[2:]))
+
+    table = qparams["pos_emb"]  # clamped, as the reference's gather is
+    pe = table[slot.clamp(max=table.shape[0] - 1)]
+    x = (embed[toks.long()] + pe).to(torch.bfloat16).reshape(b * s, dim)
+    slots = torch.arange(view_len, device=dev)
+    vis = (slots[None, None, :] <= slot[:, :, None])[:, None]  # (b,1,s,v)
+    quant_kv = "k_scale" in cache[0]
+    for blk, c in zip(qparams["blocks"], cache):
+        h = _ln(x, blk["ln0"])
+        qkv = _qmm(h, blk["qkv"]) + blk["qkv"]["bias"]
+        qkv = qkv.reshape(b, s, 3, heads, d_head).to(x.dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        qf = q.float() / (d_head ** 0.5)
+        if quant_kv:
+            k_i8, k_s = _quantize_kv(k)
+            v_i8, v_s = _quantize_kv(v)
+            for name, new in (("k", k_i8), ("k_scale", k_s), ("v", v_i8),
+                              ("v_scale", v_s)):
+                write(c[name], new)
+            scores = (
+                torch.einsum("bqhd,bkhd->bqkh", qf, view(c["k"]).float())
+                * view(c["k_scale"])[:, None]
+            ).permute(0, 3, 1, 2)  # (b, h, q, k)
+            rvf = view(c["v"]).float() * view(c["v_scale"])[..., None]
+        else:
+            write(c["k"], k)
+            write(c["v"], v)
+            scores = torch.einsum("bqhd,bkhd->bhqk", qf,
+                                  view(c["k"]).float())
+            rvf = view(c["v"]).float()
+        p = torch.softmax(torch.where(vis, scores, -1e30), dim=-1)
+        attn = torch.einsum("bhqk,bkhd->bqhd", p, rvf)
+        attn = attn.reshape(b * s, dim).to(x.dtype)
+        x = x + (_qmm(attn, blk["proj"]) + blk["proj"]["bias"]).to(x.dtype)
+        h2 = _ln(x, blk["ln1"])
+        m = gelu_tanh(
+            (_qmm(h2, blk["fc0"]) + blk["fc0"]["bias"]).to(x.dtype)
+        )
+        x = x + (_qmm(m, blk["fc1"]) + blk["fc1"]["bias"]).to(x.dtype)
+    xf = _ln(x, qparams["ln_f"])
+    logits = _qmm(xf.float(), qparams["head"]) + qparams["head"]["bias"]
+    return cache, _verify_sample(logits.reshape(b, s, -1), temperature,
+                                 generator, top_k, top_p, greedy)
+
+
+@torch.no_grad()
+def draft_chain(qparams, cache, tok, pos, active, heads: int,  # hot-path
+                n_steps: int):
+    """The speculative engine's draft phase: n_steps greedy passes of the
+    int8 drafter (quant_decode_step) against its own contiguous cache
+    (init_quant_decode_cache), unrolled.  From each row's last committed
+    token `tok` (B,) at base position `pos` (B,), pass j writes its
+    input's KV at slot pos + j and proposes the next token.  The chain
+    runs one pass past the last proposal the verify window reads: that
+    pass closes the hole a fully accepted window would leave at its bonus
+    token's slot, and is KV-write-only (with_head=False).  Inactive rows
+    clamp to position 0 (their drafter rows are refilled at their next
+    admission).  Nothing syncs with the host, so the chain can be
+    captured into one CUDA graph.  Returns (cache, proposals (B,
+    n_steps - 1) int32)."""
+    if n_steps < 2:
+        raise ValueError(f"n_steps must be >= 2, got {n_steps}")
+    pos = torch.where(active, pos, 0)
+    cur = tok
+    cols = []
+    for j in range(n_steps):
+        last = j == n_steps - 1
+        _, logits = quant_decode_step(
+            qparams, cache, cur, pos + j, pos + j, None, heads,
+            with_head=not last,
+        )
+        if not last:
+            cur = torch.argmax(logits, dim=-1).to(torch.int32)
+            cols.append(cur)
+    return cache, torch.stack(cols, dim=1)
+
+
+@torch.no_grad()
+def draft_fill_row(draft_cache, cache, row_idx: int, upto: int,  # hot-path
+                   block_table=None):
+    """Fill ONE row of the drafter's contiguous int8 KV cache from the
+    target engine's cache after an admission (and when the drafter's
+    frontier lags): the drafter gets the prompt's KV without a second
+    prefill.  The source is read only.  It may be any target layout: the
+    float cache (contiguous rows, or the paged pool when `block_table`,
+    the row's (pages_per_row,) table, is given) is quantized on the way
+    in; the int8 layout copies values and scales as they are.  Positions
+    from `upto` on are zeroed (invisible to the drafter either way).
+    Returns `draft_cache`, updated in place."""
+    dev = draft_cache[0]["k"].device
+    bt = None if block_table is None else _as(block_table, torch.int64, dev)
+    for dblk, c in zip(draft_cache, cache):
+        max_seq = dblk["k"].shape[1]
+
+        def row(buf):
+            if bt is None:
+                return buf[row_idx]
+            return buf[bt].reshape(
+                (bt.shape[0] * buf.shape[1],) + tuple(buf.shape[2:])
+            )[:max_seq]
+
+        if "k_scale" in c:
+            leaves = {name: row(c[name]) for name in dblk}
+        else:
+            leaves = {}
+            for name in ("k", "v"):
+                leaves[name], leaves[f"{name}_scale"] = _quantize_kv(
+                    row(c[name]))
+        keep = torch.arange(max_seq, device=dev) < upto
+        for name, val in leaves.items():
+            mask = keep.view((-1,) + (1,) * (val.ndim - 1))
+            dblk[name][row_idx] = torch.where(
+                mask, val.to(dblk[name].dtype), 0)
+    return draft_cache

@@ -20,12 +20,16 @@ through `attn_fn` (flash, ops/flash_attention.py, or the dense math),
 the loss through ops/fused_xent.py or ops/losses.py, AdamW as optax's.
 
 Decode paths ported (a `cache` argument selects them):
-  - the PAGED single-token step (:177-265): the cache holds page pools
-    (n_pages, page, heads, d_head); this step's k/v land at each row's
-    (page, offset) through its block table, positions past the mapped
-    view land in the reserved null page 0, and attention runs through
-    ops.paged_attention (the CUDA kernel on the card, the gather math on
-    the CPU);
+  - the PAGED path (:177-265): the cache holds page pools (n_pages,
+    page, heads, d_head); this call's s k/v rows land at each row's
+    (page, offset) pairs for slots [write_pos[b], write_pos[b] + s)
+    through its block table, and slots past the mapped view land in the
+    reserved null page 0.  A single token with a per-row (b, view)
+    kv_mask attends through ops.paged_attention (the CUDA kernel on the
+    card, the gather math on the CPU); the s > 1 VERIFY window of
+    speculative decoding takes the per-query (b, s, view) kv_mask and
+    runs the gather math, as the reference's does (its kernel gate is
+    s == 1 with a 2-D mask);
   - the PER-ROW contiguous path (:266-318): a (b,) `write_pos` puts
     row b's s new k/v rows at [write_pos[b], write_pos[b] + s) of its
     own row, and a per-row kv_mask carries the visibility (the
@@ -34,9 +38,6 @@ Decode paths ported (a `cache` argument selects them):
     rows land at [write_pos, write_pos + s) of a (b, cache_len, heads,
     d_head) buffer and query i sees slots <= write_pos + i (chunked
     prefill and the oracle).
-The paged s > 1 verify windows (:177-240) come with the
-speculative-decode slice (ROADMAP A3/A5e).
-
 Caches are lists with one {"k", "v"} dict per block, updated IN PLACE
 (the reference returns a new cache; the port mutates to keep one copy
 of the pool resident).
@@ -169,11 +170,6 @@ def _decode_attention(q, k, v, cache, kv_mask, write_pos, block_tables):
     b, s, h, d = q.shape
     ck, cv = cache["k"], cache["v"]
     if block_tables is not None:
-        if s != 1:
-            raise NotImplementedError(
-                "paged verify windows (s > 1) come with the "
-                "speculative-decode slice (ROADMAP A3)"
-            )
         if write_pos is None or not torch.is_tensor(write_pos) or (
             write_pos.ndim != 1
         ):
@@ -181,21 +177,37 @@ def _decode_attention(q, k, v, cache, kv_mask, write_pos, block_tables):
         page = ck.shape[1]
         n_rows = block_tables.shape[1]
         view_len = n_rows * page
-        if kv_mask is None or tuple(kv_mask.shape) != (b, view_len):
+        if kv_mask is None or kv_mask.shape[-1] != view_len or not (
+            tuple(kv_mask.shape) == (b, s, view_len)
+            or (s == 1 and kv_mask.ndim == 2 and kv_mask.shape[0] == b)
+        ):
             raise ValueError(
                 "block_tables requires a per-row (b, pages_per_row * "
-                "page) kv_mask"
+                "page) kv_mask (per-query (b, s, pages_per_row * page) "
+                "when s > 1)"
             )
-        wp = write_pos.long()
-        page_i = torch.clamp(wp // page, 0, n_rows - 1)
-        phys = block_tables.long().gather(1, page_i[:, None])[:, 0]
-        flat = torch.where(wp < view_len, phys * page + wp % page, 0)
-        ck.view(-1, h, d)[flat] = k[:, 0].to(ck.dtype)
-        cv.view(-1, h, d)[flat] = v[:, 0].to(cv.dtype)
-        out = paged_attention(
-            q[:, 0].contiguous(), ck, cv, block_tables, kv_mask
+        # Slots [wp, wp + s) scatter to (page, offset) up-front; a slot
+        # past the mapped view lands in the null page 0.
+        slot = write_pos.long()[:, None] + torch.arange(s, device=q.device)
+        page_i = torch.clamp(slot // page, 0, n_rows - 1)
+        phys = block_tables.long().gather(1, page_i)
+        flat = torch.where(slot < view_len, phys * page + slot % page, 0)
+        ck.view(-1, h, d)[flat] = k.to(ck.dtype)
+        cv.view(-1, h, d)[flat] = v.to(cv.dtype)
+        if kv_mask.ndim == 2:
+            out = paged_attention(
+                q[:, 0].contiguous(), ck, cv, block_tables, kv_mask
+            )
+            return out[:, None].to(q.dtype)
+        rows = block_tables.reshape(-1).long()
+        kview = ck[rows].reshape(b, view_len, h, d)
+        vview = cv[rows].reshape(b, view_len, h, d)
+        qf = q.float() / (d ** 0.5)
+        scores = torch.einsum("bqhd,bkhd->bhqk", qf, kview.float())
+        p = torch.softmax(
+            torch.where(kv_mask[:, None], scores, -1e30), dim=-1
         )
-        return out[:, None].to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", p, vview.float()).to(q.dtype)
     if torch.is_tensor(write_pos) and write_pos.ndim == 1:
         return _rowwise_attention(q, k, v, ck, cv, kv_mask, write_pos)
     if write_pos is None:

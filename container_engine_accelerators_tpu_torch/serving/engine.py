@@ -3,9 +3,9 @@ container_engine_accelerators_tpu/serving/engine.py — the paged KV pool
 with the radix prefix cache (the default) or the contiguous-slot cache
 (paged=False), chunked prefill, single-token decode steps and fused
 multi-step decode blocks (decode_steps > 1), for the bf16 engine
-(quant=False) and the int8 weight + int8 KV engine (quant=True), with
-the one-step lag window (pipeline=True) or synchronous commits
-(pipeline=False).
+(quant=False) and the int8 weight + int8 KV engine (quant=True), and
+speculative multi-token decoding (spec_k > 0), with the one-step lag
+window (pipeline=True) or synchronous commits (pipeline=False).
 
 One engine owns a persistent decode batch of `n_slots` rows and a
 scheduler thread that, every iteration, advances admission by at most
@@ -37,6 +37,26 @@ max_new truncation applied per row.  Other turns fall through to the
 one-token step.  On the card each width is one CUDA graph replay
 (serving/decode_graph.py).
 
+Speculative decoding (spec_k = k > 0, paged or not; it owns the
+multi-token turns when decode_steps is set too): on a turn where some
+live greedy row can draft deeper than one token, the engine commits the
+outstanding window first (the accept decision gates the next draft),
+then drafts up to k tokens per greedy row with the int8 twin of the same
+weights against its own contiguous int8 KV cache, and scores the whole
+window in ONE batched target pass (the verify seams).  The commit takes
+target tokens while the draft agrees, plus the first disagreeing target
+token, so greedy outputs are the one-token engine's; a rejected suffix
+is a position rewind (its KV stays invisible and is rewritten), never a
+page copy.  Sampled rows ride a window at width 1.  Per-row adaptive
+depth halves a mispredicting row's window toward 1, and a probe every
+8th turn lets it earn depth back; the dispatched width is the bucketed
+max over rows on the ladder 1, 2, 4, ..., k.  The drafter is optional:
+a failed draft chain or drafter-cache fill degrades the window to width
+1 and zeroes the drafter cache, and no request fails; a failed verify
+takes the step-retry / fail-rows path.  On the card each draft width
+and each verify key (width, greedy, top-k / top-p operands) is one CUDA
+graph replay, and the draft's output feeds the verify on the device.
+
 Differences of idiom from the reference:
   - every device seam updates the cache IN PLACE (the reference donates
     and replaces it), so there is no donated-buffer loss to detect;
@@ -48,8 +68,8 @@ Differences of idiom from the reference:
     retried step draws fresh noise (greedy rows are unaffected).
 
 Options whose modules come in later slices raise NotImplementedError
-naming their ROADMAP item: spec_k > 0 (A5e), host/disk KV tiers (A5f),
-observe=True (A5g), mesh (A10).  With observe off the engine carries a
+naming their ROADMAP item: host/disk KV tiers (A5f), observe=True (A5g),
+mesh (A10).  With observe off the engine carries a
 null recorder.
 
 Failure semantics are the reference's: a failed admission fails only
@@ -76,7 +96,7 @@ from ..models import generate as G
 from ..models import quant_generate as QG
 from ..models.transformer import TransformerLM
 from . import kvpool
-from .decode_graph import FusedDecode
+from .decode_graph import SeamGraphs
 from .errors import QueueFullError, StepFailure
 from .prefix_cache import RadixPrefixCache
 
@@ -226,6 +246,7 @@ class _Seq:
         "ticket", "row_i", "prompt", "plen", "max_new", "temp",
         "top_k", "top_p", "stop_token", "on_token", "tokens",
         "next_tok", "pos", "page_refs", "page_wait",
+        "spec_depth", "accept_ema", "spec_probe", "draft_upto",
         "t_submit", "t_admit", "t_last_commit",
     )
 
@@ -250,6 +271,15 @@ class _Seq:
         # Optimistic page need recorded when admission requeued this
         # row for lack of pages (0 = not waiting).
         self.page_wait = 0
+        # Speculative decoding: the row's adaptive draft depth (0 = the
+        # engine's spec_k), the trailing accept-rate EMA driving it, the
+        # probe counter that lets a depth-1 row earn its window back,
+        # and the drafter-cache frontier: slots [0, draft_upto) of the
+        # row's drafter cache hold its committed history.
+        self.spec_depth = 0
+        self.accept_ema = 1.0
+        self.spec_probe = 0
+        self.draft_upto = 0
         self.t_submit = time.monotonic()
         self.t_admit = 0.0
         self.t_last_commit = 0.0
@@ -276,6 +306,21 @@ class _FusedPending(_Pending):
     the block uncommitted on every failure path."""
 
     __slots__ = ()
+
+
+class _SpecPending(_Pending):
+    """One dispatched-but-uncommitted SPECULATIVE WINDOW: the rows that
+    rode it as (slot, seq, base position, window width), the (B, W)
+    verify outputs `nxt` and the (B, W) verify inputs `draft` (column 0
+    each row's last committed token, the rest the drafter's proposals),
+    both on the device until _commit_spec reads them back.  Shares
+    _Pending's drain contract."""
+
+    __slots__ = ("draft",)
+
+    def __init__(self, rows, nxt, draft, t_dispatch=0.0):
+        super().__init__(rows, nxt, t_dispatch)
+        self.draft = draft
 
 
 class _Prefill:
@@ -309,10 +354,12 @@ class _StageSet:
     """One set of host staging buffers for a dispatch: torch tensors
     (pinned on the card, so the copy can be non_blocking) and numpy
     views of the same memory for the scheduler to fill.  `bt` (the
-    block tables) only for a paged engine (pages_per_row > 0); the
-    fused set (fused=True) holds only what a block reads."""
+    block tables) only for a paged engine (pages_per_row > 0).  `kind`:
+    "step" (the one-token step, with the `over` merge mask), "fused"
+    (only what a block reads) or "spec" (the window, with the drafter's
+    row mask `draft`)."""
 
-    def __init__(self, n_slots, pages_per_row, vocab, pin, fused=False):
+    def __init__(self, n_slots, pages_per_row, vocab, pin, kind="step"):
         def mk(shape, dtype, fill):
             return torch.full(shape, fill, dtype=dtype, pin_memory=pin)
 
@@ -322,10 +369,13 @@ class _StageSet:
             "active": mk((n_slots,), torch.bool, False),
             "temps": mk((n_slots,), torch.float32, 0.0),
         }
-        if not fused:
+        if kind != "fused":
             self.t["top_k"] = mk((n_slots,), torch.int32, vocab)
             self.t["top_p"] = mk((n_slots,), torch.float32, 1.0)
+        if kind == "step":
             self.t["over"] = mk((n_slots,), torch.bool, True)
+        if kind == "spec":
+            self.t["draft"] = mk((n_slots,), torch.bool, False)
         if pages_per_row:
             self.t["bt"] = mk((n_slots, pages_per_row), torch.int32, 0)
         self.np = {k: v.numpy() for k, v in self.t.items()}
@@ -352,8 +402,11 @@ class ContinuousBatchingEngine:
     (default n_slots x pages per max_seq row); prefix_cache: radix
     prefix reuse (paged only).  decode_steps: the widest fused block
     (module docstring); 0 or 1 keeps the one-token path, and a
-    non-paged engine forces it to 0.  max_queue: bound on queued prompt
-    rows.  step_retries / retry_backoff_s /
+    non-paged engine forces it to 0.  spec_k: the widest speculative
+    window (module docstring); 0 keeps the one-token path.
+    spec_adaptive: per-row adaptive draft depth; spec_min_accept: the
+    trailing accept rate below which a row's depth halves.  max_queue:
+    bound on queued prompt rows.  step_retries / retry_backoff_s /
     retry_backoff_cap_s: transient step-failure absorption.  rng_seed
     seeds the engine's sampling generator.  device: where the engine
     runs (default the card; raises without one unless "cpu")."""
@@ -376,6 +429,8 @@ class ContinuousBatchingEngine:
         kv_host_bytes: int = 0,
         kv_disk_dir: Optional[str] = None,
         spec_k: int = 0,
+        spec_adaptive: bool = True,
+        spec_min_accept: float = 0.4,
         decode_steps: int = 0,
         rng_seed: int = 0,
         max_queue: Optional[int] = None,
@@ -402,9 +457,11 @@ class ContinuousBatchingEngine:
         ds = int(decode_steps)
         if ds < 0:
             raise ValueError(f"decode_steps must be >= 0, got {decode_steps}")
+        spec = int(spec_k)
+        if spec < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         for wanted, item in (
             (mesh is not None, "a device mesh, A10"),
-            (int(spec_k) > 0, "speculative decoding, A5e"),
             (int(kv_host_bytes) > 0 or kv_disk_dir,
              "host/disk KV tiers, A5f"),
             (observe, "serving observability, A5g"),
@@ -456,6 +513,9 @@ class ContinuousBatchingEngine:
             )
             ds = 0
         self._decode_steps = ds
+        self._spec_k = spec
+        self._spec_adaptive = bool(spec_adaptive)
+        self._spec_min_accept = float(spec_min_accept)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(rng_seed))
         self._max_queue = max_queue
@@ -503,9 +563,17 @@ class ContinuousBatchingEngine:
                     qp, cache, tok, pos, act, temp, gen, heads, **kw
                 )
 
-            def steps_fn(qp, cache, tok, pos, act, bt, temp, gen, n):
+            def steps_fn(qp, cache, inp, gen, n):
                 return QG.quant_paged_engine_decode_steps(
-                    qp, cache, tok, pos, act, bt, temp, gen, heads, n
+                    qp, cache, inp["tok"], inp["pos"], inp["active"],
+                    inp["bt"], inp["temps"], gen, heads, n
+                )
+
+            def verify_fn(qp, cache, toks, inp, gen, greedy, kw):
+                return QG.quant_verify_step(
+                    qp, cache, toks, inp["pos"], inp["active"],
+                    inp["temps"], gen, heads, block_tables=inp["bt"],
+                    greedy=greedy, **kw
                 )
 
             self._preload_fn = QG.quant_paged_preload_scratch
@@ -533,9 +601,21 @@ class ContinuousBatchingEngine:
                     model, cache, tok, pos, act, temp, gen, **kw
                 )
 
-            def steps_fn(model, cache, tok, pos, act, bt, temp, gen, n):
+            def steps_fn(model, cache, inp, gen, n):
                 return G.paged_decode_steps(
-                    model, cache, tok, pos, act, bt, temp, gen, n
+                    model, cache, inp["tok"], inp["pos"], inp["active"],
+                    inp["bt"], inp["temps"], gen, n
+                )
+
+            def verify_fn(model, cache, toks, inp, gen, greedy, kw):
+                if paged_:
+                    return G.paged_verify_step(
+                        model, cache, toks, inp["pos"], inp["active"],
+                        inp["bt"], inp["temps"], gen, greedy=greedy, **kw
+                    )
+                return G.verify_step(
+                    model, cache, toks, inp["pos"], inp["active"],
+                    inp["temps"], gen, greedy=greedy, **kw
                 )
 
             self._preload_fn = G.paged_preload_scratch
@@ -550,13 +630,68 @@ class ContinuousBatchingEngine:
         self._fused_fn = None
         self._fused_buckets: List[int] = []
         if self._decode_steps > 1:
-            self._fused = FusedDecode(steps_fn, self._gen, self.device)
+            self._fused = SeamGraphs(steps_fn, self._gen, self.device)
             self._fused_fn = self._fused.run
             w = 2
             while w < self._decode_steps:
                 self._fused_buckets.append(w)
                 w *= 2
             self._fused_buckets.append(self._decode_steps)
+        # Speculative decoding (spec_k > 0): the drafter is the int8
+        # twin of the same weights (the int8 engine's own tree; the bf16
+        # engine quantizes once here), drafting greedily against its own
+        # contiguous int8 KV cache, which `_draft_fill_fn(draft_cache,
+        # cache, slot, upto, block table row or None)` fills from the
+        # engine cache after an admission.  `_draft_fn(qparams,
+        # draft_cache, inputs, width)` is the draft chain and
+        # `_verify_fn(weights, cache, inputs, (width, greedy, top-k /
+        # top-p given))` the verify window: one CUDA graph per width and
+        # per key on the card, seams a fault injector can wrap.  Widths
+        # are powers of two from 1, capped at and ending with spec_k.
+        self._spec_graphs = ()
+        self._spec_buckets: List[int] = []
+        self._spec_last_width = 0
+        if self._spec_k:
+            heads = model.heads
+            self._draft_qparams = (
+                self._qparams if self.quant
+                else QG.quantize_decode_params(model)
+            )
+            self._draft_cache = QG.init_quant_decode_cache(
+                model, self.n_slots, quant_kv=True, device=self.device
+            )
+
+            def draft_fn(qp, dcache, inp, _gen, n):
+                return QG.draft_chain(qp, dcache, inp["tok"], inp["pos"],
+                                      inp["active"], heads, n)
+
+            def window_fn(weights, cache, inp, gen, key):
+                _width, greedy, adv = key
+                toks = torch.cat([inp["tok"][:, None], inp["dcols"]], dim=1)
+                kw = {"top_k": inp["top_k"], "top_p": inp["top_p"]} if adv \
+                    else {}
+                cache, out = verify_fn(weights, cache, toks, inp, gen,
+                                       greedy, kw)
+                return cache, (out, toks)
+
+            def fill_fn(dcache, cache, slot, upto, bt_row):
+                return QG.draft_fill_row(dcache, cache, slot, upto,
+                                         block_table=bt_row)
+
+            drafts = SeamGraphs(draft_fn, None, self.device)
+            windows = SeamGraphs(window_fn, self._gen, self.device)
+            self._spec_graphs = (drafts, windows)
+            self._draft_fn = drafts.run
+            self._verify_fn = windows.run
+            self._draft_fill_fn = fill_fn
+            # The proposal columns of a width-1 window: none.
+            self._no_dcols = torch.zeros((self.n_slots, 0), dtype=torch.int32,
+                                         device=self.device)
+            w = 1
+            while w < self._spec_k:
+                self._spec_buckets.append(w)
+                w *= 2
+            self._spec_buckets.append(self._spec_k)
         # The float model the chunk seam runs (dequantized for int8).
         self._prefill_params = self._deq if self.quant else model
         self._cache = self._build_cache()
@@ -587,8 +722,15 @@ class ContinuousBatchingEngine:
         # that readback waited for every copy out of it.
         self._fused_stage = (
             _StageSet(self.n_slots, self._pages_per_row, model.vocab, pin,
-                      fused=True)
+                      kind="fused")
             if self._fused is not None else None
+        )
+        # Speculative staging: ONE set, for the same reason (_step_spec
+        # commits the outstanding window before it rewrites the set).
+        self._spec_stage = (
+            _StageSet(self.n_slots, self._pages_per_row, model.vocab, pin,
+                      kind="spec")
+            if self._spec_k else None
         )
         # The `prev` operand when no step is in flight: every row
         # overrides it through the merge mask, only its shape matters.
@@ -626,6 +768,19 @@ class ContinuousBatchingEngine:
             "fused_blocks": 0,
             "fused_steps": 0,  # decode steps dispatched inside blocks
             "fused_tokens": 0,
+            # Speculative windows: draft tokens dispatched in windows
+            # wider than 1, and those committed (accepted) or not; the
+            # bonus target token of a window is not a draft.  Also the
+            # verify passes, the rows they carried and the tokens those
+            # rows committed, and the drafter's passes and chains.
+            "spec_drafted_tokens": 0,
+            "spec_accepted_tokens": 0,
+            "spec_rejected_tokens": 0,
+            "spec_verify_passes": 0,
+            "spec_window_rows": 0,
+            "spec_window_tokens": 0,
+            "spec_draft_passes": 0,
+            "spec_draft_chains": 0,
         }
         self._obs = _NullObservability()
         self._obs.attach_engine(self)
@@ -743,6 +898,10 @@ class ContinuousBatchingEngine:
             snap["prefix_cached_pages"] = (
                 self._prefix.page_count() if self._prefix else 0
             )
+        if self._spec_k:
+            # The last dispatched window's width (the bucketed max of
+            # the rows' adaptive depths): the draft-depth gauge.
+            snap["spec_draft_depth"] = self._spec_last_width
         return snap
 
     @property
@@ -769,8 +928,7 @@ class ContinuousBatchingEngine:
         if self._crashed.is_set() or not self._thread.is_alive():
             self._fail_all(RuntimeError("engine closed"))
             self._release_retained_prefixes()
-            if self._fused is not None:
-                self._fused.reset()  # the graphs' pool goes back
+            self._reset_graphs()  # the graphs' pool goes back
 
     @property
     def active_rows(self) -> int:
@@ -793,10 +951,10 @@ class ContinuousBatchingEngine:
                 "engine scheduler crashed"
             )
         self._fail_active_rows(err)
-        if self._fused is not None:
-            self._fused.reset()  # its graphs point at the old cache
+        self._reset_graphs()  # they point at the old caches
         self._cache = self._build_cache()
         self._reset_paged_state()
+        self._reset_draft_state()
         with self._cv:
             self._crashed.clear()
             self._crash_error = None
@@ -840,6 +998,30 @@ class ContinuousBatchingEngine:
         return G.init_paged_cache(
             self._model, n_phys, self._page, device=self.device
         )
+
+    def _reset_graphs(self):
+        """Drop every CUDA graph of the engine's seams (before a cache
+        they point at is replaced, and at close)."""
+        for graphs in (self._fused, *self._spec_graphs):
+            if graphs is not None:
+                graphs.reset()
+
+    def _reset_draft_state(self):
+        """Zero the drafter cache in place (its draft graphs keep their
+        address) and mark every live row's drafter frontier stale, so the
+        next window refills it from the engine cache.  Paired with every
+        engine-cache rebuild and with a failed draft or fill: drafter
+        rows that describe dead state only draft garbage, which verify
+        rejects, at the cost of window width."""
+        if not self._spec_k:
+            return
+        for blk in self._draft_cache:
+            for buf in blk.values():
+                buf.zero_()
+        with self._cv:
+            for s in self._slots:
+                if s is not None:
+                    s.draft_upto = 0
 
     def _start_thread(self):
         self._thread = threading.Thread(
@@ -1337,6 +1519,23 @@ class ContinuousBatchingEngine:
                 if adopted:
                     with self._cv:
                         self.stats["prefix_inserted_pages"] += adopted
+        if alive and self._spec_k:
+            # The drafter's row gets the prompt's KV from the engine
+            # cache, without a second prefill.  A failure costs only
+            # draft quality, so it zeroes the drafter cache instead of
+            # failing the admitted ticket.
+            try:
+                self._draft_fill_fn(
+                    self._draft_cache, self._cache, pf.slot, seq.plen,
+                    pf.bt_row if self._paged else None,
+                )
+                seq.draft_upto = seq.plen
+            except Exception as e:  # pylint: disable=broad-except
+                log.warning(
+                    "drafter-cache fill failed (draft quality degrades, "
+                    "outputs unaffected): %r", e,
+                )
+                self._reset_draft_state()
         self._obs.chunk_done(seq, t_chunk, time.monotonic(), width,
                              last=True)
         if alive:
@@ -1409,7 +1608,23 @@ class ContinuousBatchingEngine:
         exhausted retries drain the window, fail only the active rows
         and crash the scheduler for a supervised revival.  With
         decode_steps > 1 a quiet turn dispatches a fused block instead
-        (_step_fused)."""
+        (_step_fused); with spec_k > 0 a turn where some greedy row can
+        draft deeper than one token dispatches a speculative window
+        (_step_spec)."""
+        if self._spec_k:
+            if self._spec_turn_wants_window():
+                self._step_spec()
+                return
+            # An outstanding WINDOW commits first: its (B, W) tokens
+            # cannot ride the one-token dispatch's merge.
+            with self._cv:
+                pending = self._pending
+                if isinstance(pending, _SpecPending):
+                    self._pending = None
+                else:
+                    pending = None
+            if pending is not None:
+                self._commit_spec(pending)
         if self._fused is not None:
             k = self._fused_turn_wants_block()
             if k:
@@ -1591,13 +1806,17 @@ class ContinuousBatchingEngine:
     # -- fused multi-step decode (decode_steps > 1) ----------------------
     def _fused_turn_wants_block(self) -> int:  # hot-path
         """The quiet-turn gate: the block width k >= 2 for this turn, or
-        0 to fall through to the one-token step.  Quiet means nothing
-        queued or prefilling (admission work is what the one-token
-        pipeline overlaps) and every live row greedy (temperature 0, no
+        0 to fall through to the one-token step.  Speculative windows own
+        the multi-token turns when spec_k is set, so the gate then always
+        declines.  Quiet means nothing queued or prefilling (admission
+        work is what the one-token pipeline overlaps) and every live row
+        greedy (temperature 0, no
         top_k / top_p: a sampled row's noise would be drawn in another
         order than k one-token steps draw it), uncancelled, with more
         than one token of headroom.  The width is the largest bucket at
         most every row's remaining budget."""
+        if self._spec_k:
+            return 0
         width = None
         with self._cv:
             if self._queue or self._prefilling is not None:
@@ -1720,3 +1939,262 @@ class ContinuousBatchingEngine:
         if committed:
             with self._cv:
                 self.stats["fused_tokens"] += committed
+
+    # -- speculative decoding (spec_k > 0) -------------------------------
+    def _commit_window(self, pending):  # hot-path
+        """Commit whichever window is outstanding: on a speculative
+        engine the turn types alternate (one-token turns serve sampled
+        and throttled stretches), and each has its own commit."""
+        if isinstance(pending, _SpecPending):
+            self._commit_spec(pending)
+        elif isinstance(pending, _FusedPending):
+            self._commit_fused(pending)
+        else:
+            self._commit_pending(pending)
+
+    def _spec_turn_wants_window(self) -> bool:  # hot-path
+        """The turn-type gate: True when some live greedy row could draft
+        deeper than one token this turn; otherwise the turn falls through
+        to the one-token pipelined step, which keeps its overlap.  Owns
+        the adaptive-depth probe: a throttled row's 8th gated turn lifts
+        its depth to min(2, spec_k), and one mispredicted window halves
+        it straight back."""
+        with self._cv:
+            for seq in self._slots:
+                if seq is None or seq.ticket.cancelled:
+                    continue
+                if not seq.tokens or len(seq.tokens) >= seq.max_new:
+                    continue
+                if seq.temp > 0.0:
+                    continue
+                if seq.max_new - len(seq.tokens) <= 1:
+                    continue
+                d = seq.spec_depth if seq.spec_depth > 0 else self._spec_k
+                if d == 1 and self._spec_adaptive:
+                    seq.spec_probe += 1
+                    if seq.spec_probe >= 8:
+                        seq.spec_probe = 0
+                        seq.spec_depth = min(2, self._spec_k)
+                        d = seq.spec_depth
+                if d > 1:
+                    return True
+        return False
+
+    def _step_spec(self):  # hot-path
+        """One speculative turn: COMMIT the outstanding window of either
+        kind (the accept decision gates the next draft), then draft and
+        dispatch the next window, which runs on the device while the host
+        takes the next admission turn.  Cancel / stop / max_new apply at
+        its commit, and _drain_pending drops it on every failure path."""
+        with self._cv:
+            pending, self._pending = self._pending, None
+        if pending is not None:
+            self._commit_window(pending)
+        new_pending = self._dispatch_spec()
+        if new_pending is None:
+            return
+        with self._cv:
+            self._pending = new_pending
+        if not self._pipeline:
+            with self._cv:
+                self._pending = None
+            self._commit_spec(new_pending)
+
+    def _dispatch_spec(self):  # hot-path
+        """Draft up to W tokens per greedy row with the int8 twin and
+        dispatch ONE batched verify pass over the window.  The draft's
+        output feeds the verify on the device and nothing is read back
+        until _commit_spec.  W is the bucketed max of the rows' widths
+        (a greedy row's adaptive depth capped at its budget; sampled rows
+        ride at width 1).  A failed drafter fill or draft chain degrades
+        the window to width 1 and zeroes the drafter cache; a failed
+        verify retries, then fails the active rows and crashes, as a
+        one-token step does."""
+        st = self._spec_stage
+        s = st.np
+        s["tok"].fill(0)
+        s["pos"].fill(0)
+        s["active"].fill(False)
+        s["temps"].fill(0.0)
+        s["top_k"].fill(self._model.vocab)
+        s["top_p"].fill(1.0)
+        adv = False
+        live = []
+        with self._cv:
+            occupants = list(enumerate(self._slots))
+            if self._paged:
+                np.copyto(s["bt"], self._bt_master)
+        for i, seq in occupants:
+            if seq is None:
+                continue
+            if seq.ticket.cancelled:
+                self._retire(i, seq, reason="cancelled")
+                continue
+            if not seq.tokens or len(seq.tokens) >= seq.max_new:
+                continue
+            if seq.temp > 0.0:
+                w = 1  # the greedy accept rule cannot cover a draw
+            else:
+                d = seq.spec_depth if seq.spec_depth > 0 else self._spec_k
+                w = min(d, seq.max_new - len(seq.tokens))
+            s["tok"][i] = seq.next_tok
+            s["pos"][i] = seq.pos
+            s["active"][i] = True
+            s["temps"][i] = seq.temp
+            if seq.top_k is not None:
+                s["top_k"][i] = seq.top_k
+                adv = True
+            if seq.top_p is not None:
+                s["top_p"][i] = seq.top_p
+                adv = True
+            live.append((i, seq, seq.pos, w))
+        if not live:
+            return None
+        w_max = max(w for _, _, _, w in live)
+        W = next(b for b in self._spec_buckets if b >= w_max)
+        self._spec_last_width = W
+        dcols = self._no_dcols
+        if W > 1:
+            dcols = self._draft(st, live, W)
+            if dcols is None:
+                W = 1
+                self._spec_last_width = 1
+                dcols = self._no_dcols
+                live = [(i, q, p, 1) for i, q, p, _w in live]
+        greedy = not adv and not bool((s["temps"] > 0.0).any())
+        t = st.t
+        inputs = {
+            "tok": t["tok"], "dcols": dcols, "pos": t["pos"],
+            "active": t["active"], "bt": t.get("bt"), "temps": t["temps"],
+            "top_k": t["top_k"] if adv else None,
+            "top_p": t["top_p"] if adv else None,
+        }
+        weights = self._qparams if self.quant else self._model
+        self._dispatch_count += 1
+        outs, toks = self._with_retries(
+            "verify window",
+            lambda: self._verify_fn(weights, self._cache, inputs,
+                                    (W, greedy, adv)),
+        )
+        with self._cv:
+            self.stats["spec_verify_passes"] += 1
+        return _SpecPending(live, outs, toks, time.monotonic())
+
+    def _draft(self, st, live, W):  # hot-path
+        """The draft phase of a window of width W > 1: refill the drafter
+        rows whose frontier lags their base position (a throttled
+        stretch, or a zeroed drafter cache) from the engine cache, then
+        run the W-pass chain over every greedy row.  Every greedy rider
+        drafts the full W, past its own width too: the extra passes write
+        its real continuation into slots its next window rewrites.
+        Returns the (B, W - 1) proposals on the device, or None when the
+        drafter failed (logged; the drafter cache is zeroed)."""
+        s = st.np
+        for i, seq, p, _w in live:
+            if seq.temp > 0.0 or seq.draft_upto >= p:
+                continue
+            try:
+                self._draft_fill_fn(
+                    self._draft_cache, self._cache, i, p,
+                    s["bt"][i] if self._paged else None,
+                )
+                seq.draft_upto = p
+            except Exception as e:  # pylint: disable=broad-except
+                log.warning(
+                    "drafter-cache refill failed (draft quality degrades, "
+                    "outputs unaffected): %r", e,
+                )
+                self._reset_draft_state()
+                break
+        np.logical_and(s["active"], s["temps"] == 0.0, out=s["draft"])
+        t = st.t
+        try:
+            self._draft_cache, dcols = self._draft_fn(
+                self._draft_qparams, self._draft_cache,
+                {"tok": t["tok"], "pos": t["pos"], "active": t["draft"]}, W,
+            )
+        except Exception as e:  # pylint: disable=broad-except
+            log.warning(
+                "draft chain failed (window drops to 1, outputs "
+                "unaffected): %r", e,
+            )
+            self._reset_draft_state()
+            return None
+        # The chain wrote slots [base, base + W) of every coherent
+        # greedy rider.
+        for i, seq, p, _w in live:
+            if seq.temp == 0.0 and seq.draft_upto >= p:
+                seq.draft_upto = p + W
+        with self._cv:
+            self.stats["spec_draft_chains"] += 1
+            self.stats["spec_draft_passes"] += W
+        return dcols
+
+    def _commit_spec(self, pending):  # hot-path
+        """Commit one window: its one readback (the verify outputs and
+        inputs), then per surviving row the accept-longest-greedy-prefix
+        rule: target tokens while the draft agrees, plus the first
+        disagreeing target token, capped at the row's width, and a stop
+        token, cancel or max_new ends the row early.  The rest is
+        rewound: the row's position never passes its last committed
+        token, so the rejected suffix's KV stays invisible and the next
+        window rewrites it."""
+        outs = self._readback(pending, "verify window")
+        drafts = pending.draft.cpu().numpy()
+        now = time.monotonic()
+        with self._cv:
+            self.stats["steps"] += 1
+            self.stats["step_rows"] += len(pending.rows)
+            survivors = [
+                (i, seq, w) for i, seq, _p, w in pending.rows
+                if self._slots[i] is seq
+            ]
+        self._obs.step_committed(
+            len(pending.rows), now - pending.t_dispatch
+        )
+        drafted = accepted = committed = 0
+        for i, seq, w in survivors:
+            m = 1
+            while m < w and drafts[i, m] == outs[i, m - 1]:
+                m += 1
+            if w > 1:
+                # Depth follows the drafter's accuracy (the whole
+                # agreeing prefix), whatever truncated the commit.
+                self._update_depth(seq, w, m)
+            c = 0
+            for j in range(m):
+                tok = int(outs[i, j])
+                self._commit(i, seq, tok, now=now)
+                c += 1
+                if (seq.ticket.cancelled
+                        or (seq.stop_token is not None
+                            and tok == seq.stop_token)
+                        or len(seq.tokens) >= seq.max_new):
+                    break
+            committed += c
+            if w > 1:
+                # The counters track delivery: a draft token counts as
+                # accepted only when it was committed.
+                drafted += w - 1
+                accepted += min(c, m - 1)
+        with self._cv:
+            self.stats["spec_window_rows"] += len(survivors)
+            self.stats["spec_window_tokens"] += committed
+            self.stats["spec_drafted_tokens"] += drafted
+            self.stats["spec_accepted_tokens"] += accepted
+            self.stats["spec_rejected_tokens"] += drafted - accepted
+
+    def _update_depth(self, seq, w: int, m: int):
+        """Per-row adaptive depth: fold this window's accept fraction into
+        the row's trailing EMA; below spec_min_accept the depth halves
+        toward 1, and a fully accepted window with the EMA above 0.75
+        doubles it back toward spec_k."""
+        if not self._spec_adaptive:
+            return
+        frac = (m - 1) / (w - 1)
+        seq.accept_ema = 0.5 * seq.accept_ema + 0.5 * frac
+        cur = seq.spec_depth if seq.spec_depth > 0 else self._spec_k
+        if seq.accept_ema < self._spec_min_accept:
+            seq.spec_depth = max(1, cur // 2)
+        elif frac >= 1.0 and seq.accept_ema > 0.75:
+            seq.spec_depth = min(self._spec_k, max(2, cur * 2))
