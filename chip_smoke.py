@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths — LM serving decode (paged,
-fused, contiguous and speculative), single-card LM training and single-card
-ResNet-50 training — on one NVIDIA H100, and hold every kernel on those
-paths against its plain PyTorch version.
+fused, contiguous and speculative), single-card LM training (lm_main's
+width at every head dim, and lm_large with the chunked vocab head),
+single-card ResNet-50 and Inception-v3 training, and checkpoints — on
+one NVIDIA H100, and hold every kernel on those paths against its plain
+PyTorch version.
 
     python3 chip_smoke.py
 
@@ -55,10 +57,15 @@ Phases, one JSON line each (stdout):
                 one-token engine's of the same run (`vs_one_token`) and
                 each request's first divergence from its tokens;
   5. train_kernels — flash attention forward and backward at (8, 2048,
-                8, 128) and (8, 2048, 16, 64) bf16, q / k / v the strided
-                views of one qkv projection, each timed beside the plain
-                version and SDPA, and held (not timed) at seq 128, 192
-                (half a 128-row tile) and 8192; and the fused
+                h, 1024 / h) bf16 for h 8, 16, 32 and 4 (head dims 128,
+                64, 32 on the d-64 instance, 256) and at the ragged
+                (8, 1024, 8, 96) on the d-128 instance, q / k / v the
+                strided views of one qkv projection, each timed beside
+                the plain version and SDPA with its bound (bytes,
+                products or exponentials) and ptxas's registers and
+                spills, and held (not timed) at seq 128, 192 (half a
+                128-row tile) and 8192, and at d 256, 160 and 40 on
+                seq 192; and the fused
                 cross-entropy forward and backward at 16384 x 32000 f32
                 (and at 64 rows in f32 and bf16, C 1000 and 32000, timed
                 beside F.cross_entropy); each against its plain version
@@ -75,8 +82,16 @@ Phases, one JSON line each (stdout):
                 profile and the f32 head's share of the step; then the
                 command-line trainer (lm_main) at its defaults for a
                 warm-up step and 3 logged steps, and again with --heads
-                16 (head dim 64: 8 + 8 flash launches a step, the logged
-                loss falling);
+                16, 32 and 4 (head dims 64, 32 and 256: 8 + 8 flash
+                launches a step, the logged loss falling);
+  6b. lm_large_train — bench.py's lm_large (dim 2048 x 16 layers, seq
+                2048, batch 2, vocab 32000, ~0.94B parameters, the
+                chunked head in 8192-column chunks), not cut: one step
+                against the dense head's trainer from the same weights
+                (loss within 2**-9), the head + loss's own peak memory
+                below the dense head's, 10 steps (the loss falling, 16
+                + 16 flash launches a step), step time, tokens/s, the
+                model-FLOPs share and a 2-step profile;
   7. vision_kernels — the fused-matmul kernel (matmul_stats and
                 affine_relu_matmul_stats) at its 12 ResNet-50 shapes, and
                 the 3x3 conv kernel at ResNet-50's 4 stride-1 shapes,
@@ -94,7 +109,17 @@ Phases, one JSON line each (stdout):
                 launches a step), step time, images/s, the model-FLOPs
                 share of the bf16 peak, a 3-step profile; then
                 resnet_main at its defaults for a warm-up step and 3
-                logged steps.
+                logged steps;
+  8b. inception_train — Inception v3 at the reference's demo job (299 x
+                299, batch 128): 8 steps on one batch (the loss
+                falling), step time, images/s, a 2-step profile, then
+                resnet_main --model inception_v3 for a warm-up step and
+                3 logged steps;
+  9. checkpoint — lm_main with --model-dir at depth 2 trains and saves,
+                a second run resumes from its checkpoint and saves past
+                it; a saved and restored trainer's tensors are bitwise
+                the saved ones; resnet_main --model-dir writes
+                checkpoint_<n>.
 Then the card's name and power limit (nvidia-smi), the kernels record,
 and last the contract line {"ok": true, "device": {...}}.  Each JSON line
 is also written to smoke_out/chip_smoke.jsonl beside this script.  Any failed
@@ -687,7 +712,7 @@ def kernel_kind(name: str) -> str:
     if any(k in name for k in PORT_KERNELS):
         return "port kernels"
     if any(k in low for k in ("gemm", "xmma", "cutlass", "conv", "cudnn",
-                              "fprop", "dgrad", "wgrad", "cublas")):
+                              "fprop", "dgrad", "wgrad", "cublas", "nvjet")):
         return "library gemm / conv"
     if "copy" in low or "memset" in low or "memcpy" in low:
         return "copies and casts"
@@ -1400,21 +1425,58 @@ FLASH_EXTRA_SHAPES = [  # (b, s, h, d): held, not timed
     (2, 128, 8, 128),   # the smallest length: one 128-row tile
     (2, 192, 8, 128),   # ragged for the 128-row tile: a half last tile
     (1, 8192, 8, 128),  # inside the reference's splash window
+    (2, 192, 2, 256),   # d 256, s ragged: a last key stage wholly past s
+    (2, 192, 4, 160),   # the d-256 instance at d 160: a tile atom past d
+    (2, 192, 8, 40),    # the d-64 instance at d 40
 ]
+# The timed shapes at lm_main's (b 8, s 2048, dim 1024): heads 8 (head
+# dim 128, the 20-step run), 16, 32 and 4 (lm_main --heads: d 64, 32 on
+# the d-64 instance, 256); and the d-128 instance at a ragged d 96.
+FLASH_HEADS = (8, 16, 32, 4)
+FLASH_RAGGED = (8, 1024, 8, 96)
+# H100 SXM: 16 MUFU results (ex2) an SM a clock at the 1.83 GHz of the
+# data sheet's tensor peak: the third bound of the flash kernels, which
+# at d 32 outweighs the products (PERF.md).
+EXP2_PER_S = 16 * 132 * 1.83e9
+
+
+def flash_bound(b, s, h, d, backward):
+    """(bound ms, what bounds it) of the forward or backward at one shape:
+    bytes (q / k / v / o in, o / lse out; or q / k / v / o / dO and lse
+    in, dq / dk / dv out), bf16 tensor-core operations (the forward's
+    Q K^T and P V over the pairs the mask keeps; the backward's five
+    products, 2.5x), or the exponentials (one a kept pair: P in the
+    forward, P recomputed once in the backward)."""
+    n = b * s * h * d
+    pairs = b * h * s * (s + 1) / 2
+    fwd_ops = 4.0 * pairs * d
+    nbytes = (8 if backward else 4) * n * 2 + b * h * s * 4
+    ops = 2.5 * fwd_ops if backward else fwd_ops
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "bf16 products": ops / PEAK_OPS["bf16"] * 1e3,
+             "exponentials": pairs / EXP2_PER_S * 1e3}
+    term = max(times, key=times.get)
+    return (times[term], "bytes" if term == "bytes" else "operations",
+            {"bound_term": term, "bound_terms_ms": times})
 
 
 def check_flash(torch, FA, timer, gen):
     """Flash forward and backward against the plain version and its
-    autograd: at the LM's shapes (b 8, s 2048, bf16) at head dim 128 (8
-    heads) and 64 (16 heads), each with the times of the kernels, the
-    plain version and SDPA; and at FLASH_EXTRA_SHAPES.  Every backward is
-    run twice and held bitwise equal."""
+    autograd: at the LM's shapes (b 8, s 2048, bf16) at every head count
+    of FLASH_HEADS and at FLASH_RAGGED, each with the times of the
+    kernels, the plain version and SDPA; and at FLASH_EXTRA_SHAPES.
+    Every backward is run twice and held bitwise equal, and ptxas's
+    registers and spills of each instance ride on the records."""
+    from container_engine_accelerators_tpu_torch.ops import _build
+
     b, s, dim = TRAIN["batch"], TRAIN["seq_len"], TRAIN["dim"]
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    ptxas = _build.PTXAS.get("flash_attention", {}).get("kernels", {})
     records = []
-    for h in (TRAIN["heads"], 2 * TRAIN["heads"]):
-        d = dim // h
-        t, fwd, bwd = flash_case(torch, FA, gen, b, s, h, d)
+    shapes = [(b, s, h, dim // h) for h in FLASH_HEADS] + [FLASH_RAGGED]
+    for shape in shapes:
+        b_, s_, h, d = shape
+        t, fwd, bwd = flash_case(torch, FA, gen, *shape)
         q, k, v, dout, out, lse = (t[x] for x in (
             "q", "k", "v", "dout", "out", "lse"))
         ref, leaves = t["ref"], t["leaves"]
@@ -1440,18 +1502,19 @@ def check_flash(torch, FA, timer, gen):
         }
         lib_fwd_bwd = timer.ms(lambda: torch.autograd.grad(
             sdpa(lq, lk, lv, is_causal=True), (lq, lk, lv), ldo), iters=20)
-        n = b * s * h * d
-        pairs = b * h * s * (s + 1) / 2  # (query, key) pairs the mask keeps
-        fwd_ops = 4.0 * pairs * d  # Q K^T and P V
-        fwd_b, fwd_by = bound_ms(4 * n * 2 + b * h * s * 4, fwd_ops, "bf16")
-        # The backward's five products (S again, dP, dV, dK, dQ): 2.5x.
-        bwd_b, bwd_by = bound_ms(8 * n * 2 + b * h * s * 4, 2.5 * fwd_ops,
-                                 "bf16")
-        common = {"shape_bshd": [b, s, h, d], "qkv": "strided views of "
-                  "(b, s, 3, h, d)", "planted_fault": f"x{FLASH_PLANTED} on "
-                  "rows past 512: the check fails"}
-        suffix = "" if h == TRAIN["heads"] else f"_d{d}"
-        if suffix:  # the 20-step run is at 8 heads
+        fwd_b, fwd_by, fwd_terms = flash_bound(b_, s_, h, d, False)
+        bwd_b, bwd_by, bwd_terms = flash_bound(b_, s_, h, d, True)
+        inst = FA.head_dim_instance(d)
+        common = {"shape_bshd": list(shape), "instance_d": inst,
+                  "qkv": "strided views of (b, s, 3, h, d)",
+                  "planted_fault": f"x{FLASH_PLANTED} on rows past 512: "
+                  "the check fails",
+                  "ptxas_regs_spill_stores_loads": {
+                      name: r for name, r in ptxas.items()
+                      if f"ILi{inst}E" in name}}
+        suffix = "" if shape[2:] == (TRAIN["heads"], dim // TRAIN[
+            "heads"]) and shape[:2] == (b, s) else f"_d{d}"
+        if suffix and shape[:2] == (b, s):  # the 20-step run is at 8 heads
             common["launches_from"] = (
                 f"lm_main --heads {h}: a warm-up step and 3 logged steps")
         records += [
@@ -1459,7 +1522,8 @@ def check_flash(torch, FA, timer, gen):
              "tolerance_tile_rel": FLASH_TILE_REL, "tile_rows": FLASH_TILE,
              "tolerance_reason": "the kernel rounds P to bf16 for P V, the "
              "plain version keeps f32; both round O once",
-             "bound_ms": fwd_b, "bound_by": fwd_by, **fwd_t, **common},
+             "bound_ms": fwd_b, "bound_by": fwd_by, **fwd_terms, **fwd_t,
+             **common},
             {"name": "flash_attention_bwd" + suffix,
              "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
              "grads": bwd, "two_runs_bitwise_equal": True,
@@ -1467,7 +1531,7 @@ def check_flash(torch, FA, timer, gen):
              "tolerance_reason": "the kernel rounds P and dS to bf16 as MMA "
              "operands and takes D from the bf16 O; the plain autograd keeps "
              "f32 and rounds each gradient once",
-             "bound_ms": bwd_b, "bound_by": bwd_by, **bwd_t,
+             "bound_ms": bwd_b, "bound_by": bwd_by, **bwd_terms, **bwd_t,
              "library_fwd_bwd_ms": lib_fwd_bwd, **common},
         ]
         del t, q, k, v, dout, out, lse, ref, leaves, lq, lk, lv, ldo, lib_out
@@ -2232,6 +2296,10 @@ def _train_counts(FA, FX, reset=False):
     return {name: fn.launches for name, fn in fns.items()}
 
 
+# lm_main --heads at the default dim 1024: head dims 64, 32 and 256.
+LM_MAIN_HEADS = (16, 32, 4)
+
+
 def run_train(torch, timer, gen):
     """The trainer at lm_main's full default width with seeded weights:
     one step of the kernel path (attn/loss "auto", which resolve to
@@ -2333,24 +2401,30 @@ def run_train(torch, timer, gen):
     if rc != 0 or cli != {name: 4 * n for name, n in per_step.items()}:
         raise AssertionError(f"lm_main exited {rc}, launched {cli}")
 
-    # The same at 16 heads: head dim 64, the kernels' other build.
-    log, seen = logging.getLogger("lm_main"), _LossLines()
-    log.addHandler(seen)
-    _train_counts(FA, FX, reset=True)
-    rc = lm_main.main(["--heads", "16", "--train-steps", "3",
-                       "--log-every", "1"])
-    cli_d64 = _train_counts(FA, FX)
-    log.removeHandler(seen)
-    if rc != 0 or cli_d64 != {name: 4 * n for name, n in per_step.items()}:
-        raise AssertionError(
-            f"lm_main --heads 16 exited {rc}, launched {cli_d64}")
-    if len(seen.losses) != 3 or not all(
-        math.isfinite(x) for x in seen.losses
-    ) or not seen.losses[-1] < seen.losses[0]:
-        raise AssertionError(
-            f"lm_main --heads 16: the loss did not fall: {seen.losses}")
-    launches.update({name + "_d64": cli_d64[name] for name in (
-        "flash_attention_fwd", "flash_attention_bwd")})
+    # The same at 16, 32 and 4 heads: head dims 64, 32 (on the d-64
+    # instance) and 256, the kernels' other instances.
+    by_heads = {}
+    for h in LM_MAIN_HEADS:
+        log, seen = logging.getLogger("lm_main"), _LossLines()
+        log.addHandler(seen)
+        _train_counts(FA, FX, reset=True)
+        rc = lm_main.main(["--heads", str(h), "--train-steps", "3",
+                           "--log-every", "1"])
+        cli_h = _train_counts(FA, FX)
+        log.removeHandler(seen)
+        if rc != 0 or cli_h != {name: 4 * n for name, n in per_step.items()}:
+            raise AssertionError(
+                f"lm_main --heads {h} exited {rc}, launched {cli_h}")
+        if len(seen.losses) != 3 or not all(
+            math.isfinite(x) for x in seen.losses
+        ) or not seen.losses[-1] < seen.losses[0]:
+            raise AssertionError(
+                f"lm_main --heads {h}: the loss did not fall: {seen.losses}")
+        d = TRAIN["dim"] // h
+        launches.update({f"{name}_d{d}": cli_h[name] for name in (
+            "flash_attention_fwd", "flash_attention_bwd")})
+        by_heads[f"lm_main_heads_{h}"] = {"head_dim": d, "launches": cli_h,
+                                          "losses": seen.losses}
 
     b, s, dim = TRAIN["batch"], TRAIN["seq_len"], TRAIN["dim"]
     vocab, dh = TRAIN["vocab"], TRAIN["dim"] // TRAIN["heads"]
@@ -2381,9 +2455,304 @@ def run_train(torch, timer, gen):
         "head_f32_ms": head,
         "head_share_of_step": (head["fwd_ms"] + head["bwd_ms"]) / step_ms,
         "peak_memory_gb": peak_gb, "profile": profile,
-        "launches": launches, "lm_main_launches": cli,
-        "lm_main_heads_16": {"launches": cli_d64, "losses": seen.losses},
+        "launches": launches, "lm_main_launches": cli, **by_heads,
     }, launches
+
+
+# bench.py's lm_large point (bench.py:603-613), at full size: about 0.94B
+# parameters, the chunked vocab head in 8192-column chunks.
+LM_LARGE = dict(vocab=32000, dim=2048, depth=16, heads=16, seq_len=2048,
+                batch=2, learning_rate=3e-4, head_impl="chunked",
+                head_chunk=8192)
+LM_LARGE_STEPS = 10
+
+
+def _head_loss_peak(torch, loss_fn, hidden, kernel, bias, labels):
+    """Device memory the head and loss take beyond what is already held,
+    forward and backward, on the hidden rows (a leaf that wants its
+    gradient): bytes, and the loss."""
+    h = hidden.detach().requires_grad_(True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss = loss_fn(h, kernel, bias, labels)
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    h.grad = kernel.grad = bias.grad = None
+    return peak, loss.item()
+
+
+def run_lm_large(torch, gen):
+    """bench.py's lm_large (dim 2048 x 16 layers, seq 2048, batch 2,
+    vocab 32000, chunked head of 8192 columns) through build_lm_training
+    with seeded weights: one step against the dense head's trainer from
+    the same weights and batch (the loss within TRAIN_LOSS_REL), the
+    head + loss's own peak memory beside the dense head's (it must stay
+    below), LM_LARGE_STEPS steps on one batch (the loss falling, flash
+    launched depth times a step each way), step time, tokens/s, the
+    model-FLOPs share, and a 2-step profile."""
+    from container_engine_accelerators_tpu_torch.models import (
+        transformer as T,
+    )
+    from container_engine_accelerators_tpu_torch.ops import (
+        chunked_xent as CX,
+        flash_attention as FA,
+        fused_xent as FX,
+    )
+
+    cfg = LM_LARGE
+    step, state, batch_fn = T.build_lm_training(**cfg, seed=SEED,
+                                                device="cuda")
+    model = state["model"]
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens, targets = batch_fn(torch.Generator().manual_seed(SEED))
+    d_step, d_state, _ = T.build_lm_training(
+        **{**cfg, "head_impl": "dense"}, seed=SEED, device="cuda")
+    d_state["model"].load_state_dict(model.state_dict())
+
+    # The head and loss alone on this model's hidden rows: the chunked
+    # head against the dense f32 head and the loss the dense trainer
+    # resolves to (the fused kernels on the card).
+    labels = targets.reshape(-1)
+    with torch.no_grad():
+        hidden, kern, bias = model(tokens, head_impl="chunked")
+    hidden = hidden.reshape(-1, cfg["dim"])
+    kern.requires_grad_(True)
+    bias.requires_grad_(True)
+    chunk = cfg["head_chunk"]
+    peak_chunked, loss_c = _head_loss_peak(
+        torch, lambda h, k, b, y: CX.chunked_softmax_xent(h, k, b, y, chunk),
+        hidden, kern, bias, labels)
+    peak_dense, loss_d = _head_loss_peak(
+        torch, lambda h, k, b, y: FX.fused_cross_entropy_loss(
+            torch.matmul(h, k) + b, y), hidden, kern, bias, labels)
+    del hidden
+    if not peak_chunked < peak_dense:
+        raise AssertionError(f"chunked head peak {peak_chunked} >= dense "
+                             f"{peak_dense}")
+
+    _train_counts(FA, FX, reset=True)
+    state, k_loss = step(state, tokens, targets)
+    one = _train_counts(FA, FX)
+    d_state, dense_loss = d_step(d_state, tokens, targets)
+    loss_rel = abs(float(k_loss) - float(dense_loss)) / abs(float(dense_loss))
+    if loss_rel > TRAIN_LOSS_REL:
+        raise AssertionError(f"lm_large: chunked loss {float(k_loss)} vs "
+                             f"dense {float(dense_loss)}")
+    per_step = {"flash_attention_fwd": cfg["depth"],
+                "flash_attention_bwd": cfg["depth"],
+                "fused_xent_fwd": 0, "fused_xent_bwd": 0}
+    if one != per_step:
+        raise AssertionError(f"lm_large: one step launched {one}")
+    del d_step, d_state
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    _train_counts(FA, FX, reset=True)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    losses = []
+    for _ in range(LM_LARGE_STEPS):
+        state, loss = step(state, tokens, targets)
+        losses.append(loss)
+    losses = [float(x) for x in losses]  # the fence
+    wall = time.monotonic() - t0
+    counts = _train_counts(FA, FX)
+    if counts != {k: v * LM_LARGE_STEPS for k, v in per_step.items()}:
+        raise AssertionError(f"lm_large launches {counts}")
+    if not all(math.isfinite(x) for x in losses) or not (
+        losses[-1] < losses[0]
+    ):
+        raise AssertionError(f"lm_large: the loss did not fall: {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = device_profile(
+        torch, lambda: [step(state, tokens, targets) for _ in range(2)],
+        top=12)
+    b, s_, dim, depth = cfg["batch"], cfg["seq_len"], cfg["dim"], cfg["depth"]
+    tok, dh = b * s_, dim // cfg["heads"]
+    bf16_flops = 3 * (2 * tok * 12 * dim * dim * depth
+                      + 4 * b * cfg["heads"] * dh * s_ * (s_ + 1) / 2 * depth)
+    f32_flops = 3 * 2 * tok * dim * cfg["vocab"]
+    ideal_ms = (bf16_flops / PEAK_OPS["bf16"]
+                + f32_flops / PEAK_OPS["f32"]) * 1e3
+    step_ms = wall / LM_LARGE_STEPS * 1e3
+    del step, state, model
+    torch.cuda.empty_cache()
+    return {
+        "phase": "lm_large_train", **cfg, "parameters": n_params,
+        "steps": LM_LARGE_STEPS, "losses": losses,
+        "one_step_loss_chunked": float(k_loss),
+        "one_step_loss_dense": float(dense_loss),
+        "one_step_loss_rel": loss_rel, "loss_tolerance_rel": TRAIN_LOSS_REL,
+        "head_loss_peak_bytes": {"chunked": peak_chunked,
+                                 "dense_fused_loss": peak_dense},
+        "head_loss_values": {"chunked": loss_c, "dense": loss_d},
+        "step_ms": step_ms, "tokens_per_s": tok * LM_LARGE_STEPS / wall,
+        "model_flops_per_step": {"bf16": bf16_flops, "f32_head": f32_flops},
+        "ideal_ms_at_peak": ideal_ms,
+        "model_flops_share_of_peak": ideal_ms / step_ms,
+        "peak_memory_gb": peak_gb, "launches": counts, "profile": profile,
+    }, counts
+
+
+# Inception v3 at the reference's demo job (demo/tpu-training/
+# inception-v3-tpu.yaml:21-24): 299 x 299 images, batch 128 a chip.
+INCEPTION = dict(model_name="inception_v3", image_size=299,
+                 num_classes=1000, learning_rate=0.1)
+INCEPTION_BATCH = 128
+INCEPTION_STEPS = 8
+# About 5.7 G multiply-adds an image at 299 x 299 (torchvision's count),
+# 2 FLOPs each; a training step 3x the forward.
+INCEPTION_FWD_FLOP = 2 * 5.7e9
+
+
+def run_inception_train(torch, gen):
+    """Inception v3 through build_training at 299 x 299, batch 128:
+    INCEPTION_STEPS steps on one batch (the loss finite and falling),
+    step time, images/s, the model-FLOPs share, a 2-step profile; then
+    resnet_main --model inception_v3 at the demo job's flags for a
+    warm-up step and 3 logged steps (fresh batches each step)."""
+    from container_engine_accelerators_tpu_torch import resnet_main
+    from container_engine_accelerators_tpu_torch.models import train as TT
+
+    step, batch_fn, state = TT.build_training(**INCEPTION, seed=SEED,
+                                              device="cuda")
+    images, labels = batch_fn(gen, INCEPTION_BATCH)
+    state, loss = step(state, images, labels)  # warm-up
+    float(loss)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    losses = []
+    for _ in range(INCEPTION_STEPS):
+        state, loss = step(state, images, labels)
+        losses.append(loss)
+    losses = [float(x) for x in losses]
+    wall = time.monotonic() - t0
+    if not all(math.isfinite(x) for x in losses) or not (
+        losses[-1] < losses[0]
+    ):
+        raise AssertionError(f"inception: the loss did not fall: {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = device_profile(
+        torch, lambda: [step(state, images, labels) for _ in range(2)],
+        top=12)
+    del step, state, images, labels
+    torch.cuda.empty_cache()
+
+    log, seen = logging.getLogger("resnet_main"), _LossLines()
+    log.addHandler(seen)
+    t_cli = time.monotonic()
+    rc = resnet_main.main(["--model", "inception_v3", "--image-size", "299",
+                           "--batch-per-chip", str(INCEPTION_BATCH),
+                           "--train-steps", "3", "--log-every", "1"])
+    cli_s = time.monotonic() - t_cli
+    log.removeHandler(seen)
+    if rc != 0 or len(seen.losses) != 3 or not all(
+        math.isfinite(x) for x in seen.losses
+    ):
+        raise AssertionError(f"resnet_main --model inception_v3 exited {rc}, "
+                             f"losses {seen.losses}")
+    step_ms = wall / INCEPTION_STEPS * 1e3
+    flops = 3 * INCEPTION_FWD_FLOP * INCEPTION_BATCH
+    return {
+        "phase": "inception_train", **INCEPTION, "batch": INCEPTION_BATCH,
+        "steps": INCEPTION_STEPS, "losses": losses, "step_ms": step_ms,
+        "images_per_s": INCEPTION_BATCH * INCEPTION_STEPS / wall,
+        "model_flops_per_step": flops,
+        "model_flops_share_of_bf16_peak": flops / PEAK_OPS["bf16"]
+        / (step_ms / 1e3),
+        "peak_memory_gb": peak_gb, "profile": profile,
+        "resnet_main_losses": seen.losses, "resnet_main_seconds": cli_s,
+    }
+
+
+CKPT_DEPTH = 2  # lm_main's width, cut to 2 layers to save time
+
+
+def run_checkpoint(torch):
+    """Checkpoints on the card: lm_main with --model-dir (depth
+    CKPT_DEPTH) trains and saves, then a second run resumes (it logs the
+    restored step and saves one past it); a trained state saved and
+    restored into a fresh trainer gives bitwise the same tensors, model
+    and AdamW moments; resnet_main with --model-dir writes
+    checkpoint_<n>."""
+    import shutil
+    import tempfile
+
+    from container_engine_accelerators_tpu_torch import lm_main, resnet_main
+    from container_engine_accelerators_tpu_torch.models import (
+        transformer as T,
+    )
+    from container_engine_accelerators_tpu_torch.utils import (
+        checkpoint as CK,
+    )
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        lm_dir = os.path.join(root, "lm")
+        args = ["--depth", str(CKPT_DEPTH), "--train-steps", "3",
+                "--log-every", "1", "--model-dir", lm_dir]
+
+        class _Lines(logging.Handler):
+            lines = []
+
+            def emit(self, record):
+                self.lines.append(record.getMessage())
+
+        seen = _Lines()
+        logging.getLogger("lm_main").addHandler(seen)
+        try:
+            rc1 = lm_main.main(args)
+            first = sorted(os.listdir(lm_dir))
+            rc2 = lm_main.main(args)
+            second = sorted(os.listdir(lm_dir))
+        finally:
+            logging.getLogger("lm_main").removeHandler(seen)
+        resumed = [x for x in seen.lines if x.startswith("resumed from")]
+        if (rc1, rc2) != (0, 0) or first != ["checkpoint_4"] or (
+            second != ["checkpoint_4", "checkpoint_8"]
+        ) or resumed != ["resumed from step 4"]:
+            raise AssertionError(f"lm_main --model-dir: rc {rc1} {rc2}, "
+                                 f"{first} then {second}, {resumed}")
+
+        cfg = dict(TRAIN, depth=CKPT_DEPTH)
+        step, state, batch_fn = T.build_lm_training(**cfg, seed=SEED,
+                                                    device="cuda")
+        tokens, targets = batch_fn(torch.Generator().manual_seed(SEED))
+        for _ in range(2):
+            state, _ = step(state, tokens, targets)
+        saved_dir = os.path.join(root, "bitwise")
+        CK.save_checkpoint(saved_dir, state, state["step"])
+        _, fresh, _ = T.build_lm_training(**cfg, seed=SEED + 1,
+                                          device="cuda")
+        CK.restore_checkpoint(saved_dir, fresh)
+        want = [*state["model"].state_dict().values()] + [
+            t for st in state["opt"].state.values() for t in st.values()
+            if torch.is_tensor(t)]
+        got = [*fresh["model"].state_dict().values()] + [
+            t for st in fresh["opt"].state.values() for t in st.values()
+            if torch.is_tensor(t)]
+        if len(got) != len(want) or fresh["step"] != state["step"] or not (
+            all(a.device == b.device and torch.equal(a, b)
+                for a, b in zip(got, want))
+        ):
+            raise AssertionError("restored tensors differ from the saved")
+        del step, state, fresh
+        torch.cuda.empty_cache()
+
+        rn_dir = os.path.join(root, "resnet")
+        rc = resnet_main.main(["--train-steps", "1", "--log-every", "1",
+                               "--model-dir", rn_dir])
+        rn = sorted(os.listdir(rn_dir)) if os.path.isdir(rn_dir) else []
+        if rc != 0 or rn != ["checkpoint_2"]:
+            raise AssertionError(f"resnet_main --model-dir: rc {rc}, {rn}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"phase": "checkpoint", "lm_main_depth": CKPT_DEPTH,
+            "lm_main_dirs": [first, second], "lm_main_resumed": resumed,
+            "bitwise_tensors": len(want), "resnet_main_dirs": rn}
 
 
 def main() -> int:
@@ -2481,6 +2850,9 @@ def main() -> int:
     train, l_train = run_train(torch, timer, tgen)
     emit({**train, "card": smi})
     torch.cuda.empty_cache()
+    large, l_large = run_lm_large(torch, tgen)
+    emit({**large, "card": smi})
+    torch.cuda.empty_cache()
 
     vgen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     k_fl, faults = check_fused_matmul(torch, FL, timer, vgen)
@@ -2492,6 +2864,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     vision, l_vision = run_vision_train(torch, vgen)
     emit({**vision, "card": smi})
+    torch.cuda.empty_cache()
+    emit({**run_inception_train(torch, vgen), "card": smi})
+    torch.cuda.empty_cache()
+    emit({**run_checkpoint(torch), "card": smi})
 
     src = "container_engine_accelerators_tpu_torch/csrc/"
     ref = "container_engine_accelerators_tpu/ops/"
@@ -2510,6 +2886,14 @@ def main() -> int:
         (k_flash[2], l_train["flash_attention_fwd_d64"],
          "flash_attention.cu", "flash_attention.py:112"),
         (k_flash[3], l_train["flash_attention_bwd_d64"],
+         "flash_attention.cu", "flash_attention.py:112"),
+        (k_flash[4], l_train["flash_attention_fwd_d32"],
+         "flash_attention.cu", "flash_attention.py:112"),
+        (k_flash[5], l_train["flash_attention_bwd_d32"],
+         "flash_attention.cu", "flash_attention.py:112"),
+        (k_flash[6], l_train["flash_attention_fwd_d256"],
+         "flash_attention.cu", "flash_attention.py:112"),
+        (k_flash[7], l_train["flash_attention_bwd_d256"],
          "flash_attention.cu", "flash_attention.py:112"),
         (k_xent[0], l_train["fused_xent_fwd"], "fused_xent.cu",
          "fused_xent.py:34"),
@@ -2548,6 +2932,8 @@ def main() -> int:
             if op == "int8_weight_matmul":  # the bf16 engine's drafter
                 k["launches_spec_bf16"] = engine_launches[(False, "_spec")][
                     op]
+    for k in kernels[3:5]:  # lm_large runs flash at head dim 128 too
+        k["launches_lm_large"] = l_large[k["name"]]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

@@ -1,5 +1,6 @@
 // Causal flash attention, forward and backward, for Hopper (sm_90a), at
-// head dims 64 and 128.
+// every head dim that is a multiple of 8 up to 256: instances at d 64, 128
+// and 256, each running any smaller d down to the next instance's.
 //
 // Replaces the Pallas TPU kernels that container_engine_accelerators_tpu/
 // ops/flash_attention.py reaches from `flash_causal_attention` (:136): the
@@ -17,7 +18,10 @@
 //
 // Bound: operations (bf16 tensor cores).  At the LM shape (b 8, s 2048,
 // h 8, d 128) the forward is 2 b h s^2 d = 69 GFLOP against 134 MB of
-// q / k / v / o, the backward at least 2.5x the forward's flops.
+// q / k / v / o, the backward at least 2.5x the forward's flops.  The
+// products do not depend on the h / d split of a width; the exponentials,
+// b h s^2 / 2 of them, do: at d 32 (h 32) they, not the tensor cores, bound
+// the kernels.
 //
 // Design (the primitives are in hopper_mma.cuh):
 //   - Every product is a wgmma (m64nNk16, bf16 in, f32 sums).  A block is
@@ -60,6 +64,18 @@
 //   - s is a multiple of 64, not of 128: the rows of a block's last tile
 //     past s are zero-filled on load (so a masked P meets no garbage in
 //     V), masked by the causal rule, and not stored.
+//   - A head dim d below its instance's D (d 32 on the d-64 instance, d 96
+//     on the d-128 one): the tensor maps' innermost extent is d, so TMA
+//     zero-fills columns d..D-1 of every tile; zero columns add nothing to
+//     Q K^T or dO V^T and give zero columns of O, dQ, dK and dV, which are
+//     not stored.  The softmax scale is the true d's.  d 32 runs on the
+//     d-64 instance rather than one of its own in the 64-byte swizzle:
+//     there the exponentials bound the kernels, not the products it pads.
+//   - d 256 (Tiles): a 64 x 256 f32 accumulator is 128 registers a thread
+//     and a 64 x 256 bf16 tile 32 KB, so the forward takes 64-key stages in
+//     rings of two, the dQ pass one warpgroup of 64 query rows a block (Q,
+//     dO and five stages fill shared memory), and dK / dV its own pass
+//     (flash_bwd_dkdv_split), one warpgroup for each sum.
 //
 // q, k and v are read through their (batch, seq, head) strides with the
 // head dim contiguous, so the strided q / k / v views of the fused qkv
@@ -91,6 +107,24 @@ constexpr int BQ = 64;   // queries a stage in the dK / dV pass
 constexpr int STAGES = 2;       // V in the dQ pass
 constexpr int LONG_STAGES = 3;  // K and V in the forward, K in the dQ pass
 constexpr int DKDV_STAGES = 4;  // Q / dO with L and D in the dK / dV pass
+// At d 256 a 64 x 256 bf16 tile is 32 KB: the d-128 tiling does not fit
+// in shared memory or registers, so the d-256 instance takes 64-key stages
+// in two-stage rings in the forward, 64 query rows a block (one warpgroup)
+// in the dQ pass, and a dK / dV pass of its own (flash_bwd_dkdv_split).
+template <int D>
+struct Tiles {
+  static constexpr int FWD_BN = D == 256 ? 64 : BN;  // keys a forward stage
+  static constexpr int FWD_STAGES = D == 256 ? STAGES : LONG_STAGES;
+  static constexpr int DQ_WGS = D == 256 ? 1 : 2;  // warpgroups a dQ block
+  // Its query rows, and the keys of a dQ stage (the diagonal tile is
+  // square); also the rows of the dK / dV pass's K and V tiles.
+  static constexpr int DQ_BM = 64 * DQ_WGS;
+};
+constexpr int SPLIT_STAGES = 2;  // Q / dO stages of flash_bwd_dkdv_split
+template <bool DK>
+struct Role {  // a warpgroup's sum in flash_bwd_dkdv_split: dK or dV
+  static constexpr bool dk = DK;
+};
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -141,14 +175,16 @@ __device__ __forceinline__ void acc_times(float (&acc)[D / 2],
 }
 
 // Rows r and r + 8 of a warpgroup accumulator (64 x D), times `mul`, as
-// bf16 into contiguous (b, s, h, d) rows; rows at or past `limit` skipped.
+// bf16 into contiguous (b, s, h, d) rows; rows at or past `limit` and
+// columns at or past the head dim d (<= D) skipped.
 template <int D>
 __device__ __forceinline__ void store_rows(bf16* out, const float (&c)[D / 2],
                                            i64 base, i64 row_stride, int row,
                                            int limit, float mul0, float mul1,
-                                           int t) {
+                                           int t, int d) {
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
+    if (n * 8 + 2 * t >= d) continue;
     if (row < limit) {
       *reinterpret_cast<uint32_t*>(out + base + (i64)row * row_stride +
                                    n * 8 + 2 * t) =
@@ -164,26 +200,30 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&c)[D / 2],
 
 template <int D>
 __host__ __device__ constexpr int fwd_smem() {
-  return 2048 + 2 * (BM * D + LONG_STAGES * 2 * BN * D);
+  return 2048 + 2 * (BM * D + Tiles<D>::FWD_STAGES * 2 * Tiles<D>::FWD_BN * D);
 }
 
 // Forward: grid (ceil(s / BM) query tiles, b * heads).  Step j starts
 // S_j = Q K_j^T and then O += P_{j-1} V_{j-1}, waits for S_j only, and does
 // tile j's softmax while the P V product runs; K_{j+2} and V_{j+1} are
-// copied meanwhile (V is used one step after its K).
+// copied meanwhile (V is used one step after its K).  At d 256 the stages
+// hold 64 keys and the rings two: K_{j+1} and V_j are copied in step j.
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd(const __grid_constant__ CUtensorMap map_q,
               const __grid_constant__ CUtensorMap map_k,
               const __grid_constant__ CUtensorMap map_v,
               bf16* __restrict__ o, float* __restrict__ lse, int s, int heads,
-              float scale_log2) {
+              int d, float scale_log2) {
   extern __shared__ unsigned char smem[];
-  constexpr uint32_t TILE_BYTES = BN * D * 2;
+  constexpr int KN = Tiles<D>::FWD_BN;       // keys a stage
+  constexpr int RING = Tiles<D>::FWD_STAGES;
+  constexpr int AHEAD = RING - 1;  // steps a K copy runs ahead of its use
+  constexpr uint32_t TILE_BYTES = KN * D * 2;
   const uint32_t bars = align_1k(smem);  // K's stages, then V's
   const uint32_t q_s = bars + 1024;
   const uint32_t k_ring = q_s + BM * D * 2;
-  const uint32_t v_ring = k_ring + LONG_STAGES * TILE_BYTES;
+  const uint32_t v_ring = k_ring + RING * TILE_BYTES;
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest rows first
   const int bi = blockIdx.y / heads, hi = blockIdx.y % heads;
   const int wg = threadIdx.x / WG_THREADS;
@@ -191,37 +231,40 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int g = lane >> 2, t = lane & 3;
   const int q0 = qt * BM;
   const int row_l = wg * 64 + warp * 16 + g;  // in the tile; and row_l + 8
-  // Tile j of K (or V) lives in stage j % 3, whose barrier it completes for
-  // the (j / 3)-th time.
+  // The last key tile any row of this block sees (qt where KN == BM).
+  const int last = (min(q0 + BM, s) + KN - 1) / KN - 1;
+  // Tile j of K (or V) lives in stage j % RING, whose barrier it completes
+  // for the (j / RING)-th time.
   auto copy_k = [&](int j, uint32_t extra) {
-    const uint32_t bar = bars + 8 * (j % LONG_STAGES);
+    const uint32_t bar = bars + 8 * (j % RING);
     mbar_expect(bar, TILE_BYTES + extra);
-    tma_tile<D, BN>(k_ring + (j % LONG_STAGES) * TILE_BYTES, &map_k, bar, hi,
-                    j * BN, bi);
+    tma_tile<D, KN>(k_ring + (j % RING) * TILE_BYTES, &map_k, bar, hi, j * KN,
+                    bi);
   };
   auto copy_v = [&](int j) {
-    const uint32_t bar = bars + 8 * (LONG_STAGES + j % LONG_STAGES);
+    const uint32_t bar = bars + 8 * (RING + j % RING);
     mbar_expect(bar, TILE_BYTES);
-    tma_tile<D, BN>(v_ring + (j % LONG_STAGES) * TILE_BYTES, &map_v, bar, hi,
-                    j * BN, bi);
+    tma_tile<D, KN>(v_ring + (j % RING) * TILE_BYTES, &map_v, bar, hi, j * KN,
+                    bi);
   };
   auto wait_k = [&](int j) {
-    mbar_wait(bars + 8 * (j % LONG_STAGES), (j / LONG_STAGES) & 1);
+    mbar_wait(bars + 8 * (j % RING), (j / RING) & 1);
   };
   auto wait_v = [&](int j) {
-    mbar_wait(bars + 8 * (LONG_STAGES + j % LONG_STAGES),
-              (j / LONG_STAGES) & 1);
+    mbar_wait(bars + 8 * (RING + j % RING), (j / RING) & 1);
   };
-  init_barriers(bars, 2 * LONG_STAGES);
+  init_barriers(bars, 2 * RING);
   if (threadIdx.x == 0) {
     copy_k(0, BM * D * 2);  // Q rides on K_0's barrier
     tma_tile<D, BM>(q_s, &map_q, bars, hi, q0, bi);
-    if (qt > 0) copy_k(1, 0);
-    copy_v(0);
+    if constexpr (AHEAD == 2) {
+      if (last > 0) copy_k(1, 0);
+      copy_v(0);
+    }
   }
 
-  float acc[D / 2], sc[BN / 2];
-  uint32_t p[BN / 4];
+  float acc[D / 2], sc[KN / 2];
+  uint32_t p[KN / 4];
   zero(acc);
   float m[2] = {-INFINITY, -INFINITY};  // running row max of the raw scores
   float l[2] = {0.f, 0.f};
@@ -233,18 +276,18 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (j > 0) wait_v(j - 1);
     __syncthreads();
   };
-  // Starts the copies of K_{j+2} and V_{j+1}, once step j - 1 is over: two
-  // steps ahead of their use.
+  // Starts the copies of K_{j+AHEAD} and V_{j+AHEAD-1}, once step j - 1 is
+  // over: AHEAD steps ahead of their use.
   auto copies = [&](int j) {
     if (threadIdx.x == 0) {
-      if (j + 2 <= qt) copy_k(j + 2, 0);
-      if (j + 1 <= qt) copy_v(j + 1);
+      if (j + AHEAD <= last) copy_k(j + AHEAD, 0);
+      if (j + AHEAD - 1 <= last) copy_v(j + AHEAD - 1);
     }
   };
   // sc = Q K_j^T, in flight.
   auto scores = [&](int j) {
-    dot_rows<D, BN, BM, BN>(sc, q_s, wg * 64 * 128,
-                            k_ring + (j % LONG_STAGES) * TILE_BYTES);
+    dot_rows<D, KN, BM, KN>(sc, q_s, wg * 64 * 128,
+                            k_ring + (j % RING) * TILE_BYTES);
     wgmma_commit();
   };
   // O = alpha O + P V_j, in flight: O owes the last softmax its alpha.
@@ -256,25 +299,35 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     pin(p);
     wgmma_fence();
-    acc_times<D, BN, BN>(acc, p, v_ring + (j % LONG_STAGES) * TILE_BYTES);
+    acc_times<D, KN, KN>(acc, p, v_ring + (j % RING) * TILE_BYTES);
     wgmma_commit();
   };
   // Tile j's online softmax on the raw scores in sc: m and l move on, alpha
   // is what O must be scaled by before P V is added, and P goes to p as
   // bf16 once the product that reads p is over.
   auto softmax = [&](int j) {
-    if (j == qt) {  // the diagonal tile: BM == BN, so compare in the tile
+    if constexpr (KN == BM) {
+      if (j == last) {  // the diagonal tile: compare in the tile
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) {
-        const int col = (i >> 2) * 8 + 2 * t + (i & 1);
+        for (int i = 0; i < KN / 2; ++i) {
+          const int col = (i >> 2) * 8 + 2 * t + (i & 1);
+          if (col > row_l + ((i >> 1) & 1) * 8) sc[i] = -INFINITY;
+        }
+      }
+    } else if ((j + 1) * KN > q0) {  // a tile past the block's first row
+      const int kb = j * KN - q0;
+#pragma unroll
+      for (int i = 0; i < KN / 2; ++i) {
+        const int col = kb + (i >> 2) * 8 + 2 * t + (i & 1);
         if (col > row_l + ((i >> 1) & 1) * 8) sc[i] = -INFINITY;
       }
     }
     // Each row is spread over the 4 lanes of one g; key 0 of the first
-    // tile is visible to every row, so the new max is finite.
+    // tile is visible to every row, so the new max is finite (a later
+    // tile wholly masked for a row leaves it where it was).
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) {
+    for (int i = 0; i < KN / 2; ++i) {
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
     }
     float ms[2];
@@ -288,7 +341,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) {
+    for (int i = 0; i < KN / 2; ++i) {
       const int r = (i >> 1) & 1;
       sc[i] = fast_exp2(fmaf(sc[i], scale_log2, -ms[r]));
       l[r] += sc[i];
@@ -296,7 +349,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     wgmma_wait<0>();
     pin(acc);
     pin(p);
-    pack_a<BN>(p, sc);
+    pack_a<KN>(p, sc);
   };
 
   // The two warpgroups take turns at the tensor cores inside each step:
@@ -312,7 +365,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   pin(sc);
   if (wg == 0) {
     softmax(0);
-    for (int j = 1; j <= qt; ++j) {
+    for (int j = 1; j <= last; ++j) {
       arrive(j);
       wgmma_fence();
       scores(j);
@@ -323,7 +376,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       softmax(j);
     }
   } else {
-    for (int j = 1; j <= qt; ++j) {
+    for (int j = 1; j <= last; ++j) {
       arrive(j);
       softmax(j - 1);
       times_v(j - 1);
@@ -333,10 +386,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       pin(p);
       pin(sc);
     }
-    softmax(qt);
+    softmax(last);
   }
-  wait_v(qt);
-  times_v(qt);
+  wait_v(last);
+  times_v(last);
   wgmma_wait<0>();
   pin(acc);
   float inv[2];
@@ -351,23 +404,27 @@ __global__ void __launch_bounds__(THREADS, 1)
           (m[r] * scale_log2 + log2f(l[r])) * LN2;
     }
   }
-  store_rows<D>(o, acc, (i64)bi * s * heads * D + (i64)hi * D,
-                (i64)heads * D, q0 + row_l, s, inv[0], inv[1], t);
+  store_rows<D>(o, acc, (i64)bi * s * heads * d + (i64)hi * d,
+                (i64)heads * d, q0 + row_l, s, inv[0], inv[1], t, d);
 }
 
 // D[b, h, r] = sum_d dO[b, r, h, d] * O[b, r, h, d] over the contiguous
-// (b, s, h) rows: HEAD_DIM / 8 lanes a row, 16 bytes a lane.
+// (b, s, h) rows of d elements: D / 8 lanes a row, 16 bytes a lane (the
+// lanes past d read nothing).
 template <int D>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_delta(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                    float* __restrict__ delta, int s, int heads, int rows) {
+                    float* __restrict__ delta, int s, int heads, int rows,
+                    int d) {
   constexpr int LPR = D / 8;  // lanes a row
   const int idx = blockIdx.x * THREADS + threadIdx.x;
   const int row = idx / LPR;
   const int live = row < rows;  // whole warps stay for the shuffles
-  const i64 at = (i64)(live ? row : 0) * D + (idx % LPR) * 8;
-  const uint4 ov = *reinterpret_cast<const uint4*>(o + at);
-  const uint4 dv = *reinterpret_cast<const uint4*>(dout + at);
+  const int col = (idx % LPR) * 8;
+  const i64 at = (i64)(live ? row : 0) * d + (col < d ? col : 0);
+  uint4 ov = *reinterpret_cast<const uint4*>(o + at);
+  uint4 dv = *reinterpret_cast<const uint4*>(dout + at);
+  if (col >= d) ov = dv = make_uint4(0u, 0u, 0u, 0u);
   const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
   const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
   float sum = 0.f;
@@ -414,7 +471,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                    const __grid_constant__ CUtensorMap map_do,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, bf16* __restrict__ dk,
-                   bf16* __restrict__ dv, int s, int heads, float scale) {
+                   bf16* __restrict__ dv, int s, int heads, int d,
+                   float scale) {
   extern __shared__ unsigned char smem[];
   const uint32_t bars = align_1k(smem);  // one a stage of the ring
   const uint32_t k_s = bars + 1024;
@@ -430,7 +488,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int g = lane >> 2, t = lane & 3;
   const int k0 = kt * BM;
   const int key = k0 + wg * 64 + warp * 16 + g;  // and key + 8
-  const i64 row_stride = (i64)heads * D;  // of the contiguous dK, dV
+  const i64 row_stride = (i64)heads * d;  // of the contiguous dK, dV
   const float* lp = lse + (i64)blockIdx.y * s;
   const float* dp = delta + (i64)blockIdx.y * s;
   const float scale_log2 = scale * LOG2E;
@@ -548,47 +606,187 @@ __global__ void __launch_bounds__(THREADS, 1)
     pin(dv_acc);
     pin(dk_acc);
   }
-  const i64 base = (i64)bi * s * row_stride + (i64)hi * D;
-  store_rows<D>(dk, dk_acc, base, row_stride, key, s, scale, scale, t);
-  store_rows<D>(dv, dv_acc, base, row_stride, key, s, 1.f, 1.f, t);
+  const i64 base = (i64)bi * s * row_stride + (i64)hi * d;
+  store_rows<D>(dk, dk_acc, base, row_stride, key, s, scale, scale, t, d);
+  store_rows<D>(dv, dv_acc, base, row_stride, key, s, 1.f, 1.f, t, d);
+}
+
+template <int D>
+__host__ __device__ constexpr int split_smem() {
+  return 2048 + 2 * BQ * D * 2 + SPLIT_STAGES * dkdv_stage<D>();
+}
+
+// dK and dV at d 256: grid (s / BQ key tiles, b * heads).  The two 64 x 256
+// f32 sums of a key's rows do not fit one thread's registers beside the
+// score tiles (256 a thread), so a block owns BQ keys and its warpgroups
+// split the sums: warpgroup 0 sums dV = sum P^T dO, warpgroup 1 dK =
+// scale * sum dS^T Q, each over the queries from k0 in steps of BQ.  Both
+// compute S^T = K Q^T (a fifth product a step where flash_bwd_dkdv does
+// four), and warpgroup 1 also dP^T = V dO^T.  A step's stage is read inside
+// its step, so a ring of two stages lets the copy run one step ahead (three
+// do not fit beside K and V).
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkdv_split(const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_do,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int s,
+                         int heads, int d, float scale) {
+  extern __shared__ unsigned char smem[];
+  const uint32_t bars = align_1k(smem);  // one a stage of the ring
+  const uint32_t k_s = bars + 1024;
+  const uint32_t v_s = k_s + BQ * D * 2;
+  const uint32_t ring = v_s + BQ * D * 2;
+  unsigned char* ring_p = smem + (ring - smem_u32(smem));
+  constexpr uint32_t STAGE = dkdv_stage<D>();
+  constexpr uint32_t TILE_BYTES = BQ * D * 2;
+  const int k0 = blockIdx.x * BQ;
+  const int bi = blockIdx.y / heads, hi = blockIdx.y % heads;
+  const int wg = threadIdx.x / WG_THREADS;  // 0: dV, 1: dK
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int key = k0 + warp * 16 + g;  // and key + 8
+  const float* lp = lse + (i64)blockIdx.y * s;
+  const float* dp = delta + (i64)blockIdx.y * s;
+  const float scale_log2 = scale * LOG2E;
+  const int steps = (s - k0) / BQ;
+
+  // Step `it` (queries from k0 + it BQ) lives in stage it % 2, whose
+  // barrier it completes for the (it / 2)-th time: Q, dO, L and D.  One
+  // thread.
+  auto copy_step = [&](int it, uint32_t extra) {
+    const int i0 = k0 + it * BQ;
+    const uint32_t at = ring + (it % SPLIT_STAGES) * STAGE;
+    const uint32_t bar = bars + 8 * (it % SPLIT_STAGES);
+    mbar_expect(bar, 2 * TILE_BYTES + 2 * BQ * 4 + extra);
+    tma_tile<D, BQ>(at, &map_q, bar, hi, i0, bi);
+    tma_tile<D, BQ>(at + TILE_BYTES, &map_do, bar, hi, i0, bi);
+    bulk_load(at + 2 * TILE_BYTES, lp + i0, BQ * 4, bar);
+    bulk_load(at + 2 * TILE_BYTES + BQ * 4, dp + i0, BQ * 4, bar);
+  };
+  init_barriers(bars, SPLIT_STAGES);
+  if (threadIdx.x == 0) {
+    copy_step(0, 2 * TILE_BYTES);  // K and V ride on step 0's barrier
+    tma_tile<D, BQ>(k_s, &map_k, bars, hi, k0, bi);
+    tma_tile<D, BQ>(v_s, &map_v, bars, hi, k0, bi);
+  }
+
+  // One warpgroup's whole pass, dV (Role<false>) or dK (Role<true>): each
+  // warpgroup branches once, so no wgmma sits under a divergent branch
+  // inside the loop (ptxas serializes those, C7520).
+  const i64 row_stride = (i64)heads * d;  // of the contiguous dK, dV
+  const i64 base = (i64)bi * s * row_stride + (i64)hi * d;
+  auto pass = [&](auto role) {
+    constexpr bool DK = decltype(role)::dk;
+    float acc[D / 2], st[BQ / 2], dpt[BQ / 2];
+    uint32_t pa[BQ / 4];
+    zero(acc);
+    for (int it = 0; it < steps; ++it) {
+      mbar_wait(bars + 8 * (it % SPLIT_STAGES), (it / SPLIT_STAGES) & 1);
+      __syncthreads();  // every thread is past step it - 1: its stage is free
+      if (threadIdx.x == 0 && it + 1 < steps) copy_step(it + 1, 0);
+      const uint32_t q_s = ring + (it % SPLIT_STAGES) * STAGE;
+      const float* l_s = reinterpret_cast<const float*>(
+          ring_p + (it % SPLIT_STAGES) * STAGE + 2 * TILE_BYTES);
+      const float* d_s = l_s + BQ;
+      wgmma_fence();
+      dot_rows<D, BQ, BQ, BQ>(st, k_s, 0, q_s);
+      if constexpr (DK) {
+        dot_rows<D, BQ, BQ, BQ>(dpt, v_s, 0, q_s + TILE_BYTES);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(st);
+      if constexpr (DK) pin(dpt);
+      // st becomes P^T, and for dK dpt becomes dS^T.
+      const int i0 = k0 + it * BQ;
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(l_s + n * 8 + 2 * t);
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(d_s + n * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = i0 + n * 8 + 2 * t + (e & 1);
+          const float lq = (e & 1) ? l2.y : l2.x;
+          float p = fast_exp2(fmaf(st[4 * n + e], scale_log2, -lq * LOG2E));
+          if (it == 0 && qi < key + (e >> 1) * 8) p = 0.f;
+          st[4 * n + e] = p;
+          if constexpr (DK) {
+            const float dq = (e & 1) ? d2.y : d2.x;
+            dpt[4 * n + e] = p * (dpt[4 * n + e] - dq);
+          }
+        }
+      }
+      if constexpr (DK) {
+        pack_a<BQ>(pa, dpt);
+      } else {
+        pack_a<BQ>(pa, st);
+      }
+      wgmma_fence();
+      // dK += dS^T Q, or dV += P^T dO.
+      acc_times<D, BQ, BQ>(acc, pa, DK ? q_s : q_s + TILE_BYTES);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(acc);
+    }
+    if constexpr (DK) {
+      store_rows<D>(dk, acc, base, row_stride, key, s, scale, scale, t, d);
+    } else {
+      store_rows<D>(dv, acc, base, row_stride, key, s, 1.f, 1.f, t, d);
+    }
+  };
+  if (wg == 0) {
+    pass(Role<false>{});
+  } else {
+    pass(Role<true>{});
+  }
 }
 
 template <int D>
 __host__ __device__ constexpr int dq_smem() {
-  return 2048 + 2 * (2 * BM * D + (LONG_STAGES + STAGES) * BN * D);
+  return 2048 + 2 * (2 + LONG_STAGES + STAGES) * Tiles<D>::DQ_BM * D;
 }
 
-// dQ: grid (ceil(s / BM) query tiles, b * heads).  Warpgroup w owns queries
+// dQ: grid (ceil(s / QM) query tiles, b * heads).  Warpgroup w owns queries
 // [q0 + 64 w, q0 + 64 w + 64) and walks the key tiles up to the diagonal.
+// At d 256 a block is one warpgroup and the tiles 64 rows (QM == KN == 64):
+// Q, dO and the five 64 x 256 stages fill shared memory.
 // Step j starts S_j = Q K_j^T and dP_j = dO V_j^T and then dQ += dS_{j-1}
 // K_{j-1}, waits for the first two only, and does its exponentials while
 // the third runs; a K tile is read for two steps, so its ring has three
 // stages, V's two.
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Tiles<D>::DQ_WGS * WG_THREADS, 1)
     flash_bwd_dq(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_do,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, bf16* __restrict__ dq,
-                 int s, int heads, float scale) {
+                 int s, int heads, int d, float scale) {
   extern __shared__ unsigned char smem[];
-  constexpr uint32_t TILE_BYTES = BN * D * 2;
+  constexpr int QM = Tiles<D>::DQ_BM;  // query rows a block
+  constexpr int KN = QM;               // keys a stage
+  constexpr uint32_t TILE_BYTES = KN * D * 2;
   const uint32_t bars = align_1k(smem);  // K's stages, then V's
   const uint32_t q_s = bars + 1024;
-  const uint32_t do_s = q_s + BM * D * 2;
-  const uint32_t k_ring = do_s + BM * D * 2;
+  const uint32_t do_s = q_s + QM * D * 2;
+  const uint32_t k_ring = do_s + QM * D * 2;
   const uint32_t v_ring = k_ring + LONG_STAGES * TILE_BYTES;
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest rows first
   const int bi = blockIdx.y / heads, hi = blockIdx.y % heads;
   const int wg = threadIdx.x / WG_THREADS;
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * BM;
+  const int q0 = qt * QM;
   const int row_l = wg * 64 + warp * 16 + g;
-  const i64 row_stride = (i64)heads * D;
-  const i64 base = (i64)bi * s * row_stride + (i64)hi * D;
+  const i64 row_stride = (i64)heads * d;
+  const i64 base = (i64)bi * s * row_stride + (i64)hi * d;
   const float scale_log2 = scale * LOG2E;
   // Tile j of K lives in stage j % 3 and of V in stage j % 2; each
   // completes its stage's barrier for the (j / 3)-th or (j / 2)-th time.
@@ -597,17 +795,17 @@ __global__ void __launch_bounds__(THREADS, 1)
     const uint32_t k_bar = bars + 8 * (j % LONG_STAGES);
     const uint32_t v_bar = bars + 8 * (LONG_STAGES + (j & 1));
     mbar_expect(k_bar, TILE_BYTES + extra);
-    tma_tile<D, BN>(k_ring + (j % LONG_STAGES) * TILE_BYTES, &map_k, k_bar,
-                    hi, j * BN, bi);
+    tma_tile<D, KN>(k_ring + (j % LONG_STAGES) * TILE_BYTES, &map_k, k_bar,
+                    hi, j * KN, bi);
     mbar_expect(v_bar, TILE_BYTES);
-    tma_tile<D, BN>(v_ring + (j & 1) * TILE_BYTES, &map_v, v_bar, hi, j * BN,
+    tma_tile<D, KN>(v_ring + (j & 1) * TILE_BYTES, &map_v, v_bar, hi, j * KN,
                     bi);
   };
   init_barriers(bars, LONG_STAGES + STAGES);
   if (threadIdx.x == 0) {
-    copy_tile(0, 2 * BM * D * 2);  // Q and dO ride on K_0's barrier
-    tma_tile<D, BM>(q_s, &map_q, bars, hi, q0, bi);
-    tma_tile<D, BM>(do_s, &map_do, bars, hi, q0, bi);
+    copy_tile(0, 2 * QM * D * 2);  // Q and dO ride on K_0's barrier
+    tma_tile<D, QM>(q_s, &map_q, bars, hi, q0, bi);
+    tma_tile<D, QM>(do_s, &map_do, bars, hi, q0, bi);
   }
   const float* lp = lse + (i64)blockIdx.y * s;
   const float* dp = delta + (i64)blockIdx.y * s;
@@ -619,8 +817,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     dr[r] = row < s ? dp[row] : 0.f;
   }
 
-  float dq_acc[D / 2], sc[BN / 2], dpr[BN / 2];
-  uint32_t ds[BN / 4];
+  float dq_acc[D / 2], sc[KN / 2], dpr[KN / 2];
+  uint32_t ds[KN / 4];
   zero(dq_acc);
 
   // Tile j is in and every thread is past step j - 1; then the copies of
@@ -633,26 +831,26 @@ __global__ void __launch_bounds__(THREADS, 1)
   };
   // sc = S = Q K_j^T and dpr = dP = dO V_j^T, in flight.
   auto scores = [&](int j) {
-    dot_rows<D, BN, BM, BN>(sc, q_s, wg * 64 * 128,
+    dot_rows<D, KN, QM, KN>(sc, q_s, wg * 64 * 128,
                             k_ring + (j % LONG_STAGES) * TILE_BYTES);
-    dot_rows<D, BN, BM, BN>(dpr, do_s, wg * 64 * 128,
+    dot_rows<D, KN, QM, KN>(dpr, do_s, wg * 64 * 128,
                             v_ring + (j & 1) * TILE_BYTES);
     wgmma_commit();
   };
   // dQ += dS K_j, in flight.
   auto sums = [&](int j) {
-    acc_times<D, BN, BN>(dq_acc, ds,
+    acc_times<D, KN, KN>(dq_acc, ds,
                          k_ring + (j % LONG_STAGES) * TILE_BYTES);
     wgmma_commit();
   };
   // dpr becomes dS.
   auto pointwise = [&](int j) {
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) {
+    for (int i = 0; i < KN / 2; ++i) {
       const int r = (i >> 1) & 1;
       const int col = (i >> 2) * 8 + 2 * t + (i & 1);
       float p = fast_exp2(fmaf(sc[i], scale_log2, -lr[r]));
-      if (j == qt && col > row_l + 8 * r) p = 0.f;  // BM == BN
+      if (j == qt && col > row_l + 8 * r) p = 0.f;  // QM == KN
       dpr[i] = p * (dpr[i] - dr[r]);
     }
   };
@@ -672,7 +870,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   pin(dpr);
   if (late == 1 && qt > 0) advance(1);
   pointwise(0);
-  pack_a<BN>(ds, dpr);
+  pack_a<KN>(ds, dpr);
   for (int j = 1; j <= qt; ++j) {
     if (late == 0) advance(j);
     pin(ds);
@@ -690,7 +888,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     wgmma_wait<0>();  // dS of step j - 1 is free again
     pin(dq_acc);
     pin(ds);
-    pack_a<BN>(ds, dpr);
+    pack_a<KN>(ds, dpr);
   }
   pin(ds);
   wgmma_fence();
@@ -698,7 +896,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   wgmma_wait<0>();
   pin(dq_acc);
   store_rows<D>(dq, dq_acc, base, row_stride, q0 + row_l, s, scale, scale,
-                t);
+                t, d);
 }
 
 struct Shape {
@@ -736,16 +934,17 @@ int allow_smem(Kernel kernel, int bytes) {
 template <int D>
 int launch_fwd(const View& q, const View& k, const View& v, void* out,
                void* lse, const Shape& n, cudaStream_t st) {
+  constexpr int KN = Tiles<D>::FWD_BN;
   CUtensorMap map_q, map_k, map_v;
   int err = tile_map(&map_q, q, n, BM);
-  if (!err) err = tile_map(&map_k, k, n, BN);
-  if (!err) err = tile_map(&map_v, v, n, BN);
+  if (!err) err = tile_map(&map_k, k, n, KN);
+  if (!err) err = tile_map(&map_v, v, n, KN);
   if (!err) err = allow_smem(flash_fwd<D>, fwd_smem<D>());
   if (err) return err;
   flash_fwd<D><<<dim3((n.s + BM - 1) / BM, n.b * n.heads), THREADS,
                  fwd_smem<D>(), st>>>(map_q, map_k, map_v, (bf16*)out,
-                                      (float*)lse, n.s, n.heads,
-                                      LOG2E / sqrtf((float)D));
+                                      (float*)lse, n.s, n.heads, n.d,
+                                      LOG2E / sqrtf((float)n.d));
   return (int)cudaGetLastError();
 }
 
@@ -753,44 +952,68 @@ template <int D>
 int launch_bwd(const View& q, const View& k, const View& v, const void* out,
                const void* lse, const void* dout, void* delta, void* dq,
                void* dk, void* dv, const Shape& n, cudaStream_t st) {
-  const float scale = 1.0f / sqrtf((float)D);
+  const float scale = 1.0f / sqrtf((float)n.d);
   const int rows = n.b * n.s * n.heads;
-  const dim3 grid((n.s + BM - 1) / BM, n.b * n.heads);
   const View d_out = contiguous(dout, n);
-  CUtensorMap q_bm, do_bm, q_bq, do_bq, k_bm, v_bm;  // BM == BN
-  int err = tile_map(&q_bm, q, n, BM);
-  if (!err) err = tile_map(&do_bm, d_out, n, BM);
+  // The rows of the resident tiles and of the dQ pass's key stages: Q and
+  // dO there, K and V in the dK / dV pass (BM, or BQ in the split pass).
+  constexpr int QM = Tiles<D>::DQ_BM;
+  static_assert(QM == (D == 256 ? BQ : BM),
+                "one map serves each of Q, dO, K and V at these rows");
+  CUtensorMap q_qm, do_qm, q_bq, do_bq, k_qm, v_qm;
+  int err = tile_map(&q_qm, q, n, QM);
+  if (!err) err = tile_map(&do_qm, d_out, n, QM);
   if (!err) err = tile_map(&q_bq, q, n, BQ);
   if (!err) err = tile_map(&do_bq, d_out, n, BQ);
-  if (!err) err = tile_map(&k_bm, k, n, BM);
-  if (!err) err = tile_map(&v_bm, v, n, BM);
-  if (!err) err = allow_smem(flash_bwd_dkdv<D>, dkdv_smem<D>());
+  if (!err) err = tile_map(&k_qm, k, n, QM);
+  if (!err) err = tile_map(&v_qm, v, n, QM);
+  if constexpr (D == 256) {
+    if (!err) err = allow_smem(flash_bwd_dkdv_split<D>, split_smem<D>());
+  } else {
+    if (!err) err = allow_smem(flash_bwd_dkdv<D>, dkdv_smem<D>());
+  }
   if (!err) err = allow_smem(flash_bwd_dq<D>, dq_smem<D>());
   if (err) return err;
   flash_bwd_delta<D><<<(rows * (D / 8) + THREADS - 1) / THREADS, THREADS, 0,
                        st>>>((const bf16*)out, (const bf16*)dout,
-                             (float*)delta, n.s, n.heads, rows);
+                             (float*)delta, n.s, n.heads, rows, n.d);
   err = (int)cudaGetLastError();
   if (err) return err;
-  flash_bwd_dkdv<D><<<grid, THREADS, dkdv_smem<D>(), st>>>(
-      k_bm, v_bm, q_bq, do_bq, (const float*)lse, (const float*)delta,
-      (bf16*)dk, (bf16*)dv, n.s, n.heads, scale);
+  const dim3 kv_grid((n.s + QM - 1) / QM, n.b * n.heads);
+  if constexpr (D == 256) {
+    flash_bwd_dkdv_split<D><<<kv_grid, THREADS, split_smem<D>(), st>>>(
+        k_qm, v_qm, q_bq, do_bq, (const float*)lse, (const float*)delta,
+        (bf16*)dk, (bf16*)dv, n.s, n.heads, n.d, scale);
+  } else {
+    flash_bwd_dkdv<D><<<kv_grid, THREADS, dkdv_smem<D>(), st>>>(
+        k_qm, v_qm, q_bq, do_bq, (const float*)lse, (const float*)delta,
+        (bf16*)dk, (bf16*)dv, n.s, n.heads, n.d, scale);
+  }
   err = (int)cudaGetLastError();
   if (err) return err;
-  flash_bwd_dq<D><<<grid, THREADS, dq_smem<D>(), st>>>(
-      q_bm, do_bm, k_bm, v_bm, (const float*)lse, (const float*)delta,
-      (bf16*)dq, n.s, n.heads, scale);
+  flash_bwd_dq<D><<<dim3((n.s + QM - 1) / QM, n.b * n.heads),
+                    Tiles<D>::DQ_WGS * WG_THREADS, dq_smem<D>(), st>>>(
+      q_qm, do_qm, k_qm, v_qm, (const float*)lse, (const float*)delta,
+      (bf16*)dq, n.s, n.heads, n.d, scale);
   return (int)cudaGetLastError();
+}
+
+// The instance a head dim runs: the smallest of 64, 128 and 256 at or
+// above it (its columns past d zero-filled on load and not stored); 0 for
+// a head dim the kernels do not take (not a multiple of 8, or above 256).
+int instance(int d) {
+  if (d < 8 || d > 256 || d % 8) return 0;
+  return d <= 64 ? 64 : d <= 128 ? 128 : 256;
 }
 
 }  // namespace
 
 // q, k, v (b, s, heads, d) bf16 at the given element strides (head dim
 // contiguous, every stride a multiple of 8, pointers 16-byte aligned);
-// d 64 or 128 (any other returns cudaErrorInvalidValue); s a multiple of
-// 64.  out (b, s, heads, d) bf16 and lse (b, heads, s) f32, both
-// contiguous.  Returns 0, a cudaError_t, or 100000 + the CUresult
-// of a tensor map that could not be encoded.
+// d a multiple of 8 up to 256 (any other returns cudaErrorInvalidValue);
+// s a multiple of 64.  out (b, s, heads, d) bf16 and lse (b, heads, s)
+// f32, both contiguous.  Returns 0, a cudaError_t, or 100000 + the
+// CUresult of a tensor map that could not be encoded.
 extern "C" int cea_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, long long qb,
                              long long qs, long long qh, long long kb,
@@ -800,8 +1023,11 @@ extern "C" int cea_flash_fwd(const void* q, const void* k, const void* v,
   const Shape n{b, s, heads, d};
   const View qv{q, qb, qs, qh}, kv{k, kb, ks, kh}, vv{v, vb, vs, vh};
   cudaStream_t st = (cudaStream_t)stream;
-  if (d == 128) return launch_fwd<128>(qv, kv, vv, out, lse, n, st);
-  if (d == 64) return launch_fwd<64>(qv, kv, vv, out, lse, n, st);
+  switch (instance(d)) {
+    case 64: return launch_fwd<64>(qv, kv, vv, out, lse, n, st);
+    case 128: return launch_fwd<128>(qv, kv, vv, out, lse, n, st);
+    case 256: return launch_fwd<256>(qv, kv, vv, out, lse, n, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -819,13 +1045,16 @@ extern "C" int cea_flash_bwd(const void* q, const void* k, const void* v,
   const Shape n{b, s, heads, d};
   const View qv{q, qb, qs, qh}, kv{k, kb, ks, kh}, vv{v, vb, vs, vh};
   cudaStream_t st = (cudaStream_t)stream;
-  if (d == 128) {
-    return launch_bwd<128>(qv, kv, vv, out, lse, dout, delta, dq, dk, dv, n,
-                           st);
-  }
-  if (d == 64) {
-    return launch_bwd<64>(qv, kv, vv, out, lse, dout, delta, dq, dk, dv, n,
-                          st);
+  switch (instance(d)) {
+    case 64:
+      return launch_bwd<64>(qv, kv, vv, out, lse, dout, delta, dq, dk, dv, n,
+                            st);
+    case 128:
+      return launch_bwd<128>(qv, kv, vv, out, lse, dout, delta, dq, dk, dv,
+                             n, st);
+    case 256:
+      return launch_bwd<256>(qv, kv, vv, out, lse, dout, delta, dq, dk, dv,
+                             n, st);
   }
   return (int)cudaErrorInvalidValue;
 }

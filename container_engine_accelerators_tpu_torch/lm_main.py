@@ -13,11 +13,16 @@ and reused for every step, and reading the loss is the timing fence.
 The log lines are the reference's: `step N loss L tokens/sec T (T/chip)`
 every --log-every steps, then `done: ...`.
 
+--model-dir restores the newest checkpoint there before the warm-up step
+(logging `resumed from step N`) and saves checkpoint_<step> after the
+last step, as the reference does (utils/checkpoint.py, torch-native
+files); the warm-up step trains too, so a resumed run of N steps ends
+N + 1 steps past the restored one.
+
 Not ported yet, each exits 2 naming its ROADMAP item: the other
 parallel modes (--mode sp/tp/pp/ep, --seq-parallel, --seq-layout
-zigzag, --distributed: A10) and checkpoints (--model-dir: A11).  The
-pp / ep knobs (--micro, --virtual, --experts) are parsed and, as in the
-reference's dp mode, unused.
+zigzag, --distributed: A10).  The pp / ep knobs (--micro, --virtual,
+--experts) are parsed and, as in the reference's dp mode, unused.
 """
 
 from __future__ import annotations
@@ -59,7 +64,8 @@ def parse_args(argv=None):
     p.add_argument("--heads", type=int, default=0,
                    help="Attention heads (0 = dim//128)")
     p.add_argument("--model-dir", default="",
-                   help="Checkpoints (ROADMAP A11)")
+                   help="Restore the newest checkpoint here, and save one "
+                   "after the last step")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     return p.parse_args(argv)
@@ -78,11 +84,6 @@ def main(argv=None) -> int:
             "with the port of parallel/ (ROADMAP A10)"
         )
         return 2
-    if args.model_dir:
-        log.error("--model-dir: checkpoints come with the port of "
-                  "utils/checkpoint.py (ROADMAP A11)")
-        return 2
-
     import torch
 
     from ._device import resolve_device
@@ -106,6 +107,12 @@ def main(argv=None) -> int:
         learning_rate=args.learning_rate, remat=remat,
         attn_impl=args.attn_impl, device=device,
     )
+    if args.model_dir:
+        from .utils import checkpoint as ckpt
+
+        if ckpt.restore_checkpoint(args.model_dir, state) is not None:
+            log.info("resumed from step %d", state["step"])
+
     tokens, targets = batch_fn(torch.Generator().manual_seed(0))
     state, loss = step_fn(state, tokens, targets)  # warm-up
     float(loss)
@@ -127,6 +134,8 @@ def main(argv=None) -> int:
     tps = args.batch * args.seq_len * args.train_steps / total
     log.info("done: %d steps in %.1fs, %.0f tokens/sec (%.0f/chip)",
              args.train_steps, total, tps, tps)
+    if args.model_dir:
+        ckpt.save_checkpoint(args.model_dir, state, state["step"])
     return 0
 
 

@@ -1,8 +1,10 @@
 """Carry weights across: the reference's flax TransformerLM param tree
 (nested dicts of numpy-convertible arrays) into the port's modules, and
-back; and a flax ResNet's params and batch_stats trees
-(`load_flax_resnet`, `to_flax_resnet`, `to_flax_resnet_grads`), named
-leaf by leaf by models/resnet.py's `flax_leaves`, for either block_impl.
+back; and a flax ResNet's or Inception-v3's params and batch_stats
+trees (`load_flax_vision`, `to_flax_vision`, `to_flax_vision_grads`; the
+ResNet names are the same functions), named leaf by leaf
+by models/resnet.py's or models/inception.py's `flax_leaves`, for
+either ResNet block_impl.
 
 Names map as the flax module builds them: Embed_0/embedding -> embed,
 pos_emb, block_i/{LayerNorm_0 -> ln0, qkv, proj, LayerNorm_1 -> ln1,
@@ -81,16 +83,23 @@ def _set(tree, path, value):
     tree[path[-1]] = value
 
 
-def load_flax_resnet(model, params, batch_stats):
-    """Copy a flax ResNet's `params` and `batch_stats` trees (numpy
-    leaves) into `model` (a port ResNet, models/resnet.py) in place;
-    returns the model.  Conv kernels go from flax's HWIO to torch's OIHW.
-    Raises KeyError on a tree of another configuration."""
-    from .resnet import flax_leaves
+def _vision_leaves(model):
+    from . import inception, resnet
 
+    if isinstance(model, inception.InceptionV3):
+        return inception.flax_leaves(model)
+    return resnet.flax_leaves(model)
+
+
+def load_flax_vision(model, params, batch_stats):
+    """Copy a flax ResNet's or Inception-v3's `params` and `batch_stats`
+    trees (numpy leaves) into `model` (a port ResNet, models/resnet.py,
+    or InceptionV3, models/inception.py) in place; returns the model.
+    Conv kernels go from flax's HWIO to torch's OIHW.  Raises KeyError
+    on a tree of another configuration."""
     trees = {"params": params, "batch_stats": batch_stats}
     with torch.no_grad():
-        for coll, path, t, layout in flax_leaves(model):
+        for coll, path, t, layout in _vision_leaves(model):
             value = np.asarray(_get(trees[coll], path), np.float32)
             if layout == "oihw":
                 value = value.transpose(3, 2, 0, 1)
@@ -98,11 +107,9 @@ def load_flax_resnet(model, params, batch_stats):
     return model
 
 
-def _resnet_trees(model, leaf):
-    from .resnet import flax_leaves
-
+def _vision_trees(model, leaf):
     trees = {"params": {}, "batch_stats": {}}
-    for coll, path, t, layout in flax_leaves(model):
+    for coll, path, t, layout in _vision_leaves(model):
         value = leaf(coll, t)
         if value is None:
             continue
@@ -113,19 +120,24 @@ def _resnet_trees(model, leaf):
     return trees
 
 
-def to_flax_resnet(model):
-    """The inverse of load_flax_resnet: (params, batch_stats), flax-shaped
+def to_flax_vision(model):
+    """The inverse of load_flax_vision: (params, batch_stats), flax-shaped
     trees of f32 numpy arrays."""
-    trees = _resnet_trees(model, lambda coll, t: t)
+    trees = _vision_trees(model, lambda coll, t: t)
     return trees["params"], trees["batch_stats"]
 
 
-def to_flax_resnet_grads(model):
+def to_flax_vision_grads(model):
     """The parameters' gradients (`.grad`, after a backward) as a flax
-    params tree of f32 numpy arrays, laid out as to_flax_resnet's."""
-    return _resnet_trees(
+    params tree of f32 numpy arrays, laid out as to_flax_vision's."""
+    return _vision_trees(
         model, lambda coll, t: t.grad if coll == "params" else None
     )["params"]
+
+
+load_flax_resnet = load_flax_vision
+to_flax_resnet = to_flax_vision
+to_flax_resnet_grads = to_flax_vision_grads
 
 
 def _flax_tree(model, leaf):

@@ -367,25 +367,30 @@ class ResNet(nn.Module):
 
     def init_random(self, generator: torch.Generator):
         """Draw the parameters as flax's initializers do, from
-        `generator`: conv and dense kernels lecun_normal (a normal of
-        variance 1 / fan_in truncated at 2 sigma), norm scales 1 (the
-        blocks' last norm 0), biases 0.  Drawn on the CPU in f32, then
-        moved, so a seed gives the same weights on every device."""
-
-        def lecun(shape, fan_in):
-            std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
-            w = torch.empty(shape)
-            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
-                                  generator=generator)
-            return w * std
-
-        with torch.no_grad():
-            for _, path, t, layout in flax_leaves(self):
-                if path[-1] == "kernel" or path[-1].endswith("_kernel"):
-                    fan_in = (t.numel() // t.shape[0] if layout == "oihw"
-                              else t.numel() // t.shape[-1])
-                    t.copy_(lecun(tuple(t.shape), fan_in))
+        `generator` (init_lecun); norm scales 1 (the blocks' last norm
+        0) and biases 0 as built."""
+        init_lecun(flax_leaves(self), generator)
         return self
+
+
+def init_lecun(leaves, generator: torch.Generator):
+    """Draw every conv and dense kernel of `leaves` (flax_leaves) as
+    flax's lecun_normal does: a normal of variance 1 / fan_in truncated
+    at 2 sigma, from `generator`.  Drawn on the CPU in f32, then moved,
+    so a seed gives the same weights on every device."""
+
+    def lecun(shape, fan_in):
+        std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+        w = torch.empty(shape)
+        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        return w * std
+
+    with torch.no_grad():
+        for _, path, t, layout in leaves:
+            if path[-1] == "kernel" or path[-1].endswith("_kernel"):
+                fan_in = (t.numel() // t.shape[0] if layout == "oihw"
+                          else t.numel() // t.shape[-1])
+                t.copy_(lecun(tuple(t.shape), fan_in))
 
 
 def module_leaves(mod, prefix=()):
@@ -407,7 +412,10 @@ def module_leaves(mod, prefix=()):
     out += [("batch_stats", prefix + (name,), t, None)
             for name, t in mod.named_buffers(recurse=False)]
     for child in mod.children():
-        out += module_leaves(child, prefix + (child.flax_name,))
+        if isinstance(child, nn.ModuleList):  # a list takes no flax name
+            out += module_leaves(child, prefix)
+        else:
+            out += module_leaves(child, prefix + (child.flax_name,))
     return out
 
 

@@ -1,4 +1,4 @@
-"""ResNet training on one card: the port of
+"""ResNet and Inception-v3 training on one card: the port of
 container_engine_accelerators_tpu/models/train.py (`create_model` :35,
 `make_optimizer` :51, `create_train_state` :60, `synthetic_batch` :79,
 `train_step` :91, `build_training` :179, `build_scan_training` :224,
@@ -16,8 +16,7 @@ drawn on the device from an explicit torch.Generator; JAX's random
 streams are not reproduced.  The reference's jit, donation and scan
 have no counterpart here: the K steps of a scan are a Python loop.
 
-Not ported: a device mesh (ROADMAP A10) and Inception-v3 (the rest of
-ROADMAP A9); each raises naming its item.
+Not ported: a device mesh (ROADMAP A10), which raises naming its item.
 """
 
 from __future__ import annotations
@@ -29,8 +28,8 @@ import torch
 from .._device import resolve_device
 from ..ops.fused_xent import fused_cross_entropy_loss
 from ..ops.losses import cross_entropy_loss
-from . import resnet
-from .convert import load_flax_resnet
+from . import inception, resnet
+from .convert import load_flax_vision
 
 FACTORIES = {
     "resnet18": resnet.ResNet18,
@@ -38,17 +37,13 @@ FACTORIES = {
     "resnet50": resnet.ResNet50,
     "resnet101": resnet.ResNet101,
     "resnet152": resnet.ResNet152,
+    "inception_v3": inception.InceptionV3,
 }
 
 
 def create_model(name: str = "resnet50", num_classes: int = 1000,
                  device="cuda", **kwargs):
     """kwargs pass through to the model factory (e.g. stem="s2d")."""
-    if name == "inception_v3":
-        raise NotImplementedError(
-            "inception_v3 (models/inception.py) comes with the rest of "
-            "vision training (ROADMAP A9)"
-        )
     return FACTORIES[name](num_classes=num_classes, device=device, **kwargs)
 
 
@@ -69,7 +64,7 @@ def create_train_state(generator: torch.Generator, model,
     if params is None:
         model.init_random(generator)
     else:
-        load_flax_resnet(model, params, batch_stats)
+        load_flax_vision(model, params, batch_stats)
     model.requires_grad_(True)
     return {"model": model,
             "opt": make_optimizer(model.parameters(), learning_rate),

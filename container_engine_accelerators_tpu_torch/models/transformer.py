@@ -15,9 +15,11 @@ for training, cast to `dtype` at each call as flax does (an optimizer
 stepping bf16 weights would drift from optax within a few steps), and
 `dtype` itself for serving, which keeps one copy of the weights.
 
-Training (`build_lm_training`, single chip, dense head): attention
-through `attn_fn` (flash, ops/flash_attention.py, or the dense math),
-the loss through ops/fused_xent.py or ops/losses.py, AdamW as optax's.
+Training (`build_lm_training`, single chip): attention through
+`attn_fn` (flash, ops/flash_attention.py, or the dense math); the dense
+head's loss through ops/fused_xent.py or ops/losses.py, or the chunked
+head (ops/chunked_xent.py) that never holds the (tokens, vocab) logits;
+AdamW as optax's.
 
 Decode paths ported (a `cache` argument selects them):
   - the PAGED path (:177-265): the cache holds page pools (n_pages,
@@ -53,6 +55,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
+from ..ops.chunked_xent import chunked_softmax_xent
 from ..ops.flash_attention import (
     causal_attention_plain as full_causal_attention,
     flash_causal_attention,
@@ -377,10 +380,10 @@ def _auto_use_flash(attn_impl: str, seq_len: int, device="cuda") -> bool:
     """THE flash auto-gate (reference :501): explicit 'flash' forces it;
     'auto' requires the card (the reference: a Pallas-TPU backend) and a
     length the reference's gate accepts, so that both packages pick the
-    same path for the same shape.  The card's kernels are built for head
-    dims 64 and 128 (flash_attention.HEAD_DIMS: lm_main's default and
-    `--heads` at twice it); the wrapper raises for any other, naming
-    them."""
+    same path for the same shape.  The card's kernels take every head
+    dim that is a multiple of 8 up to 256 (flash_attention's rule), so
+    every lm_main `--heads` that gives such a dim trains on them; the
+    wrapper raises for any other, naming the rule."""
     if attn_impl not in ("auto", "dense", "flash"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
     return attn_impl == "flash" or (
@@ -442,7 +445,10 @@ def build_lm_training(
     params=None,
 ):
     """(step_fn, state, batch_fn) for single-chip LM training (reference
-    :776, its `mesh=None` path with the dense head).
+    :776, its `mesh=None` path).  head_impl "chunked" takes the model's
+    f32 hidden rows, head kernel and bias and the loss from
+    ops/chunked_xent.py in `head_chunk`-column blocks (reference
+    :902-910); "dense" the f32 logits and the resolved loss.
 
     state: {"model": TransformerLM with f32 master weights, "opt": AdamW,
     "step": int}.  step_fn(state, tokens, targets) -> (state, loss) runs
@@ -475,10 +481,6 @@ def build_lm_training(
                 "head_impl='chunked' subsumes the loss; it is "
                 "incompatible with loss_impl='fused'"
             )
-        raise NotImplementedError(
-            "head_impl='chunked' (ops/chunked_xent.py) comes with the rest "
-            "of LM training (ROADMAP A8)"
-        )
     loss_of = (
         fused_cross_entropy_loss if loss_kind == "fused"
         else cross_entropy_loss
@@ -505,8 +507,15 @@ def build_lm_training(
     def step_fn(state, tokens, targets):
         model, opt = state["model"], state["opt"]
         opt.zero_grad(set_to_none=True)
-        logits = model(tokens)
-        loss = loss_of(logits.reshape(-1, vocab), targets.reshape(-1))
+        if head_impl == "chunked":
+            hidden, head_k, head_b = model(tokens, head_impl="chunked")
+            loss = chunked_softmax_xent(
+                hidden.reshape(-1, dim), head_k, head_b,
+                targets.reshape(-1), chunk_size=head_chunk,
+            )
+        else:
+            logits = model(tokens)
+            loss = loss_of(logits.reshape(-1, vocab), targets.reshape(-1))
         loss.backward()
         opt.step()
         state["step"] += 1

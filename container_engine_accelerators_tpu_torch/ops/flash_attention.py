@@ -10,9 +10,14 @@ same function, so one CUDA kernel serves every length, and the
 reference's splash routing with its warn-and-fall-back path is not
 carried over.
 
-The kernels are built for Hopper at head dims 64 and 128 (HEAD_DIMS):
-every product is a wgmma, a block of two warpgroups owns 128 query (or
-key) rows, shared tiles lie in wgmma's 128-byte swizzle, and the
+The kernels are built for Hopper and take any head dim that is a
+multiple of 8 up to 256 (`head_dim_instance`): instances at d 64, 128
+and 256, a smaller d running the next instance up with its columns past
+d zero-filled on load and never stored (d 32 on the d-64 instance, d 96
+on the d-128 one); HEAD_DIMS names the widths they are sized for.
+Every product is a wgmma, a block of two warpgroups owns 128 query (or
+key) rows (at d 256 the tiles shrink to fit: see the source), shared
+tiles lie in wgmma's 128-byte swizzle, and the
 streamed K / V (or Q / dO) tiles go through a ring of shared-memory
 stages that TMA fills one or two steps ahead of their use (tensor maps
 encoded per call from the views' own strides, completion on mbarriers),
@@ -53,7 +58,11 @@ from . import _build
 # the same lengths.
 MIN_SEQ = 128
 _BLOCK_Q, _BLOCK_K = 256, 512
-HEAD_DIMS = (64, 128)  # the head dims the CUDA kernels are built for
+# The head dims the CUDA kernels are sized for: d 32 runs the d-64
+# instance, d 64 / 128 / 256 their own.
+HEAD_DIMS = (32, 64, 128, 256)
+MAX_HEAD_DIM = 256
+_INSTANCES = (64, 128, 256)
 _TILE = 64  # a warpgroup's rows: s must be a multiple of it
 
 
@@ -102,14 +111,21 @@ def _strides(t):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def head_dim_instance(d: int) -> int:
+    """The kernel instance head dim d runs: the smallest of 64, 128 and
+    256 at or above it (its columns past d zero-filled)."""
+    return next(n for n in _INSTANCES if n >= d)
+
+
 def check_head_dim_and_seq(d: int, s: int) -> None:
-    """The kernels' shape rule: a head dim they are built for and a seq
-    that is a multiple of a warpgroup's 64 rows."""
-    if d not in HEAD_DIMS or s % _TILE:
+    """The kernels' shape rule: a head dim that is a multiple of 8 up to
+    MAX_HEAD_DIM (16-byte rows, and the largest instance) and a seq that
+    is a multiple of a warpgroup's 64 rows."""
+    if d % 8 or not 0 < d <= MAX_HEAD_DIM or s % _TILE:
         raise ValueError(
-            f"flash attention: the kernels are built for head dims "
-            f"{HEAD_DIMS} and take a seq multiple of {_TILE}; got d {d}, "
-            f"seq {s}"
+            f"flash attention: the kernels take a head dim that is a "
+            f"multiple of 8 up to {MAX_HEAD_DIM} and a seq multiple of "
+            f"{_TILE}; got d {d}, seq {s}"
         )
 
 

@@ -16,8 +16,13 @@ loss L images/sec I (I/chip)` every --log-every steps, then `done: ...`.
 --profile-dir writes a torch.profiler trace (Chrome JSON) of one more
 steady-state step (or call) into that directory.
 
-Not ported yet, each exits 2 naming its ROADMAP item: --distributed
-(A10), --model-dir checkpoints (A11) and --model inception_v3 (A9).
+--model inception_v3 trains models/inception.py's Inception v3 (the
+reference's demo job runs it at --image-size 299 --batch-per-chip 128).
+--model-dir saves checkpoint_<step> there after the last step
+(utils/checkpoint.py, torch-native files); like the reference's job it
+does not restore.
+
+Not ported yet: --distributed (A10), which exits 2 naming its item.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ def parse_args(argv=None):
     p.add_argument("--distributed", action="store_true",
                    help="Multi-host (ROADMAP A10)")
     p.add_argument("--model-dir", default="",
-                   help="Checkpoints (ROADMAP A11)")
+                   help="Save a checkpoint here after the last step")
     p.add_argument("--profile-dir", default="",
                    help="Write a torch.profiler trace of one steady-state "
                    "step into this directory")
@@ -60,14 +65,6 @@ def main(argv=None) -> int:
     if args.distributed:
         log.error("--distributed: multi-host training comes with the port "
                   "of parallel/ (ROADMAP A10)")
-        return 2
-    if args.model_dir:
-        log.error("--model-dir: checkpoints come with the port of "
-                  "utils/checkpoint.py (ROADMAP A11)")
-        return 2
-    if args.model == "inception_v3":
-        log.error("--model inception_v3: models/inception.py comes with the "
-                  "rest of vision training (ROADMAP A9)")
         return 2
 
     import torch
@@ -164,6 +161,10 @@ def main(argv=None) -> int:
     ips = global_batch * args.train_steps / total
     log.info("done: %d steps in %.1fs, %.0f images/sec (%.0f/chip)",
              args.train_steps, total, ips, ips / n_chips)
+    if args.model_dir:
+        from .utils import checkpoint as ckpt
+
+        ckpt.save_checkpoint(args.model_dir, state, state["step"])
     return 0
 
 

@@ -4,10 +4,11 @@ reference's `full_causal_attention` — the reference's own tests hold
 flash through that dense math on the CPU, since the stock Pallas TPU
 kernel has no interpret mode — on the same numpy-drawn q, k, v: the
 output and the q / k / v gradients of a numpy-drawn cotangent, at seq
-128 and 256 and head dims 32, 64 and 128 (the last two are the dims the
-CUDA kernels are built for), in f32 and bf16.  Also the
-`flash_supports_seq` truth table over 1..4096 and the length errors,
-against the reference's, and the kernels' head-dim rule by name.
+128 and 256 and head dims 32, 64, 96, 128 and 256 (the CUDA kernels'
+instances are 64, 128 and 256; 32 and 96 run the next one up with
+zero-filled columns), in f32 and bf16.  Also the `flash_supports_seq`
+truth table over 1..4096 and the length errors, against the
+reference's, and the kernels' head-dim rule by name.
 
 Tolerances: f32, 1e-5 absolute (scores and softmax in f32 in both, sums
 in another order); bf16, one bf16 ulp of max|out| (both compute in f32
@@ -42,7 +43,7 @@ def _case(seed, s, b=2, h=2, d=32):
 
 @pytest.mark.parametrize("s", [128, 256])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
 def test_forward_and_gradients_match_reference(s, dtype, d):
     jdt, tdt = {
         "f32": (jnp.float32, torch.float32),
@@ -104,16 +105,24 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 @pytest.mark.parametrize("d", TF.HEAD_DIMS)
 def test_kernel_shape_rule_accepts_built_head_dims(d):
-    assert TF.HEAD_DIMS == (64, 128)
+    assert TF.HEAD_DIMS == (32, 64, 128, 256)
     for s in (128, 192, 2048, 8192):  # any multiple of 64
         TF.check_head_dim_and_seq(d, s)
     with pytest.raises(ValueError, match="seq multiple of 64"):
         TF.check_head_dim_and_seq(d, 96)
 
 
-@pytest.mark.parametrize("d", [32, 96, 256])
+def test_every_multiple_of_8_up_to_256_runs_an_instance():
+    for d in range(8, 257, 8):
+        TF.check_head_dim_and_seq(d, 128)
+        inst = TF.head_dim_instance(d)
+        assert inst in (64, 128, 256) and inst >= d
+        assert inst == 64 or inst // 2 < d  # the smallest at or above d
+
+
+@pytest.mark.parametrize("d", [264, 512, 20])
 def test_kernel_shape_rule_rejects_other_head_dims_by_name(d):
     with pytest.raises(ValueError) as err:
         TF.check_head_dim_and_seq(d, 128)
-    assert "head dims (64, 128)" in str(err.value)
+    assert "a head dim that is a multiple of 8 up to 256" in str(err.value)
     assert f"got d {d}" in str(err.value)

@@ -1,8 +1,9 @@
 """The port's training job (python -m container_engine_accelerators_tpu_
 torch.lm_main) end to end in a subprocess at a tiny size on the CPU: it
-exits 0 and logs the reference's loss lines; an unported mode exits 2
-naming its ROADMAP item; and without --device cpu, on a machine with no
-card, it exits non-zero saying so."""
+exits 0 and logs the reference's loss lines; with --model-dir a second
+run resumes from the first one's checkpoint and saves its own past it;
+an unported mode exits 2 naming its ROADMAP item; and without --device
+cpu, on a machine with no card, it exits non-zero saying so."""
 
 import os
 import re
@@ -56,10 +57,23 @@ def test_heads_flag_at_head_dim_64_trains_on_the_cpu():
     assert "done: 2 steps" in out.stderr
 
 
+def test_model_dir_resumes_from_its_own_checkpoint(tmp_path):
+    # A run of N steps trains the warm-up step too: N + 1 steps a run.
+    first = _run(*TINY, "--device", "cpu", "--model-dir", str(tmp_path))
+    assert first.returncode == 0, first.stderr
+    assert "resumed" not in first.stderr
+    assert sorted(os.listdir(tmp_path)) == ["checkpoint_4"]
+    second = _run(*TINY, "--device", "cpu", "--model-dir", str(tmp_path))
+    assert second.returncode == 0, second.stderr
+    assert "resumed from step 4" in second.stderr
+    steps = re.findall(r"step (\d+) loss", second.stderr)
+    assert [int(s) for s in steps] == [1, 2, 3], second.stderr
+    assert sorted(os.listdir(tmp_path)) == ["checkpoint_4", "checkpoint_8"]
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--mode", "tp"], "A10"),
     (["--seq-parallel"], "A10"),
-    (["--model-dir", "ckpt"], "A11"),
 ])
 def test_unported_options_exit_2(flags, item):
     out = _run(*TINY, "--device", "cpu", *flags)

@@ -21,10 +21,14 @@ images, batch 8):
       it step by step;
   (c) the builders' contracts (scan: K steps per call on batches drawn
       on the device; bank: the bank's shape and cycle), the synthetic
-      batch, and what is not ported (a mesh: A10; inception_v3: A9);
+      batch, the Inception-v3 factory, and what is not ported (a mesh:
+      A10);
   (d) the job end to end in a subprocess at a tiny size on the CPU: it
-      logs the reference's lines; its unported options exit 2 naming
-      their ROADMAP items; without --device cpu and no card it exits 2.
+      logs the reference's lines; --model-dir writes checkpoint_<step>
+      after the last step (the reference's job saves and never
+      restores); --model inception_v3 trains at a 75-pixel image; its
+      unported option exits 2 naming its ROADMAP item; without --device
+      cpu and no card it exits 2.
 """
 
 import os
@@ -181,8 +185,9 @@ def test_pallas_loss_is_the_xla_loss_on_the_cpu():
 
 
 def test_unported_paths_raise_naming_their_items():
-    with pytest.raises(NotImplementedError, match="A9"):
-        TT.create_model("inception_v3", device="cpu")
+    # Inception-v3 is ported (models/inception.py); a mesh is not.
+    assert type(TT.create_model("inception_v3", device="cpu")).__name__ == (
+        "InceptionV3")
     with pytest.raises(NotImplementedError, match="A10"):
         TT.build_training(mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="loss_impl"):
@@ -227,10 +232,24 @@ def test_tiny_cpu_run_logs_the_reference_lines(extra, steps, tmp_path):
     assert os.listdir(tmp_path), "no profiler trace written"
 
 
+def test_model_dir_saves_a_checkpoint_after_the_last_step(tmp_path):
+    out = _run(*JOB, "--device", "cpu", "--model-dir", str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    # The warm-up step trains too: 3 logged steps end at step 4.
+    assert os.listdir(tmp_path) == ["checkpoint_4"]
+    assert os.listdir(tmp_path / "checkpoint_4") == ["state.pt"]
+
+
+def test_inception_v3_job_runs_at_a_small_image():
+    out = _run("--model", "inception_v3", "--image-size", "75",
+               "--batch-per-chip", "2", "--train-steps", "1",
+               "--log-every", "1", "--device", "cpu")
+    assert out.returncode == 0, out.stderr
+    assert re.search(r"step 1 loss [0-9.]+ images/sec", out.stderr)
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--distributed"], "A10"),
-    (["--model-dir", "ckpt"], "A11"),
-    (["--model", "inception_v3"], "A9"),
 ])
 def test_unported_options_exit_2(flags, item):
     out = _run(*JOB, "--device", "cpu", *flags)

@@ -22,7 +22,13 @@ on the same numpy-drawn flax params and tokens, on the CPU:
       attn_impl="flash";
   (d) the attention and loss selection, the validation messages beside
       the reference's, and the NotImplementedErrors of what is not
-      ported.
+      ported;
+  (e) the chunked vocab head (head_impl="chunked", ops/chunked_xent.py):
+      in f32 the step's loss and every gradient against flax's
+      value_and_grad through the reference's chunked loss, within 1e-4
+      of each leaf's max|value| as (a), at a chunk that divides the
+      vocab and one that does not; and both packages' chunked builders
+      in bf16 for 3 steps, losses within 2**-9 relative as (c).
 
 The port's flash and fused-loss wrappers run their plain versions here,
 so (a) and (c) also drive attn_impl="flash", loss_impl="fused" against
@@ -205,6 +211,58 @@ def test_bf16_trainers_agree_at_kernel_head_dims(heads, d_head):
     np.testing.assert_allclose(t_losses, j_losses, rtol=2.0 ** -9, atol=0)
 
 
+@pytest.mark.parametrize("chunk", [16, 24])  # divides vocab 64; does not
+def test_f32_chunked_head_loss_and_gradients_match_flax(params, chunk):
+    from container_engine_accelerators_tpu.ops.chunked_xent import (
+        chunked_softmax_xent,
+    )
+
+    tokens, targets = _tokens(6)
+    model = T.TransformerLM(dtype=jnp.float32, head_impl="chunked",
+                            **TRAIN_CFG)
+
+    def loss_fn(p):
+        hidden, k, b = model.apply({"params": p}, jnp.asarray(tokens))
+        return chunked_softmax_xent(
+            hidden.reshape(-1, CFG["dim"]), k, b,
+            jnp.asarray(targets).reshape(-1), chunk_size=chunk)
+
+    j_loss, j_grads = jax.value_and_grad(loss_fn)(jax_params(params))
+    step, state, _ = PT.build_lm_training(
+        **MODEL_KW, seq_len=SEQ, batch=BATCH, learning_rate=LR,
+        head_impl="chunked", head_chunk=chunk, dtype=torch.float32,
+        device="cpu", params=params,
+    )
+    state, t_loss = step(state, torch.from_numpy(tokens),
+                         torch.from_numpy(targets))
+    assert abs(float(t_loss) - float(j_loss)) <= 1e-4 * abs(float(j_loss))
+    _assert_trees_close(
+        convert.to_flax_grads(state["model"]), j_grads, rel=1e-4
+    )
+
+
+def test_bf16_chunked_builders_agree_for_three_steps(params):
+    tokens, targets = _tokens(8)
+    kw = dict(MODEL_KW, seq_len=SEQ, batch=BATCH, learning_rate=LR,
+              head_impl="chunked", head_chunk=24)
+    j_step, _, _ = T.build_lm_training(**kw)
+    p = jax_params(params)
+    j_state = {"params": p, "opt_state": optax.adamw(LR).init(p),
+               "step": jnp.zeros((), jnp.int32)}
+    t_step, t_state, _ = PT.build_lm_training(
+        **kw, dtype=torch.bfloat16, device="cpu", params=params)
+    j_losses, t_losses = [], []
+    for _ in range(3):
+        j_state, jl = j_step(j_state, jnp.asarray(tokens),
+                             jnp.asarray(targets))
+        t_state, tl = t_step(t_state, torch.from_numpy(tokens),
+                             torch.from_numpy(targets))
+        j_losses.append(float(jl))
+        t_losses.append(float(tl))
+    assert t_losses[-1] < t_losses[0]  # it trains
+    np.testing.assert_allclose(t_losses, j_losses, rtol=2.0 ** -9, atol=0)
+
+
 def test_batch_fn_draws_next_token_targets():
     _, _, batch_fn = _port_trainer(None, torch.float32)
     g = torch.Generator().manual_seed(0)
@@ -255,8 +313,12 @@ def test_validation_messages_match_reference(kw):
 
 
 def test_unported_paths_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="A8"):
-        PT.build_lm_training(head_impl="chunked", device="cpu")
+    # The chunked head is ported (ops/chunked_xent.py); a mesh is not.
+    step, state, batch_fn = PT.build_lm_training(
+        head_impl="chunked", head_chunk=300, vocab=1000, dim=32, depth=1,
+        heads=2, seq_len=16, batch=2, device="cpu")
+    state, loss = step(state, *batch_fn(torch.Generator().manual_seed(0)))
+    assert state["step"] == 1 and bool(torch.isfinite(loss))
     with pytest.raises(NotImplementedError, match="A10"):
         PT.build_lm_training(mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
