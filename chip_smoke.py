@@ -55,7 +55,40 @@ Phases, one JSON line each (stdout):
                 dispatched a window of width 4.  The fused, contiguous
                 and speculative records carry their figures over the
                 one-token engine's of the same run (`vs_one_token`) and
-                each request's first divergence from its tokens;
+                each request's first divergence from its tokens (these
+                engines run with observe=False);
+  4b. engine_tiers, engine_migrate, engine_observe — at the same width:
+                engine_tiers_bf16 / _int8 run 32 sessions of distinct
+                1024-token prompts (+ 32 tokens) through the default
+                320-page pool with a host tier of 128 pages and a 1 GiB
+                disk tier, then the first session cut where its
+                host-resident pages end (a host-only promotion) and the
+                first 8 sessions whole (promotions reading disk and
+                host) return: pages demoted, promotions under both
+                labels of kv_tier_fetch_seconds, the prefix hit, tokens
+                within the oracle rule, the first 8 sessions' exports
+                bitwise the same before the pressure and after the
+                return, no open tier handle, no page in use after close,
+                depth paged-attention calls a returning decode step (and
+                the int8 matmul's in int8); it prints promotion ms a
+                page by label (gross and net of the demotion that makes
+                room), store loads by tier, each return's TTFT beside the
+                same prompts recomputed on an engine with no tier, and
+                the phase's seconds.  engine_migrate_bf16 / _int8: engine
+                A serves the 8 requests and exports their shared 512-token
+                prefix, a fresh B adopts it (the int8 B first refuses the
+                bf16 blob, holding no page) and serves the two sharing
+                requests as prefix hits with A's tokens, and re-exports A's
+                blob bitwise; export / adopt ms and bytes/s.
+                engine_observe_bf16_fused: the 8 requests through fused
+                engines with observe on and off in turns (off, on, on,
+                off), equal tokens, the TTFT count equal to the rows and
+                the ITL count to the tokens less the rows, /metrics
+                rendered and parsed back, each trace's queue-wait,
+                prefill-chunk and decode spans, a revival whose recorder
+                holds the retries, the failure and the restart, and a
+                kill whose snapshot carries the recorder; tokens/s
+                observed over unobserved and TTFT / ITL p50 and p99;
   5. train_kernels — flash attention forward and backward at (8, 2048,
                 h, 1024 / h) bf16 for h 8, 16, 32 and 4 (head dims 128,
                 64, 32 on the d-64 instance, 256) and at the ragged
@@ -134,6 +167,7 @@ import logging
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -699,6 +733,16 @@ def oracle_logits(torch, model, prompt, tokens, quant, qparams, deq):
     return torch.cat(out, dim=0)
 
 
+def oracle_gap(torch, model, prompt, tokens, quant, qparams, deq):
+    """The largest gap, in logits, between the oracle's argmax and the
+    engine's token along the engine's token path (TOP2_TOL bounds it)."""
+    lg = oracle_logits(torch, model, prompt, tokens, quant, qparams, deq)
+    top = lg.float().max(dim=-1).values
+    mine = lg.float().gather(
+        1, torch.tensor(tokens, device=lg.device)[:, None])[:, 0]
+    return (top - mine).max().item()
+
+
 # The port's own kernels, by the names their sources give them.
 PORT_KERNELS = ("paged_attention", "qmm_", "flash_", "xent_", "gemm_stats",
                 "reduce_partials")
@@ -1058,7 +1102,7 @@ def run_engine(torch, model, quant, gen_reqs, mode="", base=None):
 
     eng = ContinuousBatchingEngine(
         model, N_SLOTS, quant=quant, page_size=PAGE, prefill_chunk=CHUNK,
-        device=dev, **ENGINE_MODES[mode],
+        observe=False, device=dev, **ENGINE_MODES[mode],
     )
     spec = bool(eng._spec_k)
     logged = _Records()
@@ -1236,11 +1280,7 @@ def run_engine(torch, model, quant, gen_reqs, mode="", base=None):
             )[0].tolist()
             first_div.append(first_divergence(got, solo))
         distinct.append(len(set(got)))
-        lg = oracle_logits(torch, model, prompt, got, quant, qparams, deq)
-        top = lg.float().max(dim=-1).values
-        mine = lg.float().gather(
-            1, torch.tensor(got, device=lg.device)[:, None])[:, 0]
-        gap = (top - mine).max().item()
+        gap = oracle_gap(torch, model, prompt, got, quant, qparams, deq)
         margins.append(gap)
         if gap > TOP2_TOL:
             raise AssertionError(
@@ -1308,6 +1348,517 @@ def ratios(rec, base):
         if isinstance(a, (int, float)) and isinstance(b, (int, float)) and b:
             out[".".join(path)] = a / b
     return out
+
+
+# -- phase 4b: KV tiers, page migration and observability ----------------
+# engine_tiers: TIER_SESSIONS distinct TIER_PROMPT-token prompts (+
+# TIER_NEW greedy tokens) through the default 320-page pool need 512
+# trie pages, so about 200 are demoted: the host tier keeps the newest
+# TIER_HOST_PAGES of them and the older spill to disk.  Then the first
+# TIER_RETURNS sessions return (run_engine_tiers says which tiers they
+# read).
+TIER_SESSIONS, TIER_RETURNS = 32, 8
+TIER_PROMPT, TIER_NEW = 1024, 32
+TIER_HOST_PAGES = 128
+TIER_DISK_BYTES = 1 << 30
+TIER_GRID = 16  # the engine's prompt grid: a resumed prefill's sliver
+# engine_migrate: the shared prefix of requests() #2 and #4.
+MIGRATE_SHARED = 512
+
+
+def page_bytes(quant):
+    """Serialized bytes of one pool page over every layer: K and V of
+    (PAGE, heads, d) in bf16, or in int8 with their f32 scales."""
+    dim, depth, heads = CFG["dim"], CFG["depth"], CFG["heads"]
+    if quant:
+        return depth * 2 * (PAGE * dim + PAGE * heads * 4)
+    return depth * 2 * PAGE * dim * 2
+
+
+def timed_submit(eng, prompt, n):
+    """(tokens, seconds from submit to the first token)."""
+    stamps = []
+    t0 = time.monotonic()
+    out = eng.submit(prompt, n, timeout=900,
+                     on_token=lambda _r, _t: stamps.append(time.monotonic()))
+    return out[0], stamps[0] - t0
+
+
+def serving_counts(PA, QM, reset=False):
+    if reset:
+        PA.paged_attention.launches = 0
+        QM.int8_weight_matmul.launches = 0
+    return {"paged_attention": PA.paged_attention.launches,
+            "int8_weight_matmul": QM.int8_weight_matmul.launches}
+
+
+def hold_launches(tag, quant, launches, steps):
+    """The returning rows' decode steps ran the serving kernels: depth
+    paged-attention calls a one-token step, and in int8 at least a
+    pass's int8 matmul calls a step."""
+    depth = CFG["depth"]
+    assert steps > 0 and launches["paged_attention"] == depth * steps, (
+        tag, launches, steps)
+    if quant:
+        assert launches["int8_weight_matmul"] >= qmm_per_pass() * steps, (
+            tag, launches, steps)
+    else:
+        assert launches["int8_weight_matmul"] == 0, (tag, launches)
+
+
+def tier_layout(eng, toks):
+    """Where a prompt's full pages sit: {"hbm_pages", "host_pages",
+    "disk_pages"}.  Reads only the store (contains / longest_run are
+    LRU-neutral); the engine's tier_probe would walk the trie, whose
+    match rejuvenates the very pages the next demotions would take."""
+    st, n = eng._tier, len(toks) // PAGE
+    hbm = next((k for k in range(n)
+                if st.contains(st.key_of(toks[:(k + 1) * PAGE]))), n)
+    run = st.longest_run(toks, hbm)
+    return {"hbm_pages": hbm, "host_pages": run.count("host"),
+            "disk_pages": run.count("disk")}
+
+
+def run_engine_tiers(torch, model, quant, gen):
+    """engine_tiers_<tag>: demotion under pool pressure into the host and
+    disk tiers, promotion when sessions return, against recompute on an
+    engine with no tier.  Eviction strips the oldest chains a level at a
+    time (each of ~16 chains loses its deepest page per admission), and
+    the host tier spills its oldest entries, so each of the first
+    sessions keeps its deepest demoted pages on disk and the shallower
+    ones in the host tier: a whole-prompt return reads both tiers
+    (labelled disk, the deepest touched).  So the first return is the
+    first session's prompt cut where its host-resident pages end, a
+    host-only promotion; then the first TIER_RETURNS sessions return
+    whole."""
+    from container_engine_accelerators_tpu_torch.ops import (
+        paged_attention as PA,
+    )
+    from container_engine_accelerators_tpu_torch.ops import quant_matmul as QM
+    from container_engine_accelerators_tpu_torch.serving import (
+        ContinuousBatchingEngine,
+    )
+    from container_engine_accelerators_tpu_torch.serving import observe
+
+    tag = "int8" if quant else "bf16"
+    t_phase = time.monotonic()
+    dev = model.device
+    pb = page_bytes(quant)
+    n_full = TIER_PROMPT // PAGE
+    disk_dir = os.path.join(LOG_DIR, f"kv_tier_{tag}")
+    shutil.rmtree(disk_dir, ignore_errors=True)
+    prompts = torch.randint(0, CFG["vocab"], (TIER_SESSIONS, TIER_PROMPT),
+                            generator=gen).numpy()
+    kw = dict(quant=quant, page_size=PAGE, prefill_chunk=CHUNK, device=dev)
+    eng = ContinuousBatchingEngine(
+        model, N_SLOTS, kv_host_bytes=TIER_HOST_PAGES * pb,
+        kv_disk_dir=disk_dir, kv_disk_bytes=TIER_DISK_BYTES, **kw)
+    plain = ContinuousBatchingEngine(model, N_SLOTS, observe=False, **kw)
+    # Instrumentation: each promotion's pages, label, bytes and wall, the
+    # demotions it ran to make room, each store load by tier, and the
+    # seconds in blob decoding and in page scatters.
+    promotions, demotions, loads, inside = [], [], [], [False]
+    core, demote, get = (eng._tier_promote_core, eng._demote_batch,
+                         eng._tier.get)
+    spent = {"deserialize_s": 0.0, "scatter_s": 0.0}
+
+    def timed(fn, key):
+        def call(*a, **k):
+            t0 = time.monotonic()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += time.monotonic() - t0
+        return call
+
+    def timed_core(toks):
+        inside[0] = True
+        t0 = time.monotonic()
+        try:
+            m, tier, nbytes = core(toks)
+        finally:
+            inside[0] = False
+        if m:
+            nested = [d for d in demotions if d.pop("in", False)]
+            promotions.append({"pages": m, "tier": tier, "bytes": nbytes,
+                               "s": time.monotonic() - t0,
+                               "demote_s": sum(d["s"] for d in nested)})
+        return m, tier, nbytes
+
+    def timed_demote(victims):
+        t0 = time.monotonic()
+        demote(victims)
+        demotions.append({"pages": len(victims), "in": inside[0],
+                          "s": time.monotonic() - t0})
+
+    def timed_get(key):
+        t0 = time.monotonic()
+        h = get(key)
+        if h is not None:
+            loads.append((h.tier, time.monotonic() - t0, len(h.blob)))
+        return h
+
+    eng._tier_promote_core = timed_core
+    eng._demote_batch = timed_demote
+    eng._tier.get = timed_get
+    eng._deserialize_pages = timed(eng._deserialize_pages, "deserialize_s")
+    eng._page_scatter_fn = timed(eng._page_scatter_fn, "scatter_s")
+    try:
+        warm = np.arange(1, 41)  # shorter than a page: no trie entry
+        for e in (eng, plain):
+            e.submit(warm, 2, timeout=600)
+        first = [h.wait(timeout=900)[0] for h in
+                 [eng.submit_nowait(p, TIER_NEW)
+                  for p in prompts[:TIER_RETURNS]]]
+        wait_idle(eng)
+        before = [eng.export_prefix_pages(p) for p in prompts[:TIER_RETURNS]]
+        assert all(b is not None and b[0]["n_pages"] == n_full
+                   for b in before), [b and b[0]["n_pages"] for b in before]
+        t_press = time.monotonic()
+        rest = [h.wait(timeout=900)[0] for h in
+                [eng.submit_nowait(p, TIER_NEW)
+                 for p in prompts[TIER_RETURNS:]]]
+        press_s = time.monotonic() - t_press
+        wait_idle(eng)
+        s1 = eng.snapshot()
+        assert s1["kv_tier_demoted_pages"] > 0, s1
+        layout = [tier_layout(eng, p) for p in prompts[:TIER_RETURNS]]
+        cut = (layout[0]["hbm_pages"] + layout[0]["host_pages"]) * PAGE
+        assert layout[0]["host_pages"] and cut < TIER_PROMPT, layout
+        returning = [prompts[0][:cut]] + list(prompts[:TIER_RETURNS])
+        # The scatter's first launch loads its kernels: take it here, on
+        # the null page's own bytes, so no promotion below pays it.
+        from container_engine_accelerators_tpu_torch.models import (
+            generate as G,
+        )
+        G.scatter_kv_pages(eng._cache, [0], G.gather_kv_pages(eng._cache, [0]))
+        demotions.clear()
+        loads.clear()
+        spent.update(deserialize_s=0.0, scatter_s=0.0)
+        d0 = eng._dispatch_count
+        serving_counts(PA, QM, reset=True)
+        back = [timed_submit(eng, p, TIER_NEW) for p in returning]
+        wait_idle(eng)
+        launches = serving_counts(PA, QM)
+        steps = eng._dispatch_count - d0
+        s2 = eng.snapshot()
+        after = [eng.export_prefix_pages(p) for p in prompts[:TIER_RETURNS]]
+        parsed = observe.parse_text(eng.observability.registry.render())
+        with eng._cv:
+            tier_bps = dict(eng._tier_bps)
+        recomputed = [timed_submit(plain, p, TIER_NEW)
+                      for p in returning[:2]]
+    finally:
+        eng.close()
+        plain.close()
+    closed = eng.snapshot()
+    shutil.rmtree(disk_dir, ignore_errors=True)
+    assert closed["kv_pages_in_use"] == 0, closed
+    assert s2["kv_tier_open_handles"] == 0, s2
+    fetch = parsed.get("kv_tier_fetch_seconds_count", {})
+    by_label = {t: fetch.get(f'{{tier="{t}"}}', 0.0)
+                for t in ("host", "disk")}
+    assert by_label["host"] >= 1 and by_label["disk"] >= 1, (
+        by_label, layout)
+    assert len(promotions) == len(returning), promotions
+    hit = s2["prefix_hit_tokens"] - s1["prefix_hit_tokens"]
+    want_hit = sum(len(p) for p in returning) - len(returning) * TIER_GRID
+    assert hit >= want_hit, (hit, want_hit, s2)
+    # The promoted pages (read from both tiers) are bitwise the bytes
+    # they were demoted with.
+    same = [a is not None and a[0] == b[0] and a[1] == b[1]
+            for a, b in zip(after, before)]
+    assert all(same), same
+    hold_launches(f"engine_tiers_{tag}", quant, launches, steps)
+    qparams = deq = None
+    if quant:
+        from container_engine_accelerators_tpu_torch.models import (
+            quant_generate as QG,
+        )
+        qparams = QG.quantize_decode_params(model)
+        deq = QG.dequantize_decode_params(qparams, model)
+    gaps = [oracle_gap(torch, model, p, out, quant, qparams, deq)
+            for p, (out, _) in zip(returning, back)]
+    assert max(gaps) <= TOP2_TOL, (tag, gaps)
+    by_promotion = {}
+    for label in ("host", "disk"):
+        ps = [p for p in promotions if p["tier"] == label]
+        pages = sum(p["pages"] for p in ps)
+        wall = sum(p["s"] for p in ps)
+        net = wall - sum(p["demote_s"] for p in ps)
+        by_promotion[label] = {
+            "promotions": len(ps), "pages": pages,
+            "ms_per_page": wall / pages * 1e3,
+            "ms_per_page_net_of_demotion": net / pages * 1e3,
+            "bytes_per_s": sum(p["bytes"] for p in ps) / wall,
+        }
+    load_ms = {}
+    for t in ("host", "disk"):
+        ls = [(s, n) for tier, s, n in loads if tier == t]
+        load_ms[t] = {
+            "entries": len(ls),
+            "ms_per_page": sum(s for s, _ in ls) / max(len(ls), 1) * 1e3,
+            "bytes_per_s": (sum(n for _, n in ls) / sum(s for s, _ in ls)
+                            if ls else None)}
+    dem_pages = sum(d["pages"] for d in demotions)
+    return {
+        "phase": f"engine_tiers_{tag}",
+        "sessions": TIER_SESSIONS, "prompt": TIER_PROMPT, "new": TIER_NEW,
+        "returning_prompt_tokens": [len(p) for p in returning],
+        "page_bytes": pb,
+        "kv_host_bytes": TIER_HOST_PAGES * pb,
+        "kv_disk_bytes": TIER_DISK_BYTES,
+        "kv_pages_total": s2["kv_pages_total"],
+        "demoted_pages": s1["kv_tier_demoted_pages"],
+        "layout_before_return": layout,
+        "promoted_pages": (s2["kv_tier_promoted_pages"]
+                           - s1["kv_tier_promoted_pages"]),
+        "promotions_by_label": by_label,
+        "promotion": by_promotion,
+        "store_loads": load_ms,
+        # Over every promotion of the return: blob decoding (in place)
+        # and the scatters (host-to-device copy and index_copy_).
+        "promotion_ms_per_page_in": {
+            k[:-2]: v / max(sum(p["pages"] for p in promotions), 1) * 1e3
+            for k, v in spent.items()},
+        "demotion_during_return": {
+            "pages": dem_pages,
+            "ms_per_page": (sum(d["s"] for d in demotions) / dem_pages * 1e3
+                            if dem_pages else None)},
+        "engine_tier_bytes_per_s_ema": tier_bps,
+        "return_ttft_s": [{"prompt": len(q), "label": p["tier"],
+                           "pages": p["pages"], "s": s}
+                          for q, p, (_, s) in zip(returning, promotions,
+                                                  back)],
+        # The same two prompts (the host-only cut, the first session
+        # whole) recomputed on an engine with no tier.
+        "recompute_ttft_s": [{"prompt": len(q), "s": s} for q, (_, s) in
+                             zip(returning, recomputed)],
+        "recompute_ms_per_page": [s / (len(q) // PAGE) * 1e3 for q, (_, s)
+                                  in zip(returning, recomputed)],
+        "prefix_hit_tokens": hit,
+        "pressure_s": press_s,
+        "returning_rows_launches": launches, "returning_rows_steps": steps,
+        "bitwise_after_round_trip": all(same),
+        "tier_stats": {k: v for k, v in s2.items()
+                       if k.startswith("kv_tier")},
+        "max_gap_to_oracle_argmax": max(gaps), "top2_tolerance": TOP2_TOL,
+        "distinct_tokens_first_visit": [len(set(o)) for o in first],
+        "distinct_tokens_pressure": min(len(set(o)) for o in rest),
+        "kv_pages_in_use_after_close": closed["kv_pages_in_use"],
+        "seconds": time.monotonic() - t_phase,
+    }
+
+
+def run_engine_migrate(torch, model, quant, gen_reqs, foreign=None):
+    """engine_migrate_<tag>: engine A serves requests() and exports the
+    512-token prefix its requests #2 and #4 share; a fresh engine B
+    adopts it and serves those two.  `foreign` (a blob of the other
+    layout) must be refused by B with no page held.  Returns the record
+    and A's (meta, blob)."""
+    from container_engine_accelerators_tpu_torch.serving import (
+        ContinuousBatchingEngine,
+    )
+
+    tag = "int8" if quant else "bf16"
+    t_phase = time.monotonic()
+    dev = model.device
+    reqs = requests(gen_reqs, torch)
+    shared = reqs[2][0][:MIGRATE_SHARED]
+    assert (reqs[4][0][:MIGRATE_SHARED] == shared).all()
+    kw = dict(quant=quant, page_size=PAGE, prefill_chunk=CHUNK,
+              observe=False, device=dev)
+    a = ContinuousBatchingEngine(model, N_SLOTS, **kw)
+    b = ContinuousBatchingEngine(model, N_SLOTS, **kw)
+    try:
+        outs_a = [h.wait(timeout=900)[0] for h in
+                  [a.submit_nowait(p, n) for p, n in reqs]]
+        wait_idle(a)
+        a.export_prefix_pages(shared)  # the first call's one-time set-up
+        b.submit(np.arange(1, 41), 2, timeout=600)  # warm-up
+        t0 = time.monotonic()
+        meta, blob = a.export_prefix_pages(shared)
+        export_s = time.monotonic() - t0
+        assert meta["n_pages"] == MIGRATE_SHARED // PAGE, meta
+        refused = None
+        if foreign is not None:
+            in_use = b.snapshot()["kv_pages_in_use"]
+            try:
+                b.adopt_prefix_pages(shared, *foreign)
+            except ValueError as e:
+                refused = str(e)
+            assert refused is not None, "a blob of the other layout adopted"
+            assert b.snapshot()["kv_pages_in_use"] == in_use
+        t0 = time.monotonic()
+        adopted = b.adopt_prefix_pages(shared, meta, blob)
+        adopt_s = time.monotonic() - t0
+        assert adopted == meta["n_pages"], adopted
+        s0 = b.snapshot()
+        outs_b = [h.wait(timeout=900)[0] for h in
+                  [b.submit_nowait(reqs[i][0], reqs[i][1]) for i in (2, 4)]]
+        wait_idle(b)
+        s1 = b.snapshot()
+        again = b.export_prefix_pages(shared)
+    finally:
+        a.close()
+        b.close()
+    hit = s1["prefix_hit_tokens"] - s0["prefix_hit_tokens"]
+    assert hit >= 2 * MIGRATE_SHARED, (hit, s1)
+    assert again[0] == meta and again[1] == blob, "B's re-export differs"
+    # B serves both over adopted pages.  A served #4 over its own pages
+    # of the prefix (a hit) and #2 without a hit: in bf16 that prefill
+    # wrote exactly the bytes B preloads, so both match bitwise; the
+    # int8 pages are quantized, so B's #2 is held to the oracle there.
+    qparams = deq = None
+    if quant:
+        from container_engine_accelerators_tpu_torch.models import (
+            quant_generate as QG,
+        )
+        qparams = QG.quantize_decode_params(model)
+        deq = QG.dequantize_decode_params(qparams, model)
+    assert outs_b[1] == outs_a[4], first_divergence(outs_b[1], outs_a[4])
+    gap = oracle_gap(torch, model, reqs[2][0], outs_b[0], quant, qparams,
+                     deq)
+    if not quant:
+        assert outs_b[0] == outs_a[2], first_divergence(outs_b[0], outs_a[2])
+    assert gap <= TOP2_TOL, gap
+    rec = {
+        "phase": f"engine_migrate_{tag}", "pages": meta["n_pages"],
+        "blob_bytes": len(blob),
+        "export_ms": export_s * 1e3, "adopt_ms": adopt_s * 1e3,
+        "export_bytes_per_s": len(blob) / export_s,
+        "adopt_bytes_per_s": len(blob) / adopt_s,
+        "prefix_hit_tokens": hit,
+        "tokens_equal_a": [outs_b[0] == outs_a[2], outs_b[1] == outs_a[4]],
+        "max_gap_to_oracle_argmax": gap,
+        "reexport_bitwise": True,
+        "foreign_blob_refused": refused,
+        "seconds": time.monotonic() - t_phase,
+    }
+    return rec, (meta, blob)
+
+
+def run_engine_observe(torch, model, gen_reqs):
+    """engine_observe_bf16_fused: requests() through a fused engine with
+    observe=True and one with observe=False, in turns (off, on, on,
+    off); then the observed engine's revival and kill."""
+    from container_engine_accelerators_tpu_torch.serving import (
+        ContinuousBatchingEngine,
+        EngineSupervisor,
+    )
+    from container_engine_accelerators_tpu_torch.serving import observe
+
+    t_phase = time.monotonic()
+    reqs = requests(gen_reqs, torch)
+    rows = len(reqs)
+    mk = dict(page_size=PAGE, prefill_chunk=CHUNK, decode_steps=FUSED_STEPS,
+              device=model.device)
+    off = ContinuousBatchingEngine(model, N_SLOTS, observe=False, **mk)
+    on = ContinuousBatchingEngine(model, N_SLOTS, observe=True, **mk)
+    obs = on.observability
+    sup = None
+    try:
+        for e in (off, on):  # captures the block widths 4 and 2
+            e.submit(np.arange(1, 41), 2 * FUSED_STEPS, timeout=600)
+            wait_idle(e)
+        # Each engine's first run prefills every prompt and its second
+        # hits its own prefix cache (bf16 rounds the two paths
+        # differently), so the runs pair as (first, first), (second,
+        # second).
+        runs, tokens = {True: [], False: []}, {True: [], False: []}
+        h0 = {n: getattr(obs, n).state() for n in ("ttft", "itl")}
+        traces0 = obs.traces.total
+        for observed in (False, True, True, False):
+            e = on if observed else off
+            t0 = time.monotonic()
+            outs = [h.wait(timeout=900)[0] for h in
+                    [e.submit_nowait(p, n) for p, n in reqs]]
+            wall = time.monotonic() - t0
+            wait_idle(e)
+            runs[observed].append(sum(len(o) for o in outs) / wall)
+            tokens[observed].append(outs)
+        for k in (0, 1):
+            assert tokens[True][k] == tokens[False][k], [
+                first_divergence(a, b)
+                for a, b in zip(tokens[True][k], tokens[False][k])]
+        h1 = {n: getattr(obs, n).state() for n in ("ttft", "itl")}
+        window = {n: [x - y for x, y in zip(h1[n][0], h0[n][0])]
+                  for n in h1}
+        n_tok = sum(len(o) for outs in tokens[True] for o in outs)
+        ttft_n, itl_n = sum(window["ttft"]), sum(window["itl"])
+        assert ttft_n == 2 * rows, (ttft_n, rows)
+        assert itl_n == n_tok - 2 * rows, (itl_n, n_tok)
+        text = obs.registry.render()
+        parsed = observe.parse_text(text)
+        snap = on.snapshot()
+        assert parsed["serve_ttft_seconds_count"][""] == obs.ttft.state()[2]
+        assert parsed["serve_engine_retired_total"][""] == snap["retired"]
+        assert observe.parse_text(obs.registry.render(openmetrics=True))[
+            "serve_itl_seconds_count"][""] == obs.itl.state()[2]
+        traces = obs.traces.traces()[-rows:]
+        assert obs.traces.total - traces0 == 2 * rows
+        stages = [{s.name for s in t.spans} for t in traces]
+        assert all({"queue_wait", "prefill_chunk", "decode"} <= st
+                   for st in stages), stages
+        # Revival: one block fails on every attempt until the retries
+        # are spent; the supervisor revives, the recorder holds the
+        # story and the restart's dump.
+        sup = EngineSupervisor(on, max_restarts=2).start()
+        real, fails = on._fused_fn, [0]
+
+        def flaky(*a, **k):
+            if fails[0] <= on._step_retries:
+                fails[0] += 1
+                raise RuntimeError("injected fused-block fault")
+            return real(*a, **k)
+
+        on._fused_fn = flaky
+        try:
+            on.submit(reqs[0][0], 16, timeout=900)
+        except RuntimeError:
+            pass
+        t0 = time.monotonic()
+        while on.snapshot()["restarts"] < 1:
+            assert time.monotonic() - t0 < 60, "the engine never revived"
+            time.sleep(0.01)
+        kinds = [e["kind"] for e in obs.recorder.events()]
+        for k in ("step_retry", "step_fail", "crash", "restart"):
+            assert k in kinds, (k, kinds[-12:])
+        assert on.submit(reqs[0][0], 16, timeout=900)
+        sup.stop()
+        sup = None
+        on.kill(RuntimeError("chip_smoke kill"))
+        recorder = on.snapshot().get("flight_recorder") or []
+        assert recorder and recorder[-1]["kind"] == "kill", recorder[-3:]
+    finally:
+        if sup is not None:
+            sup.stop()
+        on.close()
+        off.close()
+
+    def q(name, p):
+        h = getattr(obs, name)
+        return observe.quantile_from_counts(h.bounds, window[name], p)
+
+    on_tps = sum(runs[True]) / len(runs[True])
+    off_tps = sum(runs[False]) / len(runs[False])
+    return {
+        "phase": "engine_observe_bf16_fused",
+        "engine_options": {"decode_steps": FUSED_STEPS},
+        "requests": rows, "tokens_per_run": n_tok // 2,
+        "tokens_per_s_observed": runs[True],
+        "tokens_per_s_unobserved": runs[False],
+        "observed_over_unobserved": on_tps / off_tps,
+        "ttft_s": {"p50": q("ttft", 0.5), "p99": q("ttft", 0.99),
+                   "count": ttft_n},
+        "itl_s": {"p50": q("itl", 0.5), "p99": q("itl", 0.99),
+                  "count": itl_n},
+        "metrics_series": len(parsed),
+        "trace_stages": sorted(stages[0]),
+        "flight_recorder_events_at_kill": len(recorder),
+        "recorder_kinds": sorted(set(kinds)),
+        "seconds": time.monotonic() - t_phase,
+    }
 
 
 # -- phases 5-6: LM training -----------------------------------------------
@@ -2838,6 +3389,21 @@ def main() -> int:
             emit({**{k: v for k, v in rec.items() if k != "outs"},
                   "card": smi})
     l_bf16, l_int8 = engine_launches[(False, "")], engine_launches[(True, "")]
+    for quant in (False, True):
+        rec = run_engine_tiers(torch, model, quant,
+                               torch.Generator().manual_seed(SEED + 4))
+        engine_launches[(quant, "_tiers")] = rec["returning_rows_launches"]
+        emit({**rec, "card": smi})
+    foreign = None
+    for quant in (False, True):
+        rec, blob = run_engine_migrate(
+            torch, model, quant, torch.Generator().manual_seed(SEED + 1),
+            foreign)
+        foreign = foreign or blob
+        emit({**rec, "card": smi})
+    emit({**run_engine_observe(torch, model,
+                               torch.Generator().manual_seed(SEED + 1)),
+          "card": smi})
     del model
     torch.cuda.empty_cache()
 
@@ -2929,6 +3495,7 @@ def main() -> int:
             quant, op = serving[k["name"]]
             k["launches_fused"] = engine_launches[(quant, "_fused")][op]
             k["launches_spec"] = engine_launches[(quant, "_spec")][op]
+            k["launches_tiers"] = engine_launches[(quant, "_tiers")][op]
             if op == "int8_weight_matmul":  # the bf16 engine's drafter
                 k["launches_spec_bf16"] = engine_launches[(False, "_spec")][
                     op]

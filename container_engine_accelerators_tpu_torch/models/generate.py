@@ -4,7 +4,8 @@ and the contiguous serving paths (`make_decoder` :36, `_sample` :122,
 the oracle `generate_prefill` :241, `init_decode_cache` :356,
 `prefill_chunk` :446, `prefill_finish_into_slot` :491,
 `init_paged_cache` :566, `paged_scatter_row` :595,
-`paged_preload_scratch` :627, `paged_prefill_finish` :702,
+`paged_preload_scratch` :627, `_pool_leaves` :660, `gather_kv_pages`
+:671, `scatter_kv_pages` :683, `paged_prefill_finish` :702,
 `paged_decode_step` :757, `paged_decode_steps` :813, `_verify_sample`
 :890, `verify_step` :908, `paged_verify_step` :969, `decode_step`
 :1026).
@@ -312,6 +313,56 @@ def paged_preload_scratch(cache, scratch, block_table, upto: int):  # hot-path
             )
             scr[:, :upto] = view[:, :upto]
     return scratch
+
+
+def _pool_leaves(cache):
+    """The page-pool leaves of a paged cache in a fixed order: block by
+    block, each block's pools in key order (bf16: k, v; the int8 twin:
+    k, k_scale, v, v_scale), every tensor's leading axis the physical
+    page axis.  For the int8 twin this is the reference's tree order;
+    for the bf16 cache the reference sorts its block names as strings
+    (block_0, block_1, block_10, ...), which agrees up to depth 10."""
+    return [blk[name] for blk in cache for name in sorted(blk)]
+
+
+def gather_kv_pages(cache, page_ids):
+    """Gather physical pages `page_ids` out of EVERY pool leaf of a
+    paged cache (bf16 or int8-twin layout alike) — the device half of
+    page EXPORT: one (n, page, ...) tensor a leaf in _pool_leaves order,
+    on the cache's device.  The caller copies them to the host (a
+    synchronous .cpu(), so no byte is read before the copy lands)."""
+    leaves = _pool_leaves(cache)
+    ids = _as(page_ids, torch.int64, leaves[0].device)
+    return [leaf.index_select(0, ids) for leaf in leaves]
+
+
+def scatter_kv_pages(cache, page_ids, parts):
+    """Write migrated page data `parts` (one tensor a pool leaf, in
+    _pool_leaves order — gather_kv_pages' output shape) into the paged
+    cache at physical pages `page_ids`, IN PLACE (index_copy_), so every
+    pool keeps its address and CUDA graphs captured over the cache stay
+    valid — the device half of page ADOPTION.  The caller passes
+    exactly the pages it allocated (no null-page padding lanes).
+    Returns `cache`."""
+    leaves = _pool_leaves(cache)
+    if len(parts) != len(leaves):
+        raise ValueError(
+            f"{len(parts)} page parts for a cache of {len(leaves)} pool "
+            f"leaves"
+        )
+    dev = leaves[0].device
+    ids = _as(page_ids, torch.int64, dev)
+    for leaf, part in zip(leaves, parts):
+        part = part.to(device=dev)
+        if part.dtype != leaf.dtype or part.shape[1:] != leaf.shape[1:] \
+                or part.shape[0] != ids.shape[0]:
+            raise ValueError(
+                f"page part {tuple(part.shape)} {part.dtype} does not fit "
+                f"{ids.shape[0]} pages of pool {tuple(leaf.shape)} "
+                f"{leaf.dtype}"
+            )
+        leaf.index_copy_(0, ids, part)
+    return cache
 
 
 @torch.no_grad()

@@ -67,10 +67,23 @@ Differences of idiom from the reference:
   - a torch.Generator on the engine's device replaces the rng key; a
     retried step draws fresh noise (greedy rows are unaffected).
 
-Options whose modules come in later slices raise NotImplementedError
-naming their ROADMAP item: host/disk KV tiers (A5f), observe=True (A5g),
-mesh (A10).  With observe off the engine carries a
-null recorder.
+KV page migration and tiers (paged engines with the prefix cache):
+`export_prefix_pages` serializes a prefix's trie pages into a blob
+(leaf metas, a layout signature naming this backend, the bytes) and
+`adopt_prefix_pages` scatters a blob into fresh pages and the trie, both
+as side jobs on the scheduler thread.  With kv_host_bytes / kv_disk_dir
+LRU eviction DEMOTES each victim page's bytes into a host-RAM tier that
+spills to disk (serving/kvtier.py), and an admission promotes the
+longest tier-resident continuation of its prompt back into the pool
+before it recomputes, when the measured load cost beats the recompute
+estimate.  Page gathers read back synchronously, and page scatters write
+in place, so captured CUDA graphs keep their addresses.
+
+Observability (observe=True, the default): latency histograms, a trace
+per request and the flight recorder (serving/observe.py, otel.py),
+folded from monotonic stamps staged on the rows and windows at admit,
+commit, retire and failure boundaries, never between staging and
+dispatch.  A mesh (A10) raises NotImplementedError.
 
 Failure semantics are the reference's: a failed admission fails only
 its ticket; a failed step retries with capped backoff, then fails the
@@ -82,10 +95,11 @@ a supervisor (serving/supervisor.py) to revive with a fresh cache;
 from __future__ import annotations
 
 import collections
-import contextlib
 import logging
+import math
 import threading
 import time
+import warnings
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -96,43 +110,25 @@ from ..models import generate as G
 from ..models import quant_generate as QG
 from ..models.transformer import TransformerLM
 from . import kvpool
+from . import kvtier
+from . import observe as observe_mod
 from .decode_graph import SeamGraphs
 from .errors import QueueFullError, StepFailure
 from .prefix_cache import RadixPrefixCache
 
 log = logging.getLogger(__name__)
 
+# The wire names of the pool dtypes (the reference's numpy names).
+_DTYPES = {
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+    "float32": torch.float32,
+    "int8": torch.int8,
+}
 
-class _NullObservability:
-    """The engine's recorder while observability is off: every seam is
-    a no-op (the observe/otel port is ROADMAP A5g)."""
 
-    def attach_engine(self, engine):
-        pass
-
-    def admitted(self, seq, now):
-        pass
-
-    def chunk_done(self, seq, t0, t1, width, last):
-        pass
-
-    def first_token(self, seq, now):
-        pass
-
-    def token_committed(self, seq, now):
-        pass
-
-    def step_committed(self, n_rows, lag_s):
-        pass
-
-    def step_annotation(self, step_index):
-        return contextlib.nullcontext()
-
-    def retired(self, seq, now, reason="done"):
-        pass
-
-    def event(self, kind, **fields):
-        pass
+def _dtype_name(dtype) -> str:
+    return str(dtype).rsplit(".", 1)[-1]
 
 
 # state-machine: ticket field: state states: queued,admitted,streaming,done,failed terminal: done,failed
@@ -247,11 +243,12 @@ class _Seq:
         "top_k", "top_p", "stop_token", "on_token", "tokens",
         "next_tok", "pos", "page_refs", "page_wait",
         "spec_depth", "accept_ema", "spec_probe", "draft_upto",
-        "t_submit", "t_admit", "t_last_commit",
+        "t_submit", "t_admit", "t_last_commit", "trace", "trace_ctx",
+        "tier_stamp",
     )
 
     def __init__(self, ticket, row_i, prompt, max_new, temp, top_k,
-                 top_p, stop_token, on_token):
+                 top_p, stop_token, on_token, trace_ctx=None):
         self.ticket = ticket
         self.row_i = row_i
         self.prompt = prompt  # np (plen,) int32
@@ -280,9 +277,18 @@ class _Seq:
         self.accept_ema = 1.0
         self.spec_probe = 0
         self.draft_upto = 0
+        # Observability staging: plain monotonic stamps, folded by the
+        # observer at admit / commit / retire.  `trace` (otel.Trace)
+        # opens at admission, under the submitter's propagated
+        # otel.TraceContext when one rode the request; `tier_stamp`
+        # (t0, t1, tier, pages) is the admission-time promotion, which
+        # runs before the trace opens.
         self.t_submit = time.monotonic()
         self.t_admit = 0.0
         self.t_last_commit = 0.0
+        self.trace = None
+        self.trace_ctx = trace_ctx
+        self.tier_stamp = None
 
 
 class _Pending:
@@ -321,6 +327,22 @@ class _SpecPending(_Pending):
     def __init__(self, rows, nxt, draft, t_dispatch=0.0):
         super().__init__(rows, nxt, t_dispatch)
         self.draft = draft
+
+
+class _SideJob:
+    """One scheduler-thread errand (KV page export or adoption, tier
+    promotion), submitted from another thread through _side_call and
+    run by the scheduler between turns, so that no second thread reads
+    or writes the cache while a turn updates it.  Its failure resolves
+    the waiter with the error; the scheduler keeps serving."""
+
+    __slots__ = ("fn", "done", "result", "error")
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.done = threading.Event()
+        self.result = None
+        self.error: Optional[BaseException] = None
 
 
 class _Prefill:
@@ -400,7 +422,12 @@ class ContinuousBatchingEngine:
     False keeps one contiguous max_seq cache row per slot.  page_size:
     tokens per page (power of two); kv_pages: pool capacity in pages
     (default n_slots x pages per max_seq row); prefix_cache: radix
-    prefix reuse (paged only).  decode_steps: the widest fused block
+    prefix reuse (paged only).  kv_host_bytes / kv_disk_dir /
+    kv_disk_bytes: the host-RAM tier's byte cap, the disk tier's
+    directory and its byte cap (0: unbounded) under the pool (paged with
+    the prefix cache only; no tier when both are off);
+    tier_recompute_tok_s: the prefill rate the promote-or-recompute rule
+    assumes.  decode_steps: the widest fused block
     (module docstring); 0 or 1 keeps the one-token path, and a
     non-paged engine forces it to 0.  spec_k: the widest speculative
     window (module docstring); 0 keeps the one-token path.
@@ -408,7 +435,10 @@ class ContinuousBatchingEngine:
     trailing accept rate below which a row's depth halves.  max_queue:
     bound on queued prompt rows.  step_retries / retry_backoff_s /
     retry_backoff_cap_s: transient step-failure absorption.  rng_seed
-    seeds the engine's sampling generator.  device: where the engine
+    seeds the engine's sampling generator.  observe: serving
+    observability (histograms, traces, flight recorder; False builds the
+    uninstrumented engine); registry: an observe.Registry to share with
+    the embedder (None builds a private one).  device: where the engine
     runs (default the card; raises without one unless "cpu")."""
 
     def __init__(
@@ -428,6 +458,8 @@ class ContinuousBatchingEngine:
         prefix_cache: bool = True,
         kv_host_bytes: int = 0,
         kv_disk_dir: Optional[str] = None,
+        kv_disk_bytes: int = 0,
+        tier_recompute_tok_s: float = 2000.0,
         spec_k: int = 0,
         spec_adaptive: bool = True,
         spec_min_accept: float = 0.4,
@@ -437,7 +469,8 @@ class ContinuousBatchingEngine:
         step_retries: int = 3,
         retry_backoff_s: float = 0.05,
         retry_backoff_cap_s: float = 2.0,
-        observe: bool = False,
+        observe: bool = True,
+        registry=None,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -460,17 +493,10 @@ class ContinuousBatchingEngine:
         spec = int(spec_k)
         if spec < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
-        for wanted, item in (
-            (mesh is not None, "a device mesh, A10"),
-            (int(kv_host_bytes) > 0 or kv_disk_dir,
-             "host/disk KV tiers, A5f"),
-            (observe, "serving observability, A5g"),
-        ):
-            if wanted:
-                raise NotImplementedError(
-                    f"{item.rsplit(', ', 1)[0]} is not ported yet "
-                    f"(ROADMAP {item.rsplit(', ', 1)[1]})"
-                )
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh is not ported yet (ROADMAP A10)"
+            )
         self._model = model
         self.n_slots = int(n_slots)
         self.quant = bool(quant)
@@ -506,6 +532,26 @@ class ContinuousBatchingEngine:
             self._pool = kvpool.PagePool(total)
             if prefix_cache:
                 self._prefix = RadixPrefixCache(self._page)
+        # The tiered page store (serving/kvtier.py): eviction demotes
+        # serialized trie pages into it, admission promotes them back.
+        # Needs the trie (demotion victims are its leaves).
+        self._tier = None
+        if (
+            self._prefix is not None
+            and (int(kv_host_bytes) > 0 or kv_disk_dir)
+        ):
+            self._tier = kvtier.TieredPageStore(
+                self._page, int(kv_host_bytes),
+                disk_dir=kv_disk_dir, disk_bytes=int(kv_disk_bytes),
+            )
+        # The measured promote-or-recompute rule: bytes/s a tier over
+        # completed promotions (first sample excluded), a probe after 8
+        # consecutive skips.
+        self._tier_recompute_tok_s = max(1.0, float(tier_recompute_tok_s))
+        self._tier_bps: dict = {}  # guarded-by: _cv
+        self._tier_n: dict = {}  # guarded-by: _cv
+        self._tier_skip_streak: dict = {}  # guarded-by: _cv
+        self._tier_page_bytes = 0.0  # guarded-by: _cv
         if ds > 1 and not self._paged:
             log.info(
                 "fused multi-step decode disabled: the chained decode "
@@ -619,6 +665,11 @@ class ContinuousBatchingEngine:
                 )
 
             self._preload_fn = G.paged_preload_scratch
+        # The page seams of export / adopt and the tiers, as attributes
+        # a fault injector can wrap: (cache, page ids) -> gathered
+        # leaves on the device, and (cache, page ids, parts) -> cache.
+        self._page_gather_fn = G.gather_kv_pages
+        self._page_scatter_fn = G.scatter_kv_pages
         self._prefill_fn = prefill_fn
         self._decode_fn = decode_fn
         # Fused blocks (decode_steps > 1): widths on the power-of-two
@@ -708,6 +759,9 @@ class ContinuousBatchingEngine:
         )
         self._pending: Optional[_Pending] = None  # guarded-by: _cv
         self._prefilling: Optional[_Prefill] = None  # guarded-by: _cv
+        self._side_jobs: "collections.deque[_SideJob]" = (  # guarded-by: _cv
+            collections.deque()
+        )
         # Double-buffered host staging (module docstring): the set an
         # in-flight step's copy reads is never rewritten before that
         # step commits.  Scheduler-thread-private.
@@ -763,6 +817,20 @@ class ContinuousBatchingEngine:
             "prefix_inserted_pages": 0,
             "prefix_evictions": 0,
             "cow_copies": 0,
+            # KV page migration: pages serialized out of / adopted into
+            # the pool, their bytes, and adoptions that failed cleanly.
+            "kv_pages_exported": 0,
+            "kv_pages_adopted": 0,
+            "kv_export_bytes": 0,
+            "kv_adopt_bytes": 0,
+            "kv_adopt_failures": 0,
+            # Tiers: pages demoted out of / promoted back into the pool,
+            # promotions the cost rule skipped for recompute, and
+            # promotions that failed cleanly (the ticket recomputes).
+            "kv_tier_demoted_pages": 0,
+            "kv_tier_promoted_pages": 0,
+            "kv_tier_load_skipped": 0,
+            "kv_tier_load_failures": 0,
             # Fused blocks dispatched and the tokens they committed;
             # "steps" counts commits (host round-trips) of both kinds.
             "fused_blocks": 0,
@@ -782,14 +850,35 @@ class ContinuousBatchingEngine:
             "spec_draft_passes": 0,
             "spec_draft_chains": 0,
         }
-        self._obs = _NullObservability()
+        # Observability (serving/observe.py), or the inert observer.
+        # The dispatch counter numbers the profiler's step annotations.
+        self._obs = (
+            observe_mod.engine_observability(registry=registry)
+            if observe else observe_mod.NullObservability()
+        )
         self._obs.attach_engine(self)
+        # Tier series ride the engine registry: occupancy and flow as a
+        # collector, promotion wall time as a histogram by tier.
+        self._tier_fetch_hist = None
+        if self._tier is not None and self._obs.enabled:
+            self._obs.registry.register_collector(
+                "kv-tier", self._tier.collect
+            )
+            self._tier_fetch_hist = self._obs.registry.histogram(
+                "kv_tier_fetch_seconds",
+                "Wall time of one tier promotion (load + scatter + "
+                "trie adopt), labelled by the deepest tier touched",
+                kvtier.TIER_FETCH_BUCKETS,
+                labelnames=("tier",),
+            )
         self._dispatch_count = 0
         self._start_thread()
 
     @property
     def observability(self):
-        """The engine's recorder (the null recorder in this port)."""
+        """The engine's observer (observe.EngineObservability or the
+        null observer): `.registry` renders /metrics, `.recorder` is
+        the flight recorder, `.traces` the recent-request trace ring."""
         return self._obs
 
     def _zeros_tok(self):
@@ -807,6 +896,7 @@ class ContinuousBatchingEngine:
         stop_token: Optional[int] = None,
         timeout: Optional[float] = None,
         on_token: Optional[Callable[[int, int], None]] = None,
+        trace_ctx=None,
     ) -> List[list]:
         """Blocking: enqueue one request ((rows, p_len) or (p_len,) int
         prompt) and wait for every row to retire.  Returns one token
@@ -814,10 +904,12 @@ class ContinuousBatchingEngine:
         `stop_token` (included last).  on_token(row, token) streams
         committed tokens (one step behind dispatch under the lag
         window).  On timeout the request is cancelled and RuntimeError
-        raises; QueueFullError when max_queue would overflow."""
+        raises; QueueFullError when max_queue would overflow.
+        trace_ctx: see submit_nowait."""
         return self.submit_nowait(
             prompt, max_new, temperature, top_k=top_k, top_p=top_p,
             stop_token=stop_token, on_token=on_token,
+            trace_ctx=trace_ctx,
         ).wait(timeout=timeout)
 
     def submit_nowait(
@@ -829,8 +921,12 @@ class ContinuousBatchingEngine:
         top_p=None,
         stop_token: Optional[int] = None,
         on_token: Optional[Callable[[int, int], None]] = None,
+        trace_ctx=None,
     ) -> SubmitHandle:
-        """Validate and enqueue; return a SubmitHandle."""
+        """Validate and enqueue; return a SubmitHandle.  `trace_ctx`
+        (otel.TraceContext) is the propagated trace identity: the trace
+        opened at admission takes its trace_id and parents its spans on
+        the caller's span (None mints a local id)."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim == 1:
             prompt = prompt[None]
@@ -856,7 +952,7 @@ class ContinuousBatchingEngine:
         ticket = _Ticket(rows)
         seqs = [
             _Seq(ticket, i, prompt[i], max_new, temperature, top_k,
-                 top_p, stop_token, on_token)
+                 top_p, stop_token, on_token, trace_ctx=trace_ctx)
             for i in range(rows)
         ]
         with self._cv:
@@ -884,24 +980,31 @@ class ContinuousBatchingEngine:
         return SubmitHandle(self, ticket)
 
     def snapshot(self) -> dict:
-        """Atomic copy of the counters plus queue/slot occupancy and the
-        pool gauges."""
+        """Atomic copy of the counters plus queue/slot occupancy, the
+        pool gauges and the tiers' occupancy and flow.  On a dead or
+        crashed engine it also carries the flight recorder's retained
+        events ("flight_recorder")."""
         with self._cv:
             snap = dict(self.stats)
             snap["active_rows"] = sum(
                 1 for s in self._slots if s is not None
             )
             snap["queue_depth"] = len(self._queue)
+            dead = self._dead is not None or self._crashed.is_set()
         if self._paged:
             snap["kv_pages_total"] = self._pool.total
             snap["kv_pages_in_use"] = self._pool.in_use
             snap["prefix_cached_pages"] = (
                 self._prefix.page_count() if self._prefix else 0
             )
+            if self._tier is not None:
+                snap.update(self._tier.stats())
         if self._spec_k:
             # The last dispatched window's width (the bucketed max of
             # the rows' adaptive depths): the draft-depth gauge.
             snap["spec_draft_depth"] = self._spec_last_width
+        if dead and self._obs.enabled:
+            snap["flight_recorder"] = self._obs.recorder.events()
         return snap
 
     @property
@@ -964,17 +1067,22 @@ class ContinuousBatchingEngine:
             "engine scheduler restarted (fresh cache, %d queued rows "
             "preserved): %s", self.queue_depth, err,
         )
+        # Every supervisor restart leaves the pre-restart scheduler tail
+        # in stderr before the event stream continues.
         self._obs.event("restart", n=restarts, err=repr(err)[:120])
+        self._obs.dump(f"supervisor restart #{restarts}")
         self._start_thread()
         return True
 
     def kill(self, err: BaseException) -> None:
         """Mark the engine permanently failed: everything queued or in
-        flight fails and later submits raise."""
+        flight fails and later submits raise.  The flight recorder
+        dumps, to stderr and into snapshot()."""
         with self._cv:
             self._dead = err
         self._obs.event("kill", err=repr(err)[:120])
         self._fail_all(err)
+        self._obs.dump(f"engine death: {err!r}"[:200])
 
     # -- scheduler -------------------------------------------------------
     def _build_cache(self):
@@ -1081,12 +1189,50 @@ class ContinuousBatchingEngine:
         for pid in priv:
             self._pool.unref(pid)
 
+    def _cache_intact(self) -> bool:
+        """False when a failed device call left the cache's state
+        unknowable.  The port updates the cache in place and donates
+        nothing, so that happens only when the card itself faulted: a
+        CUDA error is sticky and surfaces at the next synchronize.  A
+        CPU cache is always intact."""
+        if self.device.type != "cuda":
+            return True
+        try:
+            torch.cuda.synchronize(self.device)
+        except Exception:  # pylint: disable=broad-except
+            return False
+        return True
+
+    # owns-pages
+    def _lose_cache(self, err, at: str) -> int:
+        """The lost-device-state path of a failed admission finish, page
+        adoption or tier promotion: every active row fails with `err`,
+        the graphs are dropped and the cache is rebuilt (the queue is
+        preserved).  Returns the rows failed."""
+        self._obs.event("cache_lost", at=at)
+        n = self._fail_active_rows(err)
+        log.error(
+            "%s failed with the device state lost: %d active row(s) "
+            "failed with it; rebuilding", at, n,
+        )
+        self._reset_graphs()
+        self._cache = self._build_cache()
+        self._reset_paged_state()
+        self._reset_draft_state()
+        return n
+
     # owns-pages
     def _alloc_private_pages(self, n):
-        """Allocate `n` pages, evicting LRU prefix pages under pressure;
-        None on exhaustion."""
+        """Allocate `n` pages, evicting LRU prefix pages under pressure
+        (only the trie's references drop: pages active rows still map
+        free when those rows retire).  With a tiered store, eviction
+        DEMOTES each victim's bytes first (_demote_until).  None on
+        exhaustion."""
         if self._pool.free_count < n and self._prefix is not None:
-            released = self._prefix.evict_until(self._pool, n)
+            if self._tier is not None:
+                released = self._demote_until(n)
+            else:
+                released = self._prefix.evict_until(self._pool, n)
             if released:
                 with self._cv:
                     self.stats["prefix_evictions"] += released
@@ -1094,6 +1240,489 @@ class ContinuousBatchingEngine:
             return self._pool.alloc(n)
         except kvpool.PoolExhausted:
             return None
+
+    # -- tiered page store -----------------------------------------------
+    # owns-pages, transfers-pages-to: drop_leaf
+    def _demote_until(self, n_free_needed: int) -> int:
+        """The tier-aware evict_until: serialize the LRU leaves' pages
+        into the store, a generation at a time (so the store holds the
+        per-depth chain the promoter walks), then drop the leaves.
+        Returns trie pages released; a failed serialization evicts that
+        batch without spilling (memory pressure must resolve even when
+        the tier is sick)."""
+        released = 0
+        while self._pool.free_count < n_free_needed:
+            deficit = n_free_needed - self._pool.free_count
+            victims = self._prefix.lru_leaves(deficit)
+            if not victims:
+                break
+            try:
+                self._demote_batch(victims)
+            except Exception:  # pylint: disable=broad-except
+                log.warning(
+                    "tier demotion failed; evicting %d page(s) "
+                    "without spilling", len(victims), exc_info=True,
+                )
+            dropped = 0
+            for path, _ in victims:
+                dropped += self._prefix.drop_leaf(path, self._pool)
+            released += dropped
+            if not dropped:
+                break
+        return released
+
+    # borrows-pages
+    def _demote_batch(self, victims) -> None:
+        """Serialize one victim generation, [(token path, page id)] from
+        lru_leaves, into the store: pin, ONE gather over the victim
+        pages read back synchronously, then a one-page entry a victim
+        keyed by its root-to-leaf token path.  Entries the store holds
+        already are skipped (prefix KV is deterministic)."""
+        todo = [
+            (path, pid) for path, pid in victims
+            if self._tier.contains(self._tier.key_of(path)) is None
+        ]
+        if not todo:
+            return
+        pages = [pid for _, pid in todo]
+        self._pool.export_pages(pages)  # pin under the gather
+        try:
+            gathered = [
+                t.cpu() for t in self._page_gather_fn(self._cache, pages)
+            ]
+            sig = self._page_layout_sig()
+            total = 0
+            for j, (path, _) in enumerate(todo):
+                leaves, blob = self._serialize_pages(
+                    [a[j:j + 1] for a in gathered], 1
+                )
+                meta = {
+                    "n_pages": 1,
+                    "tokens_covered": len(path),
+                    "sig": sig,
+                    "leaves": leaves,
+                }
+                self._tier.put(self._tier.key_of(path), meta, blob)
+                total += len(blob)
+        finally:
+            self._pool.release_pages(pages)
+        with self._cv:
+            self.stats["kv_tier_demoted_pages"] += len(todo)
+            # The measured serialized page size feeds the load-cost
+            # estimate (the first measurement seeds it).
+            pb = total / len(todo)
+            self._tier_page_bytes = (
+                pb if self._tier_page_bytes <= 0
+                else 0.8 * self._tier_page_bytes + 0.2 * pb
+            )
+
+    def _should_tier_load(self, tier: str, n_pages: int) -> bool:
+        """Promote or recompute: the estimated load wall (serialized
+        bytes over the tier's measured bytes/s) against the estimated
+        recompute wall at tier_recompute_tok_s.  An unmeasured tier
+        loads (the first promotion is the measurement), and the 8th
+        consecutive skip loads anyway, so a stale estimate cannot shut
+        a tier off for good."""
+        with self._cv:
+            bps = self._tier_bps.get(tier, 0.0)
+            page_bytes = self._tier_page_bytes
+            if bps <= 0 or page_bytes <= 0:
+                self._tier_skip_streak[tier] = 0
+                return True
+            est_load = n_pages * page_bytes / bps
+            est_recompute = (
+                n_pages * self._page / self._tier_recompute_tok_s
+            )
+            if est_load <= est_recompute:
+                self._tier_skip_streak[tier] = 0
+                return True
+            streak = self._tier_skip_streak.get(tier, 0) + 1
+            if streak >= 8:
+                self._tier_skip_streak[tier] = 0
+                return True  # probe: re-measure a tier we keep skipping
+            self._tier_skip_streak[tier] = streak
+            self.stats["kv_tier_load_skipped"] += 1
+            return False
+
+    def _note_tier_load(self, tier: str, nbytes: int,
+                        dt: float) -> None:
+        """Fold one measured promotion into the tier's bytes/s EMA.  The
+        first sample is excluded: it carries one-time set-up (the first
+        launches of the gather and scatter ops)."""
+        with self._cv:
+            n = self._tier_n.get(tier, 0)
+            self._tier_n[tier] = n + 1
+            if n == 0:
+                return
+            bps = nbytes / max(dt, 1e-9)
+            prev = self._tier_bps.get(tier, 0.0)
+            self._tier_bps[tier] = (
+                bps if prev <= 0 else 0.8 * prev + 0.2 * bps
+            )
+
+    # owns-pages, transfers-pages-to: adopt
+    def _tier_promote_core(self, toks) -> tuple:
+        """Promote the longest consecutive tier-resident continuation
+        of `toks` past the trie's match back into the pool: probe,
+        cost-gate (_should_tier_load), load, then alloc -> one scatter
+        of exactly the run's pages -> trie adopt.  Returns (pages
+        promoted, deepest tier touched, serialized bytes loaded), or
+        (0, None, 0) when nothing usable was found or the rule said
+        recompute.  Scheduler thread only.  Every failure is clean: a
+        corrupt entry truncates the run (the store counted and deleted
+        it), and exhaustion or a failed scatter gives every reference
+        back, so the ticket recomputes and never fails."""
+        page = self._page
+        n_full = toks.size // page
+        full_ids, _ = self._prefix.match(toks)
+        base = len(full_ids)
+        if base >= n_full:
+            return 0, None, 0
+        run = self._tier.longest_run(toks, base)
+        if not run:
+            self._tier.note_miss()
+            return 0, None, 0
+        deepest = kvtier.DISK if kvtier.DISK in run else kvtier.HOST
+        if not self._should_tier_load(deepest, len(run)):
+            return 0, None, 0
+        t0 = time.monotonic()
+        sig = self._page_layout_sig()
+        handles = []
+        try:
+            for j in range(len(run)):
+                key = self._tier.key_of(toks[: (base + 1 + j) * page])
+                try:
+                    h = self._tier.get(key)
+                except kvtier.TierCorrupt:
+                    break  # counted and deleted; keep the run so far
+                if h is None:
+                    break
+                if h.meta.get("sig") != sig or h.n_pages != 1:
+                    h.close()
+                    self._tier.mark_corrupt(key)
+                    break
+                handles.append(h)
+            if not handles:
+                with self._cv:
+                    self.stats["kv_tier_load_failures"] += 1
+                return 0, None, 0
+            m = len(handles)
+            deepest = (
+                kvtier.DISK
+                if any(h.tier == kvtier.DISK for h in handles)
+                else kvtier.HOST
+            )
+            nbytes = sum(len(h.blob) for h in handles)
+            # One scatter for the run: per pool leaf, the entries'
+            # pages concatenated.
+            per_entry = [
+                self._deserialize_pages(h.meta, h.blob, 1) for h in handles
+            ]
+            parts = [
+                torch.cat([pe[i] for pe in per_entry])
+                for i in range(len(per_entry[0]))
+            ]
+            # Reference the matched chain BEFORE allocating: the alloc
+            # may demote or evict those very nodes, and adopt() takes
+            # page_ids entries the caller owns.
+            for pid in full_ids:
+                self._pool.ref(pid)
+            priv = self._alloc_private_pages(m)
+            if priv is None:
+                for pid in full_ids:
+                    self._pool.unref(pid)
+                with self._cv:
+                    self.stats["kv_tier_load_failures"] += 1
+                return 0, None, 0
+            page_ids = list(full_ids) + list(priv)
+            ticket = None
+            try:
+                ticket = kvpool.MigrationTicket(priv, initial="streaming")
+                self._cache = self._page_scatter_fn(self._cache, priv, parts)
+            except BaseException as e:
+                for pid in priv:
+                    self._pool.unref(pid)
+                for pid in full_ids:
+                    self._pool.unref(pid)
+                if ticket is not None:
+                    ticket.mark_released()
+                with self._cv:
+                    self.stats["kv_tier_load_failures"] += 1
+                if not self._cache_intact():
+                    self._lose_cache(e, "tier_promote")
+                    return 0, None, 0
+                log.warning(
+                    "tier promotion scatter failed; recomputing: %r", e
+                )
+                return 0, None, 0
+            try:
+                _adopted, unused = self._prefix.adopt(
+                    toks[: (base + m) * page], page_ids, self._pool
+                )
+            except Exception:  # pylint: disable=broad-except
+                # adopt() is stage-and-commit: an exception means no
+                # reference moved, and every page_ids entry is ours.
+                for pid in priv:
+                    self._pool.unref(pid)
+                for pid in full_ids:
+                    self._pool.unref(pid)
+                ticket.mark_released()
+                with self._cv:
+                    self.stats["kv_tier_load_failures"] += 1
+                return 0, None, 0
+            ticket.mark_adopted()
+            # Entries whose node existed already (normally the matched
+            # chain itself) give their reference back.
+            for pid in unused:
+                self._pool.unref(pid)
+        finally:
+            for h in handles:
+                h.close()
+        dt = time.monotonic() - t0
+        self._note_tier_load(deepest, nbytes, dt)
+        self._tier.note_promoted(m)
+        if self._tier_fetch_hist is not None:
+            self._tier_fetch_hist.observe(dt, deepest)
+        with self._cv:
+            self.stats["kv_tier_promoted_pages"] += m
+        return m, deepest, nbytes
+
+    def tier_probe(self, tokens) -> dict:
+        """Where `tokens`' prefix lives on this engine: {"page_size",
+        "hbm_pages" (the trie's full-page match), "host_pages" /
+        "disk_pages" (the consecutive tier continuation past it)}.
+        Index walks only, so any thread may call it."""
+        out = {
+            "page_size": self._page,
+            "hbm_pages": 0, "host_pages": 0, "disk_pages": 0,
+        }
+        if self._prefix is None:
+            return out
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        full_ids, _ = self._prefix.match(toks)
+        out["hbm_pages"] = len(full_ids)
+        if self._tier is not None:
+            for tier in self._tier.longest_run(toks, len(full_ids)):
+                out[f"{tier}_pages"] += 1
+        return out
+
+    def promote_prefix_pages(self, tokens,
+                             timeout_s: float = 30.0) -> int:
+        """Promote `tokens`' tier-resident continuation into the pool
+        and the trie, between scheduler turns.  Returns pages promoted
+        (0: nothing tier-resident, the cost rule said recompute, or a
+        clean load failure)."""
+        if self._prefix is None:
+            raise RuntimeError(
+                "tier promotion needs the paged engine with the radix "
+                "prefix cache enabled"
+            )
+        if self._tier is None:
+            return 0
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+
+        # owns-pages, transfers-pages-to: _tier_promote_core
+        def job():
+            promoted, _, _ = self._tier_promote_core(toks)
+            return promoted
+
+        return self._side_call(job, timeout_s)
+
+    # -- KV page migration -----------------------------------------------
+    def _page_layout_sig(self) -> list:
+        """Wire signature of this engine's pool layout: the page size and
+        the backend, then per leaf (dtype name, per-page shape).  bf16
+        and the int8 twin differ, and so do the two packages (the
+        reference's signature names no backend), so an adopter rejects
+        a blob of another layout instead of scattering garbage KV."""
+        return [[self._page, "torch"]] + [
+            [_dtype_name(leaf.dtype), [int(d) for d in leaf.shape[1:]]]
+            for leaf in G._pool_leaves(self._cache)
+        ]
+
+    @staticmethod
+    def _serialize_pages(gathered, n: int):
+        """(leaf metas, blob) for the first `n` pages of each gathered
+        leaf, leaf after leaf in one byte string.  Each leaf is copied
+        into one host buffer through a uint8 view of it (numpy has no
+        bfloat16), synchronously, so no byte is read before it lands;
+        the buffer's bytes are the blob."""
+        leaves = [t[:n] for t in gathered]
+        sizes = [t.numel() * t.element_size() for t in leaves]
+        host = torch.empty((sum(sizes),), dtype=torch.uint8)
+        metas, off = [], 0
+        for t, nb in zip(leaves, sizes):
+            host[off:off + nb].view(t.dtype).view(t.shape).copy_(t)
+            metas.append({"dtype": _dtype_name(t.dtype),
+                          "shape": [int(d) for d in t.shape[1:]]})
+            off += nb
+        return metas, host.numpy().tobytes()
+
+    @staticmethod
+    def _deserialize_pages(meta, blob: bytes, n: int):
+        """The per-leaf (n, ...) host tensors of a blob, read in place
+        with torch.frombuffer.  A truncated or over-long blob raises
+        ValueError (a blob never half-scatters)."""
+        parts = []
+        off = 0
+        with warnings.catch_warnings():
+            # A bytes blob is read-only; its tensors are only read.
+            warnings.simplefilter("ignore", UserWarning)
+            for lm in meta["leaves"]:
+                dt = _DTYPES.get(lm["dtype"])
+                if dt is None:
+                    raise ValueError(f"unknown leaf dtype {lm['dtype']!r}")
+                shape = tuple(int(d) for d in lm["shape"])
+                nbytes = n * math.prod(shape) * dt.itemsize
+                if off + nbytes > len(blob):
+                    raise ValueError(
+                        f"migration blob truncated ({len(blob)} bytes, "
+                        f"need {off + nbytes})"
+                    )
+                raw = torch.frombuffer(blob, dtype=torch.uint8,
+                                       count=nbytes, offset=off)
+                parts.append(raw.view(dt).reshape((n,) + shape))
+                off += nbytes
+        if off != len(blob):
+            raise ValueError(
+                f"migration blob size mismatch ({len(blob)} bytes, "
+                f"layout consumes {off})"
+            )
+        return parts
+
+    def export_prefix_pages(self, tokens, move: bool = False,
+                            timeout_s: float = 30.0):
+        """Serialize the trie's pages for `tokens`' full prompt pages:
+        (meta, blob), or None when the trie holds no full page of the
+        prefix.  meta carries the leaf layout ("leaves"), the layout
+        signature ("sig", which the adopter must match), "n_pages" and
+        "tokens_covered".  Runs on the scheduler thread with the pages
+        pinned for the gather.  move=True also releases the exported
+        chain (and its subtree) from this engine's trie; rows still
+        mapping those pages keep them on their own references."""
+        if self._prefix is None:
+            raise RuntimeError(
+                "page export needs the paged engine with the radix "
+                "prefix cache enabled"
+            )
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+
+        # borrows-pages
+        def job():
+            full_ids, _ = self._prefix.match(toks)
+            if not full_ids:
+                return None
+            n = len(full_ids)
+            ticket = kvpool.MigrationTicket(full_ids)
+            self._pool.export_pages(full_ids)
+            try:
+                ticket.mark_streaming()
+                gathered = self._page_gather_fn(self._cache, full_ids)
+                leaves, blob = self._serialize_pages(gathered, n)
+            finally:
+                self._pool.release_pages(full_ids)
+                ticket.mark_released()
+            if move:
+                self._prefix.release_exported(
+                    toks[: n * self._page], self._pool
+                )
+            meta = {
+                "n_pages": n,
+                "tokens_covered": n * self._page,
+                "sig": self._page_layout_sig(),
+                "leaves": leaves,
+            }
+            with self._cv:
+                self.stats["kv_pages_exported"] += n
+                self.stats["kv_export_bytes"] += len(blob)
+            return meta, blob
+
+        return self._side_call(job, timeout_s)
+
+    def adopt_prefix_pages(self, tokens, meta, blob: bytes,
+                           timeout_s: float = 30.0) -> int:
+        """Adopt a blob's pages into the pool AND the trie, so the next
+        admission sharing the prefix hits.  Returns pages adopted (0
+        when every page existed already; the duplicates free).  Failure
+        is clean: allocation is all-or-nothing (PoolExhausted holding
+        nothing), and a bad blob or layout mismatch raises ValueError
+        with no page held; a scatter that left the device state lost
+        fails the active rows and rebuilds the cache."""
+        if self._prefix is None:
+            raise RuntimeError(
+                "page adoption needs the paged engine with the radix "
+                "prefix cache enabled"
+            )
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        n = int(meta.get("n_pages", 0))
+        if n < 1:
+            return 0
+        if meta.get("sig") != self._page_layout_sig():
+            with self._cv:
+                self.stats["kv_adopt_failures"] += 1
+            raise ValueError(
+                "migration blob layout does not match this engine's "
+                "KV pool (bf16 vs int8, page size, model shape or "
+                "backend)"
+            )
+        if n * self._page > toks.size:
+            with self._cv:
+                self.stats["kv_adopt_failures"] += 1
+            raise ValueError(
+                f"{n} migrated pages need {n * self._page} tokens, "
+                f"got {toks.size}"
+            )
+
+        # owns-pages, transfers-pages-to: adopt
+        def job():
+            pages = self._alloc_private_pages(n)
+            if pages is None:
+                with self._cv:
+                    self.stats["kv_adopt_failures"] += 1
+                raise kvpool.PoolExhausted(
+                    f"cannot adopt {n} pages ({self._pool.free_count} "
+                    f"free of {self._pool.total} after eviction)"
+                )
+            ticket = None
+            try:
+                ticket = kvpool.MigrationTicket(pages, initial="streaming")
+                parts = self._deserialize_pages(meta, blob, n)
+                self._cache = self._page_scatter_fn(self._cache, pages,
+                                                    parts)
+            except BaseException as e:
+                for p in pages:
+                    self._pool.unref(p)
+                if ticket is not None:
+                    ticket.mark_released()
+                with self._cv:
+                    self.stats["kv_adopt_failures"] += 1
+                if not self._cache_intact():
+                    self._lose_cache(e, "page_adopt")
+                raise
+            try:
+                adopted, unused = self._prefix.adopt(
+                    toks[: n * self._page], pages, self._pool
+                )
+            except Exception:
+                # adopt() is stage-and-commit: no reference moved, and
+                # the pages are still ours.  Not BaseException: on an
+                # interrupt the commit state is unknowable, and a leak
+                # beats a double release.
+                for p in pages:
+                    self._pool.unref(p)
+                ticket.mark_released()
+                with self._cv:
+                    self.stats["kv_adopt_failures"] += 1
+                raise
+            ticket.mark_adopted()
+            for p in unused:
+                self._pool.unref(p)
+            with self._cv:
+                self.stats["kv_pages_adopted"] += adopted
+                self.stats["kv_adopt_bytes"] += len(blob)
+            return adopted
+
+        return self._side_call(job, timeout_s)
 
     def _loop(self):
         torch.set_grad_enabled(False)  # thread-local: inference only
@@ -1104,6 +1733,7 @@ class ContinuousBatchingEngine:
                         not self._queue
                         and self.active_rows == 0
                         and self._pending is None
+                        and not self._side_jobs
                     ):
                         if self._closed:
                             return
@@ -1111,8 +1741,11 @@ class ContinuousBatchingEngine:
                     if self._closed:
                         self._fail_all(RuntimeError("engine closed"))
                         return
-                # One unit of admission work (at most one prefill
-                # chunk), then one pipeline turn.
+                # Side jobs first (an admission about to run may be the
+                # one waiting on adopted pages), then one unit of
+                # admission work (at most one prefill chunk), then one
+                # pipeline turn.
+                self._run_side_jobs()
                 self._admit()
                 self._step()
         except Exception as e:  # pylint: disable=broad-except
@@ -1132,6 +1765,7 @@ class ContinuousBatchingEngine:
             with self._cv:
                 self._dead = err
             self._fail_all(err)
+            self._obs.dump("engine death (unsupervised crash)")
 
     def _fail_ticket(self, ticket, err):
         """Fail ONE request: queued rows are skipped at admit, active
@@ -1190,7 +1824,52 @@ class ContinuousBatchingEngine:
             self._fail_ticket(t, err)
         return len(seqs)
 
+    # -- scheduler-thread side jobs (page export / adopt / promote) -----
+    def _run_side_jobs(self):
+        """Run every queued errand on the scheduler thread (_SideJob)."""
+        while True:
+            with self._cv:
+                if not self._side_jobs:
+                    return
+                job = self._side_jobs.popleft()
+            try:
+                job.result = job.fn()
+            except BaseException as e:  # pylint: disable=broad-except
+                job.error = e
+            job.done.set()
+
+    def _side_call(self, fn, timeout_s: float):
+        """Run `fn` on the scheduler thread and wait for its result.  A
+        job queued across a revive runs after it, against the rebuilt,
+        empty pool."""
+        job = _SideJob(fn)
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("engine is closed")
+            if self._dead is not None:
+                raise RuntimeError(
+                    f"engine failed permanently: {self._dead}"
+                )
+            self._side_jobs.append(job)
+            self._cv.notify_all()
+        if not job.done.wait(timeout=timeout_s):
+            raise RuntimeError(
+                f"engine side job timed out after {timeout_s:.0f}s"
+            )
+        if job.error is not None:
+            raise job.error
+        return job.result
+
+    def _fail_side_jobs(self, err):
+        with self._cv:
+            jobs = list(self._side_jobs)
+            self._side_jobs.clear()
+        for j in jobs:
+            j.error = err
+            j.done.set()
+
     def _fail_all(self, err):
+        self._fail_side_jobs(err)
         self._drain_pending()
         with self._cv:
             pf, self._prefilling = self._prefilling, None
@@ -1203,6 +1882,12 @@ class ContinuousBatchingEngine:
             self._release_prefill(pf)
         for s in seqs:
             self._release_seq_pages(s)
+        now = time.monotonic()
+        for s in seqs:
+            # Active rows have open traces (queued ones never opened
+            # one): seal them so the ring records the death's victims.
+            if s.trace is not None:
+                self._obs.retired(s, now, reason="failed")
         for t in {id(s.ticket): s.ticket for s in seqs}.values():
             self._fail_ticket(t, err)
 
@@ -1303,6 +1988,24 @@ class ContinuousBatchingEngine:
         shared_ids, donor, match_end, resume, write_from = (
             self._match_prefix(seq)
         )
+        if (
+            self._tier is not None
+            and self._prefill_chunk > 0
+            and seq.plen >= page
+        ):
+            # Consult the tiers before recomputing: promote the longest
+            # tier-resident continuation of the prompt (a direct call:
+            # this is the scheduler thread), then match again, so the
+            # admission shares the promoted pages like any trie hit.
+            t0p = time.monotonic()
+            promoted, ptier, _ = self._tier_promote_core(
+                np.asarray(seq.prompt[: seq.plen], np.int32)
+            )
+            if promoted:
+                seq.tier_stamp = (t0p, time.monotonic(), ptier, promoted)
+                shared_ids, donor, match_end, resume, write_from = (
+                    self._match_prefix(seq)
+                )
         priv = None
         for attempt in (0, 1):
             if attempt == 1:
@@ -1476,7 +2179,12 @@ class ContinuousBatchingEngine:
                 self.stats["admit_failures"] += 1
                 self._cv.notify_all()
             self._release_prefill(pf)
-            self._obs.event("admit_fail", err=repr(e)[:120])
+            self._obs.event(
+                "admit_fail",
+                trace=seq.trace.trace_id if seq.trace else "?",
+                chunk=f"{pf.pi + 1}/{len(pf.plan)}",
+                err=repr(e)[:120],
+            )
             log.error(
                 "admit failed for request row %d at prefill chunk "
                 "%d/%d (only its ticket fails; %d rows in flight "
@@ -1485,6 +2193,10 @@ class ContinuousBatchingEngine:
             )
             self._obs.retired(seq, time.monotonic(), reason="admit_failed")
             self._fail_ticket(seq.ticket, e)
+            if last and not self._cache_intact():
+                # Only the final chunk writes the engine cache; a device
+                # fault there takes every in-flight row's KV with it.
+                self._lose_cache(e, "prefill_finish")
             return
         donor = None
         with self._cv:
@@ -1718,13 +2430,16 @@ class ContinuousBatchingEngine:
                 self._pending = None
             self._commit_pending(new_pending)
 
-    def _with_retries(self, what, dispatch):  # hot-path
+    def _with_retries(self, what, dispatch, at=None):  # hot-path
         """Run `dispatch()` -> (cache, tokens) under the step-retry
         contract: a failure retries with capped backoff (a retried step
         draws fresh noise; greedy rows are unaffected); exhausted
-        retries drain the window, fail the active rows and raise
-        StepFailure, which crashes the scheduler for revival.  Returns
-        the tokens and keeps the cache."""
+        retries, or a device fault that left the cache's state unknown,
+        drain the window, fail the active rows and raise StepFailure,
+        which crashes the scheduler for revival.  Returns the tokens and
+        keeps the cache.  `at` names the dispatch kind in the flight
+        recorder's events (None: the one-token step)."""
+        where = {} if at is None else {"at": at}
         delay = self._retry_backoff_s
         attempt = 0
         while True:
@@ -1734,7 +2449,13 @@ class ContinuousBatchingEngine:
                 return toks
             except Exception as e:  # pylint: disable=broad-except
                 attempt += 1
-                if attempt > self._step_retries:
+                cache_lost = not self._cache_intact()
+                if cache_lost:
+                    log.error(
+                        "%s failure left the device state lost; skipping "
+                        "retries: %r", what, e,
+                    )
+                if attempt > self._step_retries or cache_lost:
                     failure = StepFailure(
                         f"{what} failed after {attempt - 1} retries: {e}"
                     )
@@ -1742,7 +2463,8 @@ class ContinuousBatchingEngine:
                     with self._cv:
                         self.stats["step_failures"] += 1
                     self._obs.event(
-                        "step_fail", attempts=attempt, err=repr(e)[:120],
+                        "step_fail", **where, attempts=attempt,
+                        cache_lost=cache_lost, err=repr(e)[:120],
                     )
                     n = self._fail_active_rows(failure)
                     log.error(
@@ -1753,6 +2475,10 @@ class ContinuousBatchingEngine:
                     raise failure
                 with self._cv:
                     self.stats["step_retries"] += 1
+                self._obs.event(
+                    "step_retry", **where, attempt=attempt,
+                    err=repr(e)[:120],
+                )
                 log.warning(
                     "%s failed (attempt %d/%d), retrying in %.3fs: %r",
                     what, attempt, self._step_retries, delay, e,
@@ -1760,10 +2486,11 @@ class ContinuousBatchingEngine:
                 time.sleep(delay)
                 delay = min(delay * 2.0, self._retry_backoff_cap_s)
 
-    def _readback(self, pending, what):  # hot-path
+    def _readback(self, pending, what, at):  # hot-path
         """A window's one readback (host numpy).  A failure here is a
         device-side failure of the dispatched work: the active rows
-        fail and StepFailure raises."""
+        fail and StepFailure raises (`at` names it in the flight
+        recorder)."""
         try:
             return pending.nxt.cpu().numpy()
         except Exception as e:  # pylint: disable=broad-except
@@ -1773,9 +2500,7 @@ class ContinuousBatchingEngine:
             failure.__cause__ = e
             with self._cv:
                 self.stats["step_failures"] += 1
-            self._obs.event(
-                "step_fail", at="commit_readback", err=repr(e)[:120],
-            )
+            self._obs.event("step_fail", at=at, err=repr(e)[:120])
             n = self._fail_active_rows(failure)
             log.error(
                 "in-flight %s failed at commit: %d active row(s) failed, "
@@ -1786,7 +2511,7 @@ class ContinuousBatchingEngine:
 
     def _commit_pending(self, pending):  # hot-path
         """Commit one lagged step: the decode loop's ONE readback."""
-        nxt = self._readback(pending, "decode step")
+        nxt = self._readback(pending, "decode step", "commit_readback")
         now = time.monotonic()
         with self._cv:
             self.stats["steps"] += 1
@@ -1901,6 +2626,7 @@ class ContinuousBatchingEngine:
         toks = self._with_retries(
             "fused decode block",
             lambda: self._fused_fn(weights, self._cache, st.t, k),
+            at="decode_fused",
         )
         with self._cv:
             self.stats["fused_blocks"] += 1
@@ -1913,7 +2639,8 @@ class ContinuousBatchingEngine:
         (the rest of the block is dead: the row's position never
         advances past its last committed token, so the tail's KV stays
         invisible and is overwritten later)."""
-        toks = self._readback(pending, "fused decode block")
+        toks = self._readback(pending, "fused decode block",
+                              "fused_commit_readback")
         now = time.monotonic()
         with self._cv:
             self.stats["steps"] += 1
@@ -2075,6 +2802,7 @@ class ContinuousBatchingEngine:
             "verify window",
             lambda: self._verify_fn(weights, self._cache, inputs,
                                     (W, greedy, adv)),
+            at="spec_verify",
         )
         with self._cv:
             self.stats["spec_verify_passes"] += 1
@@ -2118,6 +2846,7 @@ class ContinuousBatchingEngine:
                 "draft chain failed (window drops to 1, outputs "
                 "unaffected): %r", e,
             )
+            self._obs.event("spec_draft_fail", err=repr(e)[:120])
             self._reset_draft_state()
             return None
         # The chain wrote slots [base, base + W) of every coherent
@@ -2139,7 +2868,8 @@ class ContinuousBatchingEngine:
         rewound: the row's position never passes its last committed
         token, so the rejected suffix's KV stays invisible and the next
         window rewrites it."""
-        outs = self._readback(pending, "verify window")
+        outs = self._readback(pending, "verify window",
+                              "spec_commit_readback")
         drafts = pending.draft.cpu().numpy()
         now = time.monotonic()
         with self._cv:
@@ -2158,8 +2888,10 @@ class ContinuousBatchingEngine:
             while m < w and drafts[i, m] == outs[i, m - 1]:
                 m += 1
             if w > 1:
-                # Depth follows the drafter's accuracy (the whole
-                # agreeing prefix), whatever truncated the commit.
+                # Depth and the accept-rate histogram follow the
+                # drafter's accuracy (the whole agreeing prefix),
+                # whatever truncated the commit.
+                self._obs.spec_window(w - 1, m - 1)
                 self._update_depth(seq, w, m)
             c = 0
             for j in range(m):

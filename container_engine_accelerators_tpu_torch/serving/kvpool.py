@@ -1,8 +1,7 @@
 """Paged KV-cache page pool: the host-side allocator behind the
 engine's paged device buffers.  The port's own copy of
-container_engine_accelerators_tpu/serving/kvpool.py (PagePool and
-PoolExhausted, same behaviour); the page export pins and the migration
-ticket come with the export/adopt slice (ROADMAP A5f).
+container_engine_accelerators_tpu/serving/kvpool.py (PagePool with its
+export pins, PoolExhausted and MigrationTicket, same behaviour).
 
 The device side is a flat pool of fixed-size pages per decoder block
 (models/generate.py init_paged_cache / the int8 twin): physical page 0
@@ -104,6 +103,42 @@ class PagePool:
         with self._lock:
             return self._rc[page]
 
+    # -- cross-replica page migration / tier demotion --------------------
+    # borrows-pages
+    def export_pages(self, pages: List[int]) -> None:
+        """Pin `pages` for serialization: one extra reference on EACH,
+        taken under a single lock acquisition (all-or-nothing — a
+        partially pinned export would leak references on the failure
+        path).  The pin is what closes the export-under-refcount race:
+        the LRU evictor may drop the radix trie's hold on a page while
+        its bytes are mid-gather, and without this reference the page
+        would return to the free list and be rewritten by the next
+        admission UNDER the serializer.  Callers pair every
+        export_pages with release_pages.  Two consumers share this
+        seam: cross-replica migration and tier demotion
+        (serving/kvtier.py) — the latter serializes the page
+        into a host/disk byte store BEFORE dropping the trie's hold,
+        so the pool's refcounts stay authoritative for HBM and the
+        store never holds a page id."""
+        with self._lock:
+            for p in pages:
+                if not 1 <= p <= self.total or self._rc[p] < 1:
+                    raise ValueError(
+                        f"export of unallocated page {p}"
+                    )
+            for p in pages:
+                self._rc[p] += 1
+
+    # owns-pages
+    def release_pages(self, pages: List[int]) -> int:
+        """Drop the export pins (or any batch of references) taken as
+        a group; returns how many pages actually freed."""
+        freed = 0
+        for p in pages:
+            if self.unref(p):
+                freed += 1
+        return freed
+
     # owns-pages
     def reset(self) -> None:
         """Forget every allocation and reference — used when the
@@ -129,3 +164,45 @@ class PagePool:
         """Pages still allocated — the chaos suite asserts 0 after an
         engine death + supervisor rebuild (the no-leak contract)."""
         return self.in_use
+
+
+# state-machine: migration field: state states: exported,streaming,adopted,released terminal: released
+class MigrationTicket:
+    """One cross-replica page migration (the export -> adopt seam), as
+    an explicit lifecycle object.
+
+    The exporter creates one over the pinned page ids (`exported`),
+    marks it `streaming` when the gather/serialize begins, and
+    `released` when the pins drop (the export job's finally block —
+    success and failure alike).  The adopter boots its own ticket at
+    `initial="streaming"` over the freshly allocated pages and marks
+    it `adopted` once the radix trie commits the handoff, or
+    `released` when an unwind unrefs them.  `released` is terminal:
+    a ticket whose pages went back to the pool must never be marked
+    again (the double-release dual refcheck guards at the refcount
+    layer, restated here at the lifecycle layer).
+
+    Single-threaded by construction — both jobs run on the engine
+    scheduler thread (_side_call), so transitions need no lock."""
+
+    __slots__ = ("pages", "state")
+
+    def __init__(self, pages: List[int], initial: str = "exported"):
+        if initial not in ("exported", "streaming"):
+            raise ValueError(
+                f"migration ticket cannot boot in state {initial!r}"
+            )
+        self.pages = list(pages)
+        self.state = initial
+
+    def mark_streaming(self) -> None:
+        # transition: exported -> streaming
+        self.state = "streaming"
+
+    def mark_adopted(self) -> None:
+        # transition: streaming -> adopted
+        self.state = "adopted"
+
+    def mark_released(self) -> None:
+        # transition: exported|streaming|adopted -> released
+        self.state = "released"

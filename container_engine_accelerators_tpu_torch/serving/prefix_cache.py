@@ -1,9 +1,8 @@
 """Radix prefix cache over the paged KV pool (the SGLang
 RadixAttention direction).  The port's own copy of
 container_engine_accelerators_tpu/serving/prefix_cache.py (match,
-insert, LRU eviction, release and clear, same behaviour); the
-migration adopt/release and the tier demotion helpers come with the
-export/adopt and tier slice (ROADMAP A5f).  Token prefixes map to
+insert, migration adopt and release, LRU eviction, the tier demotion
+helpers, release and clear, same behaviour).  Token prefixes map to
 refcounted read-only pages, so requests sharing a system prompt — the
 dominant pattern at millions-of-users scale — skip prefill for every
 matched page instead of recomputing it.
@@ -135,6 +134,111 @@ class RadixPrefixCache:
                 node = child
         return adopted
 
+    # -- cross-replica page migration ------------------------------------
+    # owns-pages
+    def adopt(self, tokens, page_ids, pool) -> Tuple[int, List[int]]:
+        """insert() with OWNERSHIP TRANSFER — the adoption half of the
+        page-migration seam: the caller holds one pool reference per
+        entry of `page_ids` (freshly pool.alloc()-ed pages
+        whose KV was just scattered from a migration blob), and every
+        page whose trie node is MISSING is adopted as-is — the trie
+        keeps the caller's reference instead of taking a new one.
+        Pages whose node already exists (a racing admission or an
+        earlier migration landed the same prefix first) are returned
+        as `unused`: the caller unrefs them, and since nothing else
+        references a just-allocated page, they free immediately — a
+        duplicate migration costs pool churn, never a leak.  Returns
+        (adopted count, unused page ids).
+
+        STAGE-AND-COMMIT: a missing node means the whole remaining
+        chain is missing (a fresh node has no children), so at most
+        ONE link into the live trie exists — the first new node.  The
+        chain is built detached and published by that single dict
+        store at the end, after every raise-prone conversion and
+        allocation: any exception out of this method means the trie
+        took NOTHING, so the caller's unref-every-page unwind can
+        never double-release a reference the trie already owns."""
+        toks = [int(t) for t in tokens]
+        adopted = 0
+        unused: List[int] = []
+        with self._lock:
+            self._tick += 1
+            node = self._root
+            graft = None  # (live parent, key, detached chain head)
+            for i in range(len(toks) // self.page):
+                key = tuple(toks[i * self.page:(i + 1) * self.page])
+                child = node.children.get(key)
+                if child is None:
+                    if i >= len(page_ids):
+                        break
+                    child = _Node(key, int(page_ids[i]), node)
+                    if graft is None:
+                        graft = (node, key, child)  # publish last
+                    else:
+                        node.children[key] = child  # still detached
+                    adopted += 1
+                elif i < len(page_ids):
+                    unused.append(int(page_ids[i]))
+                child.last_use = self._tick
+                node = child
+            if graft is not None:
+                # Stats first: a MemoryError on the commit store's
+                # dict resize leaves the trie untouched (unwind
+                # correct) at worst inflating _n_pages until the next
+                # clear/reset — drifted stats over a double release.
+                self._n_pages += adopted
+                parent, key, head = graft
+                parent.children[key] = head  # the commit point
+        del pool  # references transfer as-is; nothing to re-count
+        return adopted, unused
+
+    # owns-pages
+    def release_exported(self, tokens, pool) -> int:
+        """MOVE semantics for an export: drop the trie's hold on the
+        exported chain — the nodes along `tokens`' full pages — plus
+        the chain's entire subtree (descendants recorded under this
+        prefix would be unreachable to the router once the affinity
+        index re-points at the adopter, and keeping them would be
+        exactly the N-1 duplicate-copy problem migration exists to
+        fix).  Pages still mapped by active rows stay resident on
+        their own references and free at retire — the refcount-aware
+        rule eviction already follows.  Returns trie pages released."""
+        toks = [int(t) for t in tokens]
+        batch: List[int] = []
+        with self._lock:
+            self._tick += 1
+            node = self._root
+            chain: List[_Node] = []
+            for i in range(len(toks) // self.page):
+                key = tuple(toks[i * self.page:(i + 1) * self.page])
+                child = node.children.get(key)
+                if child is None:
+                    break
+                chain.append(child)
+                node = child
+            if not chain:
+                return 0
+            # Subtree below the deepest exported node first ...
+            stack = list(chain[-1].children.values())
+            chain[-1].children = {}
+            while stack:
+                n = stack.pop()
+                batch.append(n.page)
+                self._n_pages -= 1
+                stack.extend(n.children.values())
+            # ... then the chain itself, bottom-up, stopping at the
+            # first node some OTHER prefix still needs (it has
+            # children outside the exported path).
+            for n in reversed(chain):
+                if n.children:
+                    break
+                del n.parent.children[n.key]
+                self._n_pages -= 1
+                batch.append(n.page)
+        for page in batch:
+            pool.unref(page)
+        return len(batch)
+
     # -- eviction --------------------------------------------------------
     # owns-pages
     def evict_until(self, pool, n_free_needed: int) -> int:
@@ -173,6 +277,64 @@ class RadixPrefixCache:
                 pool.unref(page)
             released += len(batch)
         return released
+
+    def lru_leaves(self, limit: int) -> List[Tuple[List[int], int]]:
+        """The `limit` least-recently-used leaves as
+        (root-to-leaf token path, page id), oldest first, WITHOUT
+        removing anything — the tiered store's demotion candidates
+        (serving/kvtier.py): the demoter serializes each victim's
+        page first and only then calls drop_leaf, so an exception
+        between the two leaves the trie intact.  Read-only: no
+        last_use touch (a demotion scan must not rejuvenate its own
+        victims)."""
+        out: List[Tuple[List[int], int]] = []
+        with self._lock:
+            leaves = []
+            stack = list(self._root.children.values())
+            while stack:
+                node = stack.pop()
+                if node.children:
+                    stack.extend(node.children.values())
+                else:
+                    leaves.append(node)
+            leaves.sort(key=lambda n: n.last_use)
+            for leaf in leaves[: max(0, int(limit))]:
+                path = []
+                node = leaf
+                while node.parent is not None:
+                    path.append(node.key)
+                    node = node.parent
+                out.append((
+                    [t for key in reversed(path) for t in key],
+                    leaf.page,
+                ))
+        return out
+
+    # owns-pages
+    def drop_leaf(self, tokens, pool) -> int:
+        """Release ONE exact leaf — the demotion counterpart of
+        evict_until's batch drop: walk `tokens`' full pages and, if
+        the path ends at a node that is (still) a leaf, remove it and
+        drop the trie's reference.  Returns pages released (0 when
+        the path vanished or grew children since lru_leaves — both
+        mean some other mutation got there first, and dropping a
+        now-interior node would orphan its subtree)."""
+        toks = [int(t) for t in tokens]
+        page_id = None
+        with self._lock:
+            node = self._root
+            for i in range(len(toks) // self.page):
+                key = tuple(toks[i * self.page:(i + 1) * self.page])
+                node = node.children.get(key)
+                if node is None:
+                    return 0
+            if node is self._root or node.children:
+                return 0
+            del node.parent.children[node.key]
+            self._n_pages -= 1
+            page_id = node.page
+        pool.unref(page_id)
+        return 1
 
     # owns-pages
     def release_all(self, pool) -> int:

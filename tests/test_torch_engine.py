@@ -358,13 +358,22 @@ class TestEntryPoints:
     ])
     def test_later_slices_raise_not_implemented(self, setup, option, item):
         # An option of a later slice raises, naming its ROADMAP item.
-        # Speculative decoding (A5e) is ported now: spec_k builds an
-        # engine, and only a negative spec_k raises.
+        # Speculative decoding (A5e), the KV tiers (A5f) and
+        # observability (A5g) are ported now: those options build an
+        # engine (a negative spec_k raises); a mesh (A10) still raises.
         _, pm = setup
         if item == "A5e":
             _engine(pm, 2, **option).close()
             with pytest.raises(ValueError, match="spec_k"):
                 _engine(pm, 2, spec_k=-1)
+            return
+        if item in ("A5f", "A5g"):
+            eng = _engine(pm, 2, **option)
+            try:
+                assert eng.observability.enabled
+                assert (eng._tier is not None) == (item == "A5f")
+            finally:
+                eng.close()
             return
         with pytest.raises(NotImplementedError, match=item):
             _engine(pm, 2, **option)

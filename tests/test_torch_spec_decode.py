@@ -9,10 +9,9 @@ tokens and draft counters must agree.
 
 On the CPU the draft chain and the verify window are the seams called
 directly; their CUDA-graph replays (serving/decode_graph.py) run only on
-the card (chip_smoke.py).  The reference's metrics test reads its
-observability registry, which the port does not carry yet (ROADMAP
-A5g): here the same counters and the depth gauge are read from the
-engine's snapshot."""
+the card (chip_smoke.py).  The spec counters and the depth gauge are
+read from the engine's snapshot and, as the reference's metrics test
+reads them, from its observability registry."""
 
 import logging
 import threading
@@ -311,14 +310,25 @@ def test_counters_and_depth_gauge(setup):
     # The spec counters and the draft-depth gauge in the engine snapshot:
     # rejected = drafted - accepted, each window one verify pass, each
     # chain as many drafter passes as its width, the gauge the last
-    # dispatched width.
+    # dispatched width.  The counters, the accept-rate histogram and the
+    # gauge ride the engine's registry onto /metrics, and the gauge
+    # provider carries the depth.
     pm = setup[1]
     eng = _spec_engine(pm, 2)
     try:
         eng.submit(rand_prompt(91, 9), 8, 0.0, timeout=300)
         snap = eng.snapshot()
+        text = eng.observability.registry.render()
+        gauges = eng.observability.gauge_provider(eng)()
     finally:
         eng.close()
+    for series in ("serve_engine_spec_drafted_tokens_total",
+                   "serve_engine_spec_accepted_tokens_total",
+                   "serve_engine_spec_rejected_tokens_total",
+                   "serve_spec_accept_ratio_bucket",
+                   "serve_engine_spec_draft_depth"):
+        assert series in text, series
+    assert gauges["serve_engine_spec_draft_depth"] == snap["spec_draft_depth"]
     assert snap["spec_drafted_tokens"] > 0
     assert (snap["spec_rejected_tokens"]
             == snap["spec_drafted_tokens"] - snap["spec_accepted_tokens"])
