@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths — LM serving decode (paged,
-fused, contiguous and speculative), single-card LM training (lm_main's
+fused, contiguous and speculative) and the HTTP server over it,
+single-card LM training (lm_main's
 width at every head dim, and lm_large with the chunked vocab head),
 single-card ResNet-50 and Inception-v3 training, and checkpoints — on
 one NVIDIA H100, and hold every kernel on those paths against its plain
@@ -43,10 +44,10 @@ Phases, one JSON line each (stdout):
                 and on the speculative engines exactly 33 a drafter pass
                 less one a chain, plus 33 a step or window and one an
                 admission in int8; replays counted call by call),
-                tokens held to the port's solo oracle; the paged engines
-                then run 16 rows x (64 + 128) and a profiled window of
+                tokens held to the port's solo oracle; every engine
+                then runs 16 rows x (64 + 128) and a profiled window of
                 16 x (64 + 32) whose device events must equal the
-                wrappers' calls; the fused and speculative engines also
+                wrappers' calls (with the host's op times); the fused and speculative engines also
                 fail one block (window) until the retries are spent, and
                 the supervisor's revival must recapture the graphs
                 against the fresh caches, give the same tokens and leave
@@ -89,6 +90,30 @@ Phases, one JSON line each (stdout):
                 holds the retries, the failure and the restart, and a
                 kill whose snapshot carries the recorder; tokens/s
                 observed over unobserved and TTFT / ITL p50 and p99;
+  4c. server  — the HTTP server (server.py), booted in-process as a
+                user's command line builds it (parse_args, load_model,
+                random weights from seed 0) at the same width:
+                server_int8 (--quant auto: int8 at 16 slots) and
+                server_bf16 (--quant off) over the continuous engine,
+                server_wave (--engine wave --quant auto): /healthz 503
+                "loading" before the load and 200 after, requests()' 8
+                requests POSTed at once (server_wave adds 8 short ones
+                of one bucket key, which must coalesce), every token
+                within the oracle rule, a prefix hit, /metrics parsed
+                back (8 answers of 200, 8 TTFT samples), /tracez holding
+                every response's trace id, a malformed request's 400,
+                then the drain: drain_for_shutdown with two requests in
+                flight, both answered in full, a new /generate 503 with
+                a Retry-After, /healthz "draining: shutdown", /metrics
+                200, the server stopped within the drain timeout and no
+                page in use after close; the serving kernels' launches
+                over the phase agree with the engine's steps.  Each
+                prints HTTP tokens/s and its ratio to the one-token
+                engine's on the same requests (`vs_engine`), request
+                latency and TTFT p50 / p99, boot and drain seconds.
+                server_predict (ResNet-50, 224 x 224, --batch 8): 8
+                single-image requests at once and a batch of 8, labels
+                the served model's own eval argmax; images/s over HTTP;
   5. train_kernels — flash attention forward and backward at (8, 2048,
                 h, 1024 / h) bf16 for h 8, 16, 32 and 4 (head dims 128,
                 64, 32 on the d-64 instance, 256) and at the ragged
@@ -170,7 +195,10 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 
@@ -815,6 +843,12 @@ def device_profile(torch, fn, top=6):
         return {"device_busy_share": "not measured",
                 "error": "no device events recorded"}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    # The host's side of the window: torch ops by their own CPU time
+    # (every thread's, the engine's scheduler included).
+    cpu_ops = sorted(
+        ((e.key, e.self_cpu_time_total / 1e3, e.count)
+         for e in prof.key_averages() if e.self_cpu_time_total > 0),
+        key=lambda kv: -kv[1])
     by_kind, port, port_calls = {}, {}, {}
     for name, us in by_name.items():
         kind = kernel_kind(name)
@@ -828,6 +862,8 @@ def device_profile(torch, fn, top=6):
         "device_busy_share": busy / wall_us,
         "device_ms": busy / 1e3,
         "top_kernels_ms": [[name[:100], us / 1e3] for name, us in ranked],
+        "top_cpu_ops_ms": [[k[:60], ms, n] for k, ms, n in cpu_ops[:2 * top]],
+        "cpu_ops_ms": sum(ms for _, ms, _ in cpu_ops),
         "kernel_ms_by_kind": by_kind,
         "port_kernels_ms": port,
         "port_kernel_calls": port_calls,
@@ -1073,10 +1109,10 @@ def graph_revival(torch, eng, gen):
 
 def run_engine(torch, model, quant, gen_reqs, mode="", base=None):
     """One engine phase (ENGINE_MODES[mode]): a warm-up request, then
-    requests() with the launch counters read around it, and for the
-    paged engines a decode run (16 rows x (64 + 128)) and a profiled
-    window (profile_window); the fused and speculative engines add their
-    revival check.
+    requests() with the launch counters read around it, then a decode
+    run (16 rows x (64 + 128)) and a profiled window (profile_window,
+    with the host's op times beside the device's); the fused and
+    speculative engines add their revival check.
     Every token is held to the oracle's argmax within TOP2_TOL; `base`
     (the one-token engine's record of the same run) gives each request's
     first divergence from its tokens and the ratios of the figures."""
@@ -1137,88 +1173,87 @@ def run_engine(torch, model, quant, gen_reqs, mode="", base=None):
         dispatches = eng._dispatch_count - steps0
         snap = eng.snapshot()
         n_steps = steps_run(base_snap, snap, dispatches)
-        if paged:
-            # Decode-dominated run: all 16 slots busy with short
-            # prompts, so the wall time per dispatch approaches the
-            # step (or block) time.
-            d0, s0 = eng._dispatch_count, eng.snapshot()
-            t1 = time.monotonic()
-            dec = [eng.submit_nowait(toks, 128) for toks in
-                   torch.randint(0, CFG["vocab"], (N_SLOTS, 64),
-                                 generator=gen_reqs).numpy()]
-            # The decode stretch: from the last admission to the end,
-            # every decode step with up to 16 rows and no prefill.
-            while eng.snapshot()["admitted"] < s0["admitted"] + N_SLOTS:
-                time.sleep(0.002)
-            t_adm, d_adm, s_adm = (time.monotonic(), eng._dispatch_count,
-                                   eng.snapshot())
-            with eng._cv:  # the run's tokens committed before the stretch
-                tok_adm = sum(len(q.tokens) for q in eng._slots if q)
-            dec_tok = sum(len(h.wait(timeout=900)[0]) for h in dec)
-            t_end = time.monotonic()
-            dec_wall = t_end - t1
-            dec_disp = eng._dispatch_count - d0
-            wait_idle(eng)
-            s1 = eng.snapshot()
-            stretch = steps_run(s_adm, s1, eng._dispatch_count - d_adm)
-            extra["decode_run"] = {
-                "rows": N_SLOTS, "prompt": 64, "new": 128,
-                "tokens_per_s": dec_tok / dec_wall,
-                "wall_per_token_ms": dec_wall / dec_tok * 1e3,
-                "step_ms": dec_wall / max(dec_disp, 1) * 1e3,
-                "dispatches_per_token": dec_disp / dec_tok,
-                "fused_blocks_per_token":
-                    (s1["fused_blocks"] - s0["fused_blocks"]) / dec_tok,
-                "decode_stretch_s": t_end - t_adm,
-                "decode_stretch_steps": stretch,
-                "decode_stretch_step_ms": ((t_end - t_adm) / stretch * 1e3
-                                           if stretch else None),
-                "decode_stretch_tokens": dec_tok - tok_adm,
-                "decode_stretch_wall_per_token_ms":
-                    (t_end - t_adm) / (dec_tok - tok_adm) * 1e3,
-            }
-            if spec:
-                extra["decode_run"]["spec"] = spec_figures(s0, s1, dec_tok)
-            holders = [h for h in (eng._fused, *eng._spec_graphs) if h]
-            caps = sum(len(h.captures) for h in holders)
-            s0 = eng.snapshot()
-            profile = profile_window(torch, eng, gen_reqs, counts)
-            s1 = eng.snapshot()
-            profile["graph_captures_in_window"] = sum(
-                len(h.captures) for h in holders) - caps
-            n_tok = N_SLOTS * 32
-            profile["tokens"] = n_tok
-            profile["dispatches_per_token"] = profile["dispatches"] / n_tok
-            profile["fused_blocks_per_token"] = (
-                s1["fused_blocks"] - s0["fused_blocks"]) / n_tok
-            profile["wall_per_token_ms"] = profile["window_s"] / n_tok * 1e3
-            paged_steps = (profile["wrapper_calls"]["paged_attention"]
-                           / CFG["depth"])
-            if "device_ms" in profile:  # prefill's device time included
-                profile["device_ms_per_token"] = profile["device_ms"] / n_tok
-                if paged_steps:  # a verify window runs no paged call
-                    profile["device_ms_per_step"] = (profile["device_ms"]
-                                                     / paged_steps)
-            # One device launch a call: the only kernels of the port in
-            # the window are the two ops' single kernels (no split
-            # merge, no second pass), and their device events number
-            # exactly the wrappers' calls, replays of a CUDA graph
-            # included.  A window the profiler did not record fails.
-            calls = profile.get("port_kernel_calls")
-            assert calls is not None, f"{tag}: no device events: {profile}"
-            events = {"paged_attention": 0, "int8_weight_matmul": 0}
-            for k, n in calls.items():
-                op = ("paged_attention" if k.startswith(
-                    "paged_attention_kernel")
-                      else "int8_weight_matmul" if k.startswith("qmm_kernel")
-                      else None)
-                assert op is not None, f"unexpected port kernel {k}"
-                events[op] += n
-            profile["device_events"] = events
-            assert events == profile["wrapper_calls"], profile
-            if spec:
-                profile["spec"] = spec_figures(s0, s1, n_tok)
-            extra["profile"] = profile
+        # Decode-dominated run: all 16 slots busy with short
+        # prompts, so the wall time per dispatch approaches the
+        # step (or block) time.
+        d0, s0 = eng._dispatch_count, eng.snapshot()
+        t1 = time.monotonic()
+        dec = [eng.submit_nowait(toks, 128) for toks in
+               torch.randint(0, CFG["vocab"], (N_SLOTS, 64),
+                             generator=gen_reqs).numpy()]
+        # The decode stretch: from the last admission to the end,
+        # every decode step with up to 16 rows and no prefill.
+        while eng.snapshot()["admitted"] < s0["admitted"] + N_SLOTS:
+            time.sleep(0.002)
+        t_adm, d_adm, s_adm = (time.monotonic(), eng._dispatch_count,
+                               eng.snapshot())
+        with eng._cv:  # the run's tokens committed before the stretch
+            tok_adm = sum(len(q.tokens) for q in eng._slots if q)
+        dec_tok = sum(len(h.wait(timeout=900)[0]) for h in dec)
+        t_end = time.monotonic()
+        dec_wall = t_end - t1
+        dec_disp = eng._dispatch_count - d0
+        wait_idle(eng)
+        s1 = eng.snapshot()
+        stretch = steps_run(s_adm, s1, eng._dispatch_count - d_adm)
+        extra["decode_run"] = {
+            "rows": N_SLOTS, "prompt": 64, "new": 128,
+            "tokens_per_s": dec_tok / dec_wall,
+            "wall_per_token_ms": dec_wall / dec_tok * 1e3,
+            "step_ms": dec_wall / max(dec_disp, 1) * 1e3,
+            "dispatches_per_token": dec_disp / dec_tok,
+            "fused_blocks_per_token":
+                (s1["fused_blocks"] - s0["fused_blocks"]) / dec_tok,
+            "decode_stretch_s": t_end - t_adm,
+            "decode_stretch_steps": stretch,
+            "decode_stretch_step_ms": ((t_end - t_adm) / stretch * 1e3
+                                       if stretch else None),
+            "decode_stretch_tokens": dec_tok - tok_adm,
+            "decode_stretch_wall_per_token_ms":
+                (t_end - t_adm) / (dec_tok - tok_adm) * 1e3,
+        }
+        if spec:
+            extra["decode_run"]["spec"] = spec_figures(s0, s1, dec_tok)
+        holders = [h for h in (eng._fused, *eng._spec_graphs) if h]
+        caps = sum(len(h.captures) for h in holders)
+        s0 = eng.snapshot()
+        profile = profile_window(torch, eng, gen_reqs, counts)
+        s1 = eng.snapshot()
+        profile["graph_captures_in_window"] = sum(
+            len(h.captures) for h in holders) - caps
+        n_tok = N_SLOTS * 32
+        profile["tokens"] = n_tok
+        profile["dispatches_per_token"] = profile["dispatches"] / n_tok
+        profile["fused_blocks_per_token"] = (
+            s1["fused_blocks"] - s0["fused_blocks"]) / n_tok
+        profile["wall_per_token_ms"] = profile["window_s"] / n_tok * 1e3
+        paged_steps = (profile["wrapper_calls"]["paged_attention"]
+                       / CFG["depth"])
+        if "device_ms" in profile:  # prefill's device time included
+            profile["device_ms_per_token"] = profile["device_ms"] / n_tok
+            if paged_steps:  # a verify window runs no paged call
+                profile["device_ms_per_step"] = (profile["device_ms"]
+                                                 / paged_steps)
+        # One device launch a call: the only kernels of the port in
+        # the window are the two ops' single kernels (no split
+        # merge, no second pass), and their device events number
+        # exactly the wrappers' calls, replays of a CUDA graph
+        # included.  A window the profiler did not record fails.
+        calls = profile.get("port_kernel_calls")
+        assert calls is not None, f"{tag}: no device events: {profile}"
+        events = {"paged_attention": 0, "int8_weight_matmul": 0}
+        for k, n in calls.items():
+            op = ("paged_attention" if k.startswith(
+                "paged_attention_kernel")
+                  else "int8_weight_matmul" if k.startswith("qmm_kernel")
+                  else None)
+            assert op is not None, f"unexpected port kernel {k}"
+            events[op] += n
+        profile["device_events"] = events
+        assert events == profile["wrapper_calls"], profile
+        if spec:
+            profile["spec"] = spec_figures(s0, s1, n_tok)
+        extra["profile"] = profile
         if eng._fused is not None:
             extra["graph_captures"] = list(eng._fused.captures)
         if spec:
@@ -1857,6 +1892,496 @@ def run_engine_observe(torch, model, gen_reqs):
         "trace_stages": sorted(stages[0]),
         "flight_recorder_events_at_kill": len(recorder),
         "recorder_kinds": sorted(set(kinds)),
+        "seconds": time.monotonic() - t_phase,
+    }
+
+
+# -- phase 4c: the HTTP server ---------------------------------------------
+
+
+def server_flags():
+    """The serving width of the engine phases as the server's flags
+    (server.py parses them as a user's command line would)."""
+    return [
+        "--model", "transformer_lm", "--vocab", str(CFG["vocab"]),
+        "--dim", str(CFG["dim"]), "--depth", str(CFG["depth"]),
+        "--heads", str(CFG["heads"]), "--max-seq", str(CFG["max_seq"]),
+        "--slots", str(N_SLOTS), "--page-size", str(PAGE),
+        "--prefill-chunk", str(CHUNK), "--device", "cuda",
+        "--port", "0",
+    ]
+
+
+# The drain check's two in-flight requests: 64-token prompts decoding
+# this many tokens (~1-3 s), far longer than the checks made meanwhile.
+DRAIN_NEW = 256
+# server_wave's second volley: 8 prompts of 40-63 tokens, 16 new each,
+# one (p_bucket, n_bucket) = (64, 16) key.
+WAVE_SHORT = (40, 16)
+# http_overhead: the gap between two client threads' starts, far above
+# a request's HTTP cost (~1 ms), so both sides queue them in one order.
+OVERHEAD_GAP_S = 0.005
+
+
+def http(port, path, body=None, headers=None, timeout=900):
+    """(code, body bytes, headers, seconds) of one request to the server
+    on 127.0.0.1:port; a POST when `body` is given (a dict as JSON)."""
+    data = body if body is None or isinstance(body, bytes) else (
+        json.dumps(body).encode())
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=data, headers=headers or {})
+    t0 = time.monotonic()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read(), resp.headers, (
+                time.monotonic() - t0)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), e.headers, time.monotonic() - t0
+
+
+def volley(port, bodies, path="/generate"):
+    """Each body POSTed at once on a client thread of its own:
+    ([(code, body, headers, seconds)] in order, wall seconds)."""
+    out = [None] * len(bodies)
+
+    def one(i):
+        out[i] = http(port, path, bodies[i])
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(bodies))]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return out, time.monotonic() - t0
+
+
+def staggered(calls):
+    """Each call on a client thread of its own, started OVERHEAD_GAP_S
+    after the one before: ([result] in order, wall seconds)."""
+    out = [None] * len(calls)
+
+    def one(i):
+        out[i] = calls[i]()
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(calls))]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+        time.sleep(OVERHEAD_GAP_S)
+    for t in threads:
+        t.join(timeout=900)
+    return out, time.monotonic() - t0
+
+
+def http_overhead(app, port, reqs):
+    """What HTTP costs on one booted app: the same requests through the
+    app's generate call (the handler's own, with a minted trace context
+    where the engine records spans) and POSTed to /generate, in one
+    staggered order, volleys alternating submit, HTTP, HTTP, submit."""
+    from container_engine_accelerators_tpu_torch.serving import otel
+
+    def direct(p, n):
+        def call():
+            ctx = otel.TraceContext.new() if app.engine is not None else None
+            return app._generate(np.asarray(p, np.int32)[None], n, 0.0,
+                                 trace_ctx=ctx)[0]
+        return call
+
+    def posted(p, n):
+        def call():
+            code, body, _, _ = http(port, "/generate",
+                                    {"prompt": [p.tolist()], "max_new": n})
+            assert code == 200, (code, body[:300])
+            return json.loads(body)["tokens"][0]
+        return call
+
+    n_tok = sum(n for _, n in reqs)
+    tps = {"submit": [], "http": []}
+    for side in ("submit", "http", "http", "submit"):
+        make = direct if side == "submit" else posted
+        outs, wall = staggered([make(p, n) for p, n in reqs])
+        assert [len(t) for t in outs] == [n for _, n in reqs], side
+        tps[side].append(n_tok / wall)
+    return {"http_tokens_per_s": tps["http"],
+            "submit_tokens_per_s": tps["submit"],
+            "http_over_submit": float(np.mean(tps["http"])
+                                      / np.mean(tps["submit"]))}
+
+
+def boot_server(flags):
+    """A ServingApp as a user's command line builds it (parse_args), its
+    Server on 127.0.0.1:<free port>: /healthz must answer 503 "loading"
+    before load_model (random weights from seed 0, the warm-up) and 200
+    after.  Returns (app, httpd, serve thread, port, boot seconds)."""
+    from container_engine_accelerators_tpu_torch import server as SV
+
+    app = SV.ServingApp(SV.parse_args(flags))
+    httpd = app.make_server("127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    port = httpd.server_address[1]
+    code, body, _, _ = http(port, "/healthz")
+    assert (code, body) == (503, b"loading"), (code, body)
+    t0 = time.monotonic()
+    app.load_model()
+    boot_s = time.monotonic() - t0
+    code, body, _, _ = http(port, "/healthz")
+    assert (code, body) == (200, b"ok"), (code, body)
+    return app, httpd, thread, port, boot_s
+
+
+def scrape(port):
+    from container_engine_accelerators_tpu_torch.serving import observe
+
+    code, body, headers, _ = http(port, "/metrics")
+    assert code == 200 and headers["Content-Type"].startswith(
+        "text/plain"), code
+    return observe.parse_text(body.decode())
+
+
+def quantiles(values):
+    if not values:
+        return {"p50": None, "p99": None}
+    return {"p50": float(np.percentile(values, 50)),
+            "p99": float(np.percentile(values, 99))}
+
+
+def torch_randint(gen, shape):
+    import torch
+
+    return torch.randint(0, CFG["vocab"], shape, generator=gen).numpy()
+
+
+def drain_check(app, httpd, thread, port, gen):
+    """drain_for_shutdown while two requests are in flight: both finish
+    with 200 and all their tokens, a new /generate gets 503 with a
+    Retry-After, /healthz 503 "draining: shutdown", /metrics 200, and
+    the server stops within the drain timeout.  Returns the record."""
+    prompts = torch_randint(gen, (2, 64))
+    inflight = {}
+
+    def one(i):
+        inflight[i] = http(port, "/generate", {
+            "prompt": [prompts[i].tolist()], "max_new": DRAIN_NEW})
+
+    clients = [threading.Thread(target=one, args=(i,)) for i in (0, 1)]
+    for t in clients:
+        t.start()
+
+    def started():
+        with app._state_lock:
+            if app._inflight < 2:
+                return False
+        if app.engine is not None:
+            return app.engine.snapshot()["active_rows"] == 2
+        return app.batcher.busy()
+
+    t0 = time.monotonic()
+    while not started():
+        assert time.monotonic() - t0 < 120, "the drain's requests never ran"
+        time.sleep(0.002)
+    done = {}
+
+    def drain():
+        t = time.monotonic()
+        done["idle"] = app.drain_for_shutdown(httpd)
+        done["s"] = time.monotonic() - t
+
+    drainer = threading.Thread(target=drain)
+    drainer.start()
+    while "shutdown" not in app.draining():
+        time.sleep(0.001)
+    code, body, headers, _ = http(port, "/generate", {
+        "prompt": [[1, 2, 3]], "max_new": 4})
+    assert code == 503 and int(headers["Retry-After"]) >= 1, (code, body)
+    code, body, headers, _ = http(port, "/healthz")
+    assert (code, body) == (503, b"draining: shutdown"), (code, body)
+    assert int(headers["Retry-After"]) >= 1
+    assert http(port, "/metrics")[0] == 200
+    with app._state_lock:
+        still = app._inflight
+    assert still == 2, f"the drain's requests ended before its checks ({still})"
+    for t in clients:
+        t.join(timeout=600)
+    drainer.join(timeout=app.cfg.drain_timeout_s + 60)
+    thread.join(timeout=30)
+    for i in (0, 1):
+        code, body, _, _ = inflight[i]
+        assert code == 200, (code, body[:200])
+        assert len(json.loads(body)["tokens"][0]) == DRAIN_NEW
+    assert done.get("idle") is True, done
+    assert done["s"] < app.cfg.drain_timeout_s, done
+    assert not thread.is_alive(), "the server did not stop"
+    return {"drain_s": done["s"], "in_flight_at_drain": 2,
+            "in_flight_finished": 2, "new_request_code": 503,
+            "healthz_while_draining": "draining: shutdown"}
+
+
+def run_server(torch, quant, engine_tps, gen_reqs, wave=False):
+    """server_int8 / server_bf16 / server_wave: the server booted over
+    the continuous engine (--quant auto, int8 at 16 slots; or --quant
+    off) or the wave batcher (--engine wave --quant auto), then
+    requests()' 8 requests POSTed at once (server_wave adds 8 short ones
+    of one bucket key while the first volley decodes), a malformed
+    request, /metrics, /tracez and the drain check, with the serving
+    kernels' launch counters set to 0 before the traffic and read after
+    the drain."""
+    from container_engine_accelerators_tpu_torch.ops import (
+        paged_attention as PA,
+    )
+    from container_engine_accelerators_tpu_torch.ops import quant_matmul as QM
+    from container_engine_accelerators_tpu_torch.serving import observe
+
+    tag = "wave" if wave else ("int8" if quant else "bf16")
+    t_phase = time.monotonic()
+    flags = server_flags() + (["--engine", "wave", "--quant", "auto"] if wave
+                              else ["--quant", "auto" if quant else "off"])
+    app, httpd, thread, port, boot_s = boot_server(flags)
+    eng = app.engine
+    reqs = requests(gen_reqs, torch)
+    bodies = [{"prompt": [p.tolist()], "max_new": n} for p, n in reqs]
+    try:
+        assert (eng.quant if eng is not None else app.qparams is not None) \
+            == quant, tag
+        m0 = scrape(port)
+        if eng is not None:
+            obs, snap0, d0 = eng.observability, eng.snapshot(), \
+                eng._dispatch_count
+            h0 = obs.ttft.state()
+        else:
+            stats0 = dict(app.batcher.stats)
+        serving_counts(PA, QM, reset=True)
+        if wave:
+            short = [{"prompt": torch_randint(
+                gen_reqs, (1, WAVE_SHORT[0] + 3 * i)).tolist(),
+                "max_new": WAVE_SHORT[1]} for i in range(8)]
+            box = {}
+            runner = threading.Thread(
+                target=lambda: box.update(out=volley(port, bodies)))
+            runner.start()
+            # The short volley queues behind the long groups' decode,
+            # so its requests coalesce when their key comes up.
+            t0 = time.monotonic()
+            while not app.batcher.busy():
+                assert time.monotonic() - t0 < 120
+                time.sleep(0.001)
+            short_out, short_wall = volley(port, short)
+            runner.join(timeout=900)
+            outs, wall = box["out"]
+        else:
+            outs, wall = volley(port, bodies)
+            short_out, short = [], []
+        for code, body, _, _ in outs + short_out:
+            assert code == 200, (tag, code, body[:300])
+        got = [json.loads(b)["tokens"][0] for _, b, _, _ in outs]
+        got_short = [json.loads(b)["tokens"][0] for _, b, _, _ in short_out]
+        assert [len(t) for t in got] == [n for _, n in reqs], tag
+        assert all(len(t) == WAVE_SHORT[1] for t in got_short), tag
+        m1 = scrape(port)
+        route = '{route="generate",code="200"}'
+        assert (m1["serve_http_requests_total"][route]
+                - m0["serve_http_requests_total"].get(route, 0.0)) == len(
+                    outs) + len(short_out), tag
+        rec = {"phase": f"server_{tag}", "server_flags": flags,
+               "boot_s": boot_s}
+        if eng is not None:
+            h1 = obs.ttft.state()
+            window = [x - y for x, y in zip(h1[0], h0[0])]
+            ttft_n = (m1["serve_ttft_seconds_count"][""]
+                      - m0["serve_ttft_seconds_count"][""])
+            assert ttft_n == len(reqs) == sum(window), (ttft_n, window)
+            rec["ttft_s"] = {
+                "p50": observe.quantile_from_counts(obs.ttft.bounds,
+                                                    window, 0.5),
+                "p99": observe.quantile_from_counts(obs.ttft.bounds,
+                                                    window, 0.99),
+                "count": ttft_n}
+            snap = eng.snapshot()
+            assert snap["prefix_hits"] - snap0["prefix_hits"] >= 1, snap
+            rec["prefix_hits"] = snap["prefix_hits"] - snap0["prefix_hits"]
+            code, body, _, _ = http(port, "/tracez")
+            tz = json.loads(body)
+            ids = {r["trace_id"] for r in tz["recent"]}
+            want_ids = [json.loads(b)["trace_id"] for _, b, _, _ in outs]
+            assert code == 200 and set(want_ids) <= ids, (want_ids, ids)
+            rec["tracez_stages"] = sorted(k for k in tz["stages"]
+                                          if k != "requests")
+        else:
+            rec["ttft_s"] = "not measured (the wave path records no spans)"
+        code, body, _, _ = http(port, "/generate", b"not json")
+        assert code == 400, (code, body)
+        # The serving kernels' oracle rule on every served token.
+        if eng is not None:
+            qparams, deq = (eng._qparams, eng._deq) if quant else (None, None)
+        else:
+            qparams, deq = app.qparams, app.deq
+        gaps = [oracle_gap(torch, app.model, np.asarray(p), t, quant,
+                           qparams, deq)
+                for p, t in zip([p for p, _ in reqs]
+                                + [b["prompt"][0] for b in short],
+                                got + got_short)]
+        if max(gaps) > TOP2_TOL:
+            raise AssertionError(
+                f"server_{tag}: token off the oracle's argmax by "
+                f"{max(gaps)} logits (> {TOP2_TOL})")
+        n_tok = sum(len(t) for t in got)
+        lat = [s for _, _, _, s in outs]
+        rec.update({
+            "requests": len(outs), "tokens": n_tok, "wall_s": wall,
+            "tokens_per_s": n_tok / wall,
+            "vs_engine": n_tok / wall / engine_tps,
+            "engine_tokens_per_s": engine_tps,
+            "request_latency_s": quantiles(lat),
+            "max_gap_to_oracle_argmax": max(gaps),
+            "malformed_request_code": 400,
+        })
+        if wave:
+            stats = dict(app.batcher.stats)
+            served = len(outs) + len(short_out)
+            groups = stats["groups"] - stats0["groups"]
+            assert stats["requests"] - stats0["requests"] == served, stats
+            assert groups < served, (groups, served)
+            rec["wave"] = {"groups": groups, "requests": served,
+                           "max_group_rows": stats["max_group_rows"],
+                           "short_volley_s": short_wall,
+                           "short_request_latency_s": quantiles(
+                               [s for _, _, _, s in short_out])}
+        rec["http_overhead"] = http_overhead(app, port, reqs)
+        rec.update(drain_check(app, httpd, thread, port, gen_reqs))
+        if eng is not None:
+            wait_idle(eng)
+        launches = serving_counts(PA, QM)
+        if eng is not None:
+            snap1 = eng.snapshot()
+            steps = steps_run(snap0, snap1, eng._dispatch_count - d0)
+            hold_launches(f"server_{tag}", quant, launches, steps)
+            rec["decode_steps_run"] = steps
+        else:
+            assert launches["paged_attention"] == 0, launches
+            assert launches["int8_weight_matmul"] > 0, launches
+        rec["launches"] = launches
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        app.close()
+    if eng is not None:
+        closed = eng.snapshot()
+        assert closed["kv_pages_in_use"] == 0, closed
+        rec["kv_pages_in_use_after_close"] = 0
+    rec["seconds"] = time.monotonic() - t_phase
+    return rec, launches
+
+
+def forward_ms_median(torch, fn, n=3):
+    """The median of n timed calls of fn after one untimed, each fenced
+    by a synchronize on the card (host wall, ms)."""
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+    return sorted(times)[n // 2]
+
+
+def predict_images(torch, model, gen, size):
+    """8 images (8, size, size, 3) that the served model labels in at
+    least two ways, so that a server that reorders or mixes the images
+    of a batch gives other labels.  With random weights the pooled ReLU
+    features of every image share a large common part, and the head
+    gives nearly every image one label (483 for all 24 at 224 on the
+    card); so the head's bias is first centred on this pool's mean
+    logits, in place in the served model, leaving each image's own part
+    to choose its label.  The pool: noise with per-image scales and
+    offsets, plain colours and smooth images.  One image of each label
+    comes first.  Returns (images, distinct labels in the pool)."""
+    import torch.nn.functional as F
+
+    noise = (torch.randn((8, size, size, 3), generator=gen)
+             * (1.0 + torch.arange(8.0)[:, None, None, None])
+             + 2.0 * torch.randn((8, 1, 1, 3), generator=gen))
+    colours = torch.randn((8, 1, 1, 3), generator=gen).expand(
+        8, size, size, 3)
+    smooth = F.interpolate(torch.randn((8, 3, 2, 2), generator=gen),
+                           size=(size, size), mode="bilinear",
+                           align_corners=False).permute(0, 2, 3, 1)
+    pool = torch.cat([colours, smooth, noise]).contiguous()
+    with torch.inference_mode():
+        x = pool.cuda()
+        model.head_bias.sub_(model(x, train=False).mean(0))
+        labels = model(x, train=False).argmax(-1).tolist()
+    first = {}
+    for i, label in enumerate(labels):
+        first.setdefault(label, i)
+    lead = sorted(first.values())
+    pick = (lead + [i for i in range(len(labels)) if i not in lead])[:8]
+    assert len(first) >= 2, (
+        f"the model labels all {len(labels)} images {labels[0]}")
+    return pool[pick].numpy(), len(first)
+
+
+def run_server_predict(torch, gen):
+    """server_predict: ResNet-50 at 224 behind /predict (--batch 8): 8
+    single-image requests at once (twice: the first volley takes batch
+    1's first use) and one batch of the 8, the labels, at least two
+    distinct (the head centred on predict_images' pool), equal to the
+    argmax of the served model's own eval forward on the same images at
+    the same batch; that forward's time and the server's predict
+    call's (no HTTP) are read beside the HTTP figures."""
+    t_phase = time.monotonic()
+    size = 224
+    flags = ["--model", "resnet50", "--image-size", str(size), "--batch",
+             "8", "--device", "cuda", "--port", "0"]
+    app, httpd, thread, port, boot_s = boot_server(flags)
+    try:
+        images, pool_labels = predict_images(torch, app.model, gen, size)
+        bodies = [images[i:i + 1].tobytes() for i in range(8)]
+        _, wall_first = volley(port, bodies, "/predict")
+        singles, wall_1 = volley(port, bodies, "/predict")
+        code, body, _, batch_s = http(port, "/predict", images.tobytes())
+        assert code == 200, (code, body)
+        assert all(c == 200 for c, _, _, _ in singles), singles
+        assert http(port, "/generate", {"prompt": [[1]]})[0] == 503
+        model = app.model
+        with torch.inference_mode():
+            x = torch.from_numpy(images).cuda()
+            want_batch = model(x, train=False).argmax(-1).tolist()
+            want_single = [model(x[i:i + 1], train=False).argmax(-1).item()
+                           for i in range(8)]
+            forward_ms = {n: forward_ms_median(torch, lambda: model(
+                x[:n], train=False)) for n in (1, 8)}
+        # The server's predict call without HTTP (host conversion, the
+        # copy to the card, the forward on the app's predict thread).
+        call_ms = {n: forward_ms_median(torch, lambda: app._predict(
+            images[:n])) for n in (1, 8)}
+        got_single = [json.loads(b)["labels"][0] for _, b, _, _ in singles]
+        got_batch = json.loads(body)["labels"]
+        assert got_single == want_single, (got_single, want_single)
+        assert got_batch == want_batch, (got_batch, want_batch)
+        assert len(set(want_single)) >= 2 and len(set(want_batch)) >= 2, (
+            want_single, want_batch)
+        code = http(port, "/metrics")[0]
+        assert code == 200
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        app.close()
+    return {
+        "phase": "server_predict", "server_flags": flags, "boot_s": boot_s,
+        "images_per_s_single_requests": 8 / wall_1,
+        "images_per_s_single_requests_first": 8 / wall_first,
+        "images_per_s_batch_request": 8 / batch_s,
+        "model_forward_ms": forward_ms,
+        "predict_call_ms": call_ms,
+        "request_latency_s": quantiles([s for _, _, _, s in singles]),
+        "batch_request_s": batch_s,
+        "labels": got_batch, "distinct_labels": len(set(got_batch)),
+        "distinct_labels_in_pool": pool_labels,
         "seconds": time.monotonic() - t_phase,
     }
 
@@ -3376,7 +3901,7 @@ def main() -> int:
 
     model = G.make_decoder(device="cuda", **CFG)
     model.init_random(torch.Generator().manual_seed(SEED))
-    engine_launches = {}
+    engine_launches, engine_tps = {}, {}
     for quant in (False, True):
         base = None
         for mode in ENGINE_MODES:
@@ -3388,6 +3913,7 @@ def main() -> int:
             base = base or rec
             emit({**{k: v for k, v in rec.items() if k != "outs"},
                   "card": smi})
+        engine_tps[quant] = base["tokens_per_s"]
     l_bf16, l_int8 = engine_launches[(False, "")], engine_launches[(True, "")]
     for quant in (False, True):
         rec = run_engine_tiers(torch, model, quant,
@@ -3403,6 +3929,15 @@ def main() -> int:
         emit({**rec, "card": smi})
     emit({**run_engine_observe(torch, model,
                                torch.Generator().manual_seed(SEED + 1)),
+          "card": smi})
+    server_launches = {}
+    for key, quant, wave in ((True, True, False), (False, False, False),
+                             ("wave", True, True)):
+        rec, server_launches[key] = run_server(
+            torch, quant, engine_tps[quant],
+            torch.Generator().manual_seed(SEED + 1), wave=wave)
+        emit({**rec, "card": smi})
+    emit({**run_server_predict(torch, torch.Generator().manual_seed(SEED + 5)),
           "card": smi})
     del model
     torch.cuda.empty_cache()
@@ -3486,7 +4021,8 @@ def main() -> int:
         if "launches_from" in rec:
             kernels[-1]["launches_from"] = rec["launches_from"]
     # The serving kernels' launches on the fused and speculative engines'
-    # requests runs (CUDA-graph replays counted call by call).
+    # requests runs (CUDA-graph replays counted call by call), the tier
+    # phase's returning rows and the server phases.
     serving = {"paged_attention_bf16": (False, "paged_attention"),
                "paged_attention_int8": (True, "paged_attention"),
                "int8_weight_matmul": (True, "int8_weight_matmul")}
@@ -3496,9 +4032,11 @@ def main() -> int:
             k["launches_fused"] = engine_launches[(quant, "_fused")][op]
             k["launches_spec"] = engine_launches[(quant, "_spec")][op]
             k["launches_tiers"] = engine_launches[(quant, "_tiers")][op]
+            k["launches_server"] = server_launches[quant][op]
             if op == "int8_weight_matmul":  # the bf16 engine's drafter
                 k["launches_spec_bf16"] = engine_launches[(False, "_spec")][
                     op]
+                k["launches_server_wave"] = server_launches["wave"][op]
     for k in kernels[3:5]:  # lm_large runs flash at head dim 128 too
         k["launches_lm_large"] = l_large[k["name"]]
     print(smi, flush=True)

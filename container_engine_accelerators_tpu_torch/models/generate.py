@@ -1,8 +1,9 @@
 """LM decode seams in PyTorch: the port of
 container_engine_accelerators_tpu/models/generate.py for the paged
 and the contiguous serving paths (`make_decoder` :36, `_sample` :122,
-the oracle `generate_prefill` :241, `init_decode_cache` :356,
-`prefill_chunk` :446, `prefill_finish_into_slot` :491,
+`generate_padded` :171, the oracle `generate_prefill` :241,
+`init_decode_cache` :356, `prefill_chunk` :446,
+`prefill_finish_into_slot` :491,
 `init_paged_cache` :566, `paged_scatter_row` :595,
 `paged_preload_scratch` :627, `_pool_leaves` :660, `gather_kv_pages`
 :671, `scatter_kv_pages` :683, `paged_prefill_finish` :702,
@@ -100,6 +101,54 @@ def _sample(logits, temperature, generator, top_k=None, top_p=None):  # hot-path
         sampled = sorted_idx.gather(1, pick[:, None])[:, 0]
     greedy = torch.argmax(logits, dim=-1)
     return torch.where(temperature > 0.0, sampled, greedy).to(torch.int32)
+
+
+@torch.no_grad()
+def generate_padded(
+    model: TransformerLM,
+    prompt,
+    prompt_len: int,
+    max_new: int,
+    temperature,
+    generator: torch.Generator,
+):
+    """The bucket-shaped twin of `generate`: prompt (b, P) holds the
+    real prompt in its first `prompt_len` columns (1 <= prompt_len <=
+    P).  One token a step over a contiguous cache, slot == position:
+    teacher-forced inside the real prompt, sampled after it.
+    temperature: scalar.  Returns (b, max_new) int32, the tokens after
+    the real prompt; greedy rows equal generate_prefill's."""
+    if not model.decode:
+        raise ValueError("generate_padded needs a decode=True model")
+    dev = model.device
+    prompt = _as(prompt, torch.int64, dev)
+    b, p_max = prompt.shape
+    if p_max < 1:
+        raise ValueError("prompt bucket must contain at least one column")
+    total = p_max + max_new
+    if total > model.max_seq:
+        raise ValueError(
+            f"prompt bucket ({p_max}) + max_new ({max_new}) exceeds the "
+            f"model's max_seq ({model.max_seq})"
+        )
+    plen = int(prompt_len)
+    temperature = _as(temperature, torch.float32, dev)
+    cache = init_decode_cache(model, b, device=dev)
+    tok = prompt[:, 0]
+    toks = []
+    # Step t feeds the token at position t; from t = plen - 1 on, its
+    # sample is the next generated token.
+    for t in range(plen - 1 + max_new):
+        logits = model(
+            tok[:, None], positions=torch.full((1,), t, device=dev),
+            cache=cache, write_pos=t,
+        )
+        if t + 1 < plen:
+            tok = prompt[:, t + 1]
+        else:
+            tok = _sample(logits[:, 0], temperature, generator).long()
+            toks.append(tok)
+    return torch.stack(toks, dim=1).to(torch.int32)
 
 
 @torch.no_grad()

@@ -2,8 +2,9 @@
 container_engine_accelerators_tpu/models/quant_generate.py
 (`quantize_decode_params` :43, `dequantize_decode_params` :84, `_ln`
 :129, `_qmm` :137, `_quantize_kv` :141, `quantize_kv_cache` :152,
-`_cache_write` :165, `_paged_flat_idx` :184, `_paged_write` :194,
-`quant_decode_step` :211, the oracle
+`_cache_write` :165 (its per-row index math in `_row_slots`),
+`_paged_flat_idx` :184, `_paged_write` :194, `quant_decode_step` :211,
+the oracle
 `generate_prefill_quant` :365, `init_quant_decode_cache` :460,
 `init_quant_paged_cache` :490, `quant_paged_preload_scratch` :527,
 `quant_paged_prefill_finish` :569, `quant_paged_engine_decode_step`
@@ -130,19 +131,28 @@ def quantize_kv_cache(cache):
     return out
 
 
+def _row_slots(t, length):
+    """(rows, slot, inside) of one write a row at per-row slots t (b,)
+    of buffers `length` slots long: a slot past the buffer reads as 0
+    with inside False.  Computed once a pass, not once a leaf: each op
+    here costs the host more than its kernel costs the card."""
+    t = t.long()
+    inside = (t >= 0) & (t < length)
+    rows = torch.arange(t.shape[0], device=t.device)
+    return rows, torch.where(inside, t, 0), inside
+
+
 def _cache_write(buf, new, t):
     """Write new (b, 1, ...) at slot t of buf (b, max_seq, ...): a shared
-    scalar slot, or one slot per row for a (b,) t.  A per-row slot past
-    the buffer writes nothing, as the reference's one-hot select does
-    (the draft chain's passes may run past max_seq at a row's end)."""
-    if not torch.is_tensor(t) or t.ndim == 0:
+    scalar slot, or one slot per row as _row_slots gives them.  A
+    per-row slot past the buffer writes nothing, as the reference's
+    one-hot select does (the draft chain's passes may run past max_seq
+    at a row's end)."""
+    if not isinstance(t, tuple):
         t = int(t)
         buf[:, t:t + 1] = new.to(buf.dtype)
     else:
-        rows = torch.arange(buf.shape[0], device=buf.device)
-        t = t.long()
-        inside = (t >= 0) & (t < buf.shape[1])
-        at = torch.where(inside, t, 0)
+        rows, at, inside = t
         keep = buf[rows, at]
         inside = inside.view((-1,) + (1,) * (keep.ndim - 1))
         buf[rows, at] = torch.where(inside, new[:, 0].to(buf.dtype), keep)
@@ -189,6 +199,8 @@ def quant_decode_step(qparams, cache, tok, pos, t, kv_mask, heads,  # hot-path
         flat = _paged_flat_idx(bt, t, page)
     else:
         view_len = page  # contiguous: dim 1 is max_seq
+        where = (_row_slots(t, view_len)
+                 if torch.is_tensor(t) and t.ndim == 1 else int(t))
     table = qparams["pos_emb"]  # clamped, as the reference's gather is
     pe = table[_as(pos, torch.int64, dev).clamp(max=table.shape[0] - 1)]
     if pe.ndim == 1:
@@ -217,7 +229,7 @@ def quant_decode_step(qparams, cache, tok, pos, t, kv_mask, heads,  # hot-path
             pairs = (("k", k[:, None]), ("v", v[:, None]))
         for name, new in pairs:
             if bt is None:
-                _cache_write(c[name], new, t)
+                _cache_write(c[name], new, where)
             else:
                 _paged_write(c[name], new, flat)
         if bt is not None:
@@ -266,11 +278,15 @@ def generate_prefill_quant(
     quant_kv: bool = True,
     top_k=None,
     top_p=None,
+    deq=None,
 ):
     """The int8 oracle: generate_prefill's bucketing, with the prompt
     prefilled through the dequantized model, tok0 from the QUANT head,
     and every later token through quant_decode_step.  Quantizes `model`
-    when `qparams` is not given.  Returns (b, max_new) int32."""
+    when `qparams` is not given, and dequantizes `qparams` when `deq`
+    (dequantize_decode_params' model of the same tree) is not given:
+    a caller that decodes many batches builds both once.  Returns
+    (b, max_new) int32."""
     if not model.decode:
         raise ValueError("generate_prefill_quant needs a decode=True model")
     dev = model.device
@@ -288,7 +304,8 @@ def generate_prefill_quant(
     per_row = plen.ndim == 1
     if qparams is None:
         qparams = quantize_decode_params(model)
-    deq = dequantize_decode_params(qparams, model)
+    if deq is None:
+        deq = dequantize_decode_params(qparams, model)
     slots = torch.arange(model.max_seq, device=dev)
     if per_row:
         kv_mask = (slots[None, :] < plen[:, None]) | (slots[None, :] >= p_max)

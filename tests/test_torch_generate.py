@@ -141,6 +141,40 @@ def test_oracle_per_row_bucketed_prompts(setup):
     assert np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("p_len,bucket,n",
+                         [(5, 8, 10), (13, 16, 12), (16, 16, 8)])
+def test_generate_padded_matches_reference_greedy(setup, p_len, bucket, n):
+    # The bucket-shaped twin: the real prompt in the first p_len
+    # columns of two rows, the tail padding; greedy tokens equal the
+    # reference's generate_padded and the port's own generate_prefill.
+    dec, jp, pm = setup
+    prompt = np.zeros((2, bucket), np.int32)
+    prompt[:, :p_len] = np.concatenate(
+        [rand_prompt(p_len, p_len), rand_prompt(p_len + 1, p_len)])
+    want = np.asarray(G.generate_padded(
+        dec, jp, jnp.asarray(prompt), p_len, n, 0.0, jax.random.PRNGKey(0),
+    ))
+    assert len(set(want[0].tolist())) > 1, want
+    got = TG.generate_padded(pm, prompt, p_len, n, 0.0, _gen()).numpy()
+    assert np.array_equal(got, want)
+    oracle = TG.generate_prefill(pm, prompt, p_len, n, 0.0, _gen()).numpy()
+    assert np.array_equal(got, oracle)
+
+
+def test_generate_prefill_quant_takes_a_prebuilt_twin(setup):
+    # deq= (built once by a caller that decodes many batches) gives the
+    # tokens of the call that dequantizes for itself.
+    _, _, pm = setup
+    prompt = rand_prompt(5, 11)
+    qp = TQG.quantize_decode_params(pm)
+    deq = TQG.dequantize_decode_params(qp, pm)
+    a = TQG.generate_prefill_quant(pm, prompt, 11, 9, 0.0, _gen(),
+                                   qparams=qp)
+    b = TQG.generate_prefill_quant(pm, prompt, 11, 9, 0.0, _gen(),
+                                   qparams=qp, deq=deq)
+    assert torch.equal(a, b)
+
+
 def test_paged_seams_match(setup):
     # Two admissions through the paged finish seam (the second resumes
     # after a preloaded 8-token shared prefix page), then decode steps

@@ -34,8 +34,8 @@ def test_every_module_imports_without_jax():
     mods = _port_modules()
     assert len(mods) >= 31, mods
     assert {f"{PORT.__name__}.{m}" for m in (
-        "ops.chunked_xent", "models.inception", "utils.checkpoint")} <= set(
-        mods)
+        "ops.chunked_xent", "models.inception", "utils.checkpoint",
+        "server")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
