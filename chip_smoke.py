@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths — LM serving decode (paged,
-fused, contiguous and speculative) and the HTTP server over it,
+fused, contiguous and speculative), the HTTP server over it and the
+replica fleet,
 single-card LM training (lm_main's
 width at every head dim, and lm_large with the chunked vocab head),
 single-card ResNet-50 and Inception-v3 training, and checkpoints — on
@@ -78,9 +79,10 @@ Phases, one JSON line each (stdout):
                 the phase's seconds.  engine_migrate_bf16 / _int8: engine
                 A serves the 8 requests and exports their shared 512-token
                 prefix, a fresh B adopts it (the int8 B first refuses the
-                bf16 blob, holding no page) and serves the two sharing
-                requests as prefix hits with A's tokens, and re-exports A's
-                blob bitwise; export / adopt ms and bytes/s.
+                bf16 blob, and a fresh bf16 engine the int8 blob, holding
+                no page) and serves the two sharing requests as prefix
+                hits with A's tokens, and re-exports A's blob bitwise;
+                export / adopt ms and bytes/s.
                 engine_observe_bf16_fused: the 8 requests through fused
                 engines with observe on and off in turns (off, on, on,
                 off), equal tokens, the TTFT count equal to the rows and
@@ -114,6 +116,38 @@ Phases, one JSON line each (stdout):
                 server_predict (ResNet-50, 224 x 224, --batch 8): 8
                 single-image requests at once and a batch of 8, labels
                 the served model's own eval argmax; images/s over HTTP;
+  4d. fleet   — two replicas of 16 slots on the one card (serving/fleet.py),
+                the server's engine kwargs (server.py engine_kw), traffic
+                requests() then 4 groups of 4 requests sharing a 512-token
+                prefix (128-token tails, 64 new), each request placed
+                after the one before: fleet_inproc_int8 (FleetManager,
+                int8 one-token paged) holds every token to the oracle,
+                each group's followers on its leader's replica by
+                affinity with a prefix hit, both replicas serving, the
+                launches against the steps, a profiled window whose device
+                events equal the wrappers' calls over both scheduler
+                threads, then install_fleet_faults with engine_death:1
+                persistent over 4 waves until replica 1 is evicted with
+                every request completed and no failure on replica 0;
+                fleet_inproc_bf16_fused (--quant off --decode-steps 4,
+                migrate on) the same traffic with CUDA graphs captured by
+                both replicas in one process, a group's prefix fetched off
+                its owner (export, adopt) serving the owner's tokens
+                bitwise, then a prefill:1,decode:1 fleet with at least one
+                prefill handoff; fleet_procs_int8 (ProcessFleetManager
+                over demo_lm_factory, 2 worker processes on the card over
+                Unix sockets) the int8 fleet's tokens, each worker
+                holding the card, a SIGKILLed worker respawned with its
+                request re-routed, engine="0" / "1" on the relabelled
+                /metrics; server_fleet the server from --fleet 2 and from
+                --fleet-procs 2: requests() over HTTP with the int8
+                fleet's tokens, both engine labels on /metrics, the
+                assembled traces on /tracez, the drain (SIGTERM's path)
+                finishing two in-flight requests, the workers exiting 0.
+                Each prints tokens/s beside the one-token engine's
+                (`vs_engine`), placements, hits, reroutes and spills,
+                eviction and respawn s, migrate ms a page, boot and spawn
+                s;
   5. train_kernels — flash attention forward and backward at (8, 2048,
                 h, 1024 / h) bf16 for h 8, 16, 32 and 4 (head dims 128,
                 64, 32 on the d-64 instance, 256) and at the ragged
@@ -1239,18 +1273,8 @@ def run_engine(torch, model, quant, gen_reqs, mode="", base=None):
         # merge, no second pass), and their device events number
         # exactly the wrappers' calls, replays of a CUDA graph
         # included.  A window the profiler did not record fails.
-        calls = profile.get("port_kernel_calls")
-        assert calls is not None, f"{tag}: no device events: {profile}"
-        events = {"paged_attention": 0, "int8_weight_matmul": 0}
-        for k, n in calls.items():
-            op = ("paged_attention" if k.startswith(
-                "paged_attention_kernel")
-                  else "int8_weight_matmul" if k.startswith("qmm_kernel")
-                  else None)
-            assert op is not None, f"unexpected port kernel {k}"
-            events[op] += n
-        profile["device_events"] = events
-        assert events == profile["wrapper_calls"], profile
+        profile["device_events"] = port_events(profile, tag)
+        assert profile["device_events"] == profile["wrapper_calls"], profile
         if spec:
             profile["spec"] = spec_figures(s0, s1, n_tok)
         extra["profile"] = profile
@@ -1359,6 +1383,22 @@ def run_engine(torch, model, quant, gen_reqs, mode="", base=None):
             first_divergence(a, b) for a, b in zip(outs, base["outs"])]
         rec["vs_one_token"] = ratios(rec, base)
     return rec, launches
+
+
+def port_events(profile, tag):
+    """The serving kernels' device events in a profile, by wrapper (the
+    only port kernels a serving window may hold); a window the profiler
+    did not record fails."""
+    calls = profile.get("port_kernel_calls")
+    assert calls is not None, f"{tag}: no device events: {profile}"
+    events = {"paged_attention": 0, "int8_weight_matmul": 0}
+    for k, n in calls.items():
+        op = ("paged_attention" if k.startswith("paged_attention_kernel")
+              else "int8_weight_matmul" if k.startswith("qmm_kernel")
+              else None)
+        assert op is not None, f"unexpected port kernel {k}"
+        events[op] += n
+    return events
 
 
 def ratios(rec, base):
@@ -1685,12 +1725,44 @@ def run_engine_tiers(torch, model, quant, gen):
     }
 
 
+def refuse_foreign(eng, tokens, foreign):
+    """`eng` must refuse `foreign` (a (meta, blob) of the other layout)
+    with the reference's ValueError and hold no page for it: returns the
+    refusal's message."""
+    in_use = eng.snapshot()["kv_pages_in_use"]
+    try:
+        eng.adopt_prefix_pages(tokens, *foreign)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("a blob of the other layout adopted")
+    assert eng.snapshot()["kv_pages_in_use"] == in_use
+    return refused
+
+
+def refuse_foreign_fresh(model, quant, tokens, foreign):
+    """refuse_foreign on a fresh engine of layout `quant`: the bf16
+    migrate phase runs first, so it is held against the int8 phase's
+    blob afterwards."""
+    from container_engine_accelerators_tpu_torch.serving import (
+        ContinuousBatchingEngine,
+    )
+
+    eng = ContinuousBatchingEngine(model, N_SLOTS, quant=quant,
+                                   page_size=PAGE, prefill_chunk=CHUNK,
+                                   observe=False, device=model.device)
+    try:
+        return refuse_foreign(eng, tokens, foreign)
+    finally:
+        eng.close()
+
+
 def run_engine_migrate(torch, model, quant, gen_reqs, foreign=None):
     """engine_migrate_<tag>: engine A serves requests() and exports the
     512-token prefix its requests #2 and #4 share; a fresh engine B
     adopts it and serves those two.  `foreign` (a blob of the other
-    layout) must be refused by B with no page held.  Returns the record
-    and A's (meta, blob)."""
+    layout) must be refused by B with no page held.  Returns the record,
+    A's (meta, blob) and the shared prefix."""
     from container_engine_accelerators_tpu_torch.serving import (
         ContinuousBatchingEngine,
     )
@@ -1715,15 +1787,8 @@ def run_engine_migrate(torch, model, quant, gen_reqs, foreign=None):
         meta, blob = a.export_prefix_pages(shared)
         export_s = time.monotonic() - t0
         assert meta["n_pages"] == MIGRATE_SHARED // PAGE, meta
-        refused = None
-        if foreign is not None:
-            in_use = b.snapshot()["kv_pages_in_use"]
-            try:
-                b.adopt_prefix_pages(shared, *foreign)
-            except ValueError as e:
-                refused = str(e)
-            assert refused is not None, "a blob of the other layout adopted"
-            assert b.snapshot()["kv_pages_in_use"] == in_use
+        refused = (refuse_foreign(b, shared, foreign)
+                   if foreign is not None else None)
         t0 = time.monotonic()
         adopted = b.adopt_prefix_pages(shared, meta, blob)
         adopt_s = time.monotonic() - t0
@@ -1770,7 +1835,7 @@ def run_engine_migrate(torch, model, quant, gen_reqs, foreign=None):
         "foreign_blob_refused": refused,
         "seconds": time.monotonic() - t_phase,
     }
-    return rec, (meta, blob)
+    return rec, (meta, blob), shared
 
 
 def run_engine_observe(torch, model, gen_reqs):
@@ -2077,6 +2142,9 @@ def drain_check(app, httpd, thread, port, gen):
                 return False
         if app.engine is not None:
             return app.engine.snapshot()["active_rows"] == 2
+        if app.fleet is not None:
+            return sum(e["active_rows"]
+                       for e in app.fleet.snapshot()["engines"]) == 2
         return app.batcher.busy()
 
     t0 = time.monotonic()
@@ -2273,6 +2341,693 @@ def run_server(torch, quant, engine_tps, gen_reqs, wave=False):
         rec["kv_pages_in_use_after_close"] = 0
     rec["seconds"] = time.monotonic() - t_phase
     return rec, launches
+
+
+# -- phase 4d: the replica fleet ---------------------------------------------
+# FLEET_REPLICAS replicas of N_SLOTS slots each, all on the one card.  The
+# traffic: requests() (alone, timed against the single engine's tokens/s),
+# then FLEET_GROUPS groups of FLEET_GROUP_SIZE greedy requests, each group
+# a FLEET_PREFIX-token prefix with FLEET_TAIL-token tails and FLEET_NEW new
+# tokens; a group's first request goes first and the others once it is
+# placed, so they must follow it by prefix affinity.
+FLEET_REPLICAS = 2
+FLEET_GROUPS, FLEET_GROUP_SIZE = 4, 4
+FLEET_PREFIX, FLEET_TAIL, FLEET_NEW = 512, 128, 64
+# The fault runs: FLEET_WAVES waves of one request the hash ring places on
+# each replica (96-token prompts, FLEET_FAULT_NEW new tokens).  In-process,
+# replica 1's decode seam fails persistently from its FLEET_FAULT_AFTER-th
+# call, so each wave's request there crashes it: the 4th crash spends the
+# supervisor's 3 restarts and evicts it.  In the process fleet, worker 1 is
+# killed while its first wave decodes.
+FLEET_WAVES, FLEET_FAULT_NEW, FLEET_FAULT_AFTER = 4, 48, 4
+# The migration check's tail, under one page: the owner serves the prompt
+# itself first and keeps exactly the group's prefix pages in its trie.
+MIGRATE_TAIL = 40
+
+
+def fleet_traffic(gen, torch):
+    """(requests(), the groups: FLEET_GROUPS lists of FLEET_GROUP_SIZE
+    (prompt, new tokens))."""
+    reqs = requests(gen, torch)
+    groups = []
+    for _ in range(FLEET_GROUPS):
+        prefix = torch_randint(gen, (FLEET_PREFIX,))
+        groups.append([
+            (np.concatenate([prefix, torch_randint(gen, (FLEET_TAIL,))]),
+             FLEET_NEW) for _ in range(FLEET_GROUP_SIZE)])
+    return reqs, groups
+
+
+def fleet_engine_kw(extra=()):
+    """The engine kwargs the server builds from server_flags() and
+    `extra` (its one engine_kw, shared by the single engine and both
+    fleet modes)."""
+    from container_engine_accelerators_tpu_torch import server as SV
+
+    return SV.ServingApp(SV.parse_args(server_flags() + list(extra))
+                         ).engine_kw()
+
+
+def record_placements(fleet):
+    """Wrap the fleet's routing seam (the one install_fleet_faults wraps):
+    {prompt bytes: [(replica, reason), ...]} of every placement."""
+    placed, lock, inner = {}, threading.Lock(), fleet._route
+
+    def traced(route_row, stats, trace=None):
+        out = inner(route_row, stats, trace=trace)
+        with lock:
+            placed.setdefault(np.asarray(route_row, np.int32).tobytes(),
+                              []).append(out)
+        return out
+
+    fleet._route = traced
+    return placed
+
+
+def pkey(prompt):
+    return np.asarray(prompt, np.int32).tobytes()
+
+
+def in_order(calls, keys=None, placed=None):
+    """Each call on a client thread of its own, all in flight together;
+    with `placed` (record_placements), each starts once the request
+    before it is placed, so two requests sharing a prefix meet the
+    router (and an int8 replica's prefix cache) in one order every run:
+    ([result] in order, wall seconds).  A call that raises fails."""
+    out, errors = [None] * len(calls), []
+
+    def one(i):
+        try:
+            out[i] = calls[i]()
+        except Exception as e:  # pylint: disable=broad-except
+            errors.append((i, repr(e)[:300]))
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(calls))]
+    t0 = time.monotonic()
+    for i, t in enumerate(threads):
+        if placed is not None and i:
+            wait_for(lambda k=keys[i - 1]: k in placed or errors,
+                     "the previous request's placement", timeout=120)
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    assert not errors, errors
+    return out, time.monotonic() - t0
+
+
+def fleet_run(fleet, items, placed=None):
+    """Each (prompt, new tokens) through fleet.submit (in_order): (tokens
+    in order, wall seconds)."""
+    def call(p, n):
+        return lambda: fleet.submit(np.asarray(p, np.int32)[None], n, 0.0,
+                                    timeout=900)[0]
+
+    out, wall = in_order([call(p, n) for p, n in items],
+                         [pkey(p) for p, _ in items], placed)
+    assert [len(t) for t in out] == [n for _, n in items], "short tokens"
+    return out, wall
+
+
+def fleet_groups(fleet, groups, placed):
+    """Every group's leader, then the followers, each placed after the
+    one before: (tokens by group, wall seconds)."""
+    followers = [r for g in groups for r in g[1:]]
+    out, wall = fleet_run(fleet, [g[0] for g in groups] + followers, placed)
+    k = FLEET_GROUP_SIZE - 1
+    return [[out[g]] + out[len(groups) + g * k:len(groups) + (g + 1) * k]
+            for g in range(len(groups))], wall
+
+
+def hold_affinity(groups, placed):
+    """Each group's followers went where its leader went, by affinity."""
+    homes = []
+    for g in groups:
+        (home, _), = placed[pkey(g[0][0])]
+        for p, _ in g[1:]:
+            assert placed[pkey(p)] == [(home, "affinity")], (
+                home, placed[pkey(p)])
+        homes.append(home)
+    return homes
+
+
+def idle_fleet(fleet):
+    """wait_idle on every in-process replica; a worker process's replica
+    until its snapshot holds no queued or active row."""
+    for eng in fleet.engines:
+        if hasattr(eng, "_pending"):
+            wait_idle(eng)
+        else:
+            wait_for(lambda e=eng: not any(
+                e.snapshot(max_age_s=0)[k]
+                for k in ("queue_depth", "active_rows")), "an idle worker")
+
+
+def engine_deltas(snaps0, snaps1, keys):
+    return {k: [s1[k] - s0[k] for s0, s1 in zip(snaps0, snaps1)]
+            for k in keys}
+
+
+def fleet_gap(torch, model, quant, items, outs):
+    """The largest oracle gap over the requests (TOP2_TOL bounds it)."""
+    qparams = deq = None
+    if quant:
+        from container_engine_accelerators_tpu_torch.models import (
+            quant_generate as QG,
+        )
+        qparams = QG.quantize_decode_params(model)
+        deq = QG.dequantize_decode_params(qparams, model)
+    gap = max(oracle_gap(torch, model, np.asarray(p), t, quant, qparams, deq)
+              for (p, _), t in zip(items, outs))
+    assert gap <= TOP2_TOL, f"a fleet token off the oracle's argmax by {gap}"
+    return gap
+
+
+def fleet_serve(torch, fleet, engine_tps, gen):
+    """The fleet traffic through `fleet`: requests() alone, then the
+    groups.  Checks the groups' affinity and prefix hits and that every
+    replica served.  Returns (record, requests() tokens, the groups'
+    tokens, the traffic)."""
+    reqs, groups = fleet_traffic(gen, torch)
+    placed = record_placements(fleet)
+    s0 = [e.snapshot() for e in fleet.engines]
+    f0 = fleet.snapshot()
+    outs, wall = fleet_run(fleet, reqs, placed)
+    g_outs, g_wall = fleet_groups(fleet, groups, placed)
+    idle_fleet(fleet)
+    s1 = [e.snapshot() for e in fleet.engines]
+    f1 = fleet.snapshot()
+    homes = hold_affinity(groups, placed)
+    per = [0] * FLEET_REPLICAS
+    for decisions in placed.values():
+        for rid, _ in decisions:
+            per[rid] += 1
+    assert all(per), f"a replica served nothing: {per}"
+    d = engine_deltas(s0, s1, ("prefix_hits", "prefix_hit_tokens",
+                               "admitted"))
+    followers = FLEET_GROUPS * (FLEET_GROUP_SIZE - 1)
+    assert sum(d["prefix_hits"]) >= followers, d
+    assert sum(d["prefix_hit_tokens"]) >= followers * FLEET_PREFIX, d
+    n_tok = sum(len(t) for t in outs)
+    g_tok = sum(len(t) for g in g_outs for t in g)
+    rec = {
+        "requests": len(reqs), "tokens": n_tok, "wall_s": wall,
+        "tokens_per_s": n_tok / wall, "engine_tokens_per_s": engine_tps,
+        "vs_engine": n_tok / wall / engine_tps,
+        "group_requests": FLEET_GROUPS * FLEET_GROUP_SIZE,
+        "group_tokens": g_tok,
+        "group_wall_s": g_wall, "group_tokens_per_s": g_tok / g_wall,
+        "placements_per_replica": per, "group_homes": homes,
+        "prefix_hits_per_replica": d["prefix_hits"],
+        "prefix_hit_tokens_per_replica": d["prefix_hit_tokens"],
+        "admitted_per_replica": d["admitted"],
+        "router": {k: f1["router"][k] - f0["router"].get(k, 0)
+                   for k in ("placements", "affinity_hits", "hash_places",
+                             "load_spills")},
+        "reroutes": f1["fleet"]["rerouted"] - f0["fleet"]["rerouted"],
+        "spills": f1["fleet"]["spills"] - f0["fleet"]["spills"],
+    }
+    return rec, outs, g_outs, (reqs, groups)
+
+
+def wave_prompts(fleet, gen):
+    """FLEET_WAVES pairs of 96-token prompts, the hash ring placing the
+    first of each pair on replica 0 and the second on replica 1."""
+    from container_engine_accelerators_tpu_torch.serving import router
+
+    pairs, want = [], {0: [], 1: []}
+    while min(len(v) for v in want.values()) < FLEET_WAVES:
+        p = torch_randint(gen, (96,))
+        rid = fleet.router.ring.lookup(router._token_key(p.astype(np.int32)))
+        if len(want[rid]) < FLEET_WAVES:
+            want[rid].append(p)
+    for a, b in zip(want[0], want[1]):
+        pairs.append([(a, FLEET_FAULT_NEW), (b, FLEET_FAULT_NEW)])
+    return pairs
+
+
+def wait_for(cond, what, timeout=300):
+    t0 = time.monotonic()
+    while not cond():
+        assert time.monotonic() - t0 < timeout, f"timed out: {what}"
+        time.sleep(0.005)
+    return time.monotonic() - t0
+
+
+def fleet_engine_death(fleet, gen):
+    """install_fleet_faults, then engine_death:1 persistent from replica
+    1's FLEET_FAULT_AFTER-th decode call over FLEET_WAVES waves (each
+    wave once replica 1 is back up): replica 1 is evicted, every request
+    completes, replica 0 fails nothing."""
+    from container_engine_accelerators_tpu_torch.serving import faults as F
+
+    pairs = wave_prompts(fleet, gen)
+    inj = F.FaultInjector(seed=SEED)
+    F.install_fleet_faults(fleet, inj)
+    stamps = []
+
+    def fault(seam, i):
+        stamps.append(time.monotonic())
+        return F.InjectedFault(seam, i)
+
+    s0 = fleet.snapshot()
+    inj.plan("engine_death:1", fail_after=FLEET_FAULT_AFTER, fail_n=10 ** 9,
+             error=fault)
+    waves = 0
+    t_dead = None
+    for pair in pairs:
+        if fleet.replica_states()[1] == "dead":
+            break
+        wait_for(lambda: not fleet.engines[1].crashed,
+                 "replica 1 back up for the next wave")
+        fleet_run(fleet, pair)
+        waves += 1
+    wait_for(lambda: fleet.replica_states()[1] == "dead", "the eviction")
+    t_dead = time.monotonic()
+    s1 = fleet.snapshot()
+    e0 = s1["engines"][0]
+    for k in ("restarts", "admit_failures", "step_failures", "rows_failed"):
+        assert e0[k] == s0["engines"][0][k], (k, e0)
+    assert s1["replica_states"] == ["up", "dead"], s1["replica_states"]
+    assert s1["fleet"]["replica_deaths"] - s0["fleet"]["replica_deaths"] == 1
+    rerouted = s1["fleet"]["rerouted"] - s0["fleet"]["rerouted"]
+    assert rerouted >= waves, (rerouted, waves)
+    return {
+        "waves": waves, "requests": 2 * waves, "requests_completed":
+            2 * waves, "injected_faults": len(stamps),
+        "replica1_restarts": s1["engines"][1]["restarts"],
+        "first_fault_to_eviction_s": t_dead - stamps[0],
+        "reroutes": rerouted, "replica_states": s1["replica_states"],
+        "replica0_failures": 0,
+        "fault_seams": inj.stats(),
+    }
+
+
+def fleet_window(torch, fleet, gen, counts):
+    """The profile over a window of 16 x (64 + 32) through the fleet, from
+    idle replicas to idle replicas: the port's device events must equal
+    the wrappers' calls over both replicas' threads."""
+    prompts = torch_randint(gen, (N_SLOTS, 64))
+    ends = []
+
+    def window():
+        idle_fleet(fleet)
+        ends.append(counts())
+        fleet_run(fleet, [(p, 32) for p in prompts])
+        idle_fleet(fleet)
+        ends.append(counts())
+
+    idle_fleet(fleet)
+    rec = device_profile(torch, window)
+    c0, c1 = ends
+    rec["wrapper_calls"] = {k: c1[k] - c0[k] for k in c0}
+    rec["device_events"] = port_events(rec, "fleet")
+    assert rec["device_events"] == rec["wrapper_calls"], rec
+    return rec
+
+
+def run_fleet_inproc(torch, model, quant, engine_tps, gen):
+    """fleet_inproc_int8 (the server's default engine kwargs: int8 at 16
+    slots, one-token paged, prefix cache on) or fleet_inproc_bf16_fused
+    (--quant off --decode-steps 4, migrate on; then a prefill:1,decode:1
+    fleet); both then time fleet_controls.  Returns (record, the serving kernels' launches over the
+    traffic, requests() tokens)."""
+    from container_engine_accelerators_tpu_torch.ops import (
+        paged_attention as PA,
+    )
+    from container_engine_accelerators_tpu_torch.ops import quant_matmul as QM
+    from container_engine_accelerators_tpu_torch.serving.fleet import (
+        FleetManager,
+    )
+
+    tag = "int8" if quant else "bf16_fused"
+    t_phase = time.monotonic()
+    extra = [] if quant else ["--quant", "off", "--decode-steps",
+                              str(FUSED_STEPS)]
+    kw = fleet_engine_kw(extra)
+    assert kw["quant"] == quant, kw
+    t0 = time.monotonic()
+    fleet = FleetManager(model, FLEET_REPLICAS, N_SLOTS, engine_kw=kw,
+                         migrate=not quant)
+    rec = {"phase": f"fleet_inproc_{tag}", "engine_kw": {
+        k: v for k, v in kw.items() if k != "rng_seed"},
+        "replicas": FLEET_REPLICAS, "slots": N_SLOTS,
+        "boot_s": time.monotonic() - t0}
+    try:
+        for eng in fleet.engines:  # warm-up, each replica
+            eng.submit([1, 2, 3, 4, 5, 6, 7, 8], 2, timeout=600)
+        idle_fleet(fleet)
+        d0 = [e._dispatch_count for e in fleet.engines]
+        s0 = [e.snapshot() for e in fleet.engines]
+        serving_counts(PA, QM, reset=True)
+        served, outs, g_outs, (reqs, groups) = fleet_serve(
+            torch, fleet, engine_tps, gen)
+        launches = serving_counts(PA, QM)
+        s1 = [e.snapshot() for e in fleet.engines]
+        steps = sum(steps_run(a, b, e._dispatch_count - d)
+                    for a, b, e, d in zip(s0, s1, fleet.engines, d0))
+        hold_launches(rec["phase"], quant, launches, steps)
+        rec.update(served)
+        t0 = time.monotonic()  # the oracle launches the kernels too
+        rec["max_gap_to_oracle_argmax"] = fleet_gap(
+            torch, model, quant, reqs + [r for g in groups for r in g],
+            outs + [t for g in g_outs for t in g])
+        rec["top2_tolerance"] = TOP2_TOL
+        rec["oracle_s"] = time.monotonic() - t0
+        rec["decode_steps_run"] = steps
+        rec["launches"] = launches
+        if quant:
+            rec["replica_bytes"], rec["replica_bytes_parts"] = (
+                replica_bytes(torch, fleet.engines[0]))
+            rec["profile"] = fleet_window(torch, fleet, gen, lambda: {
+                "paged_attention": PA.paged_attention.launches,
+                "int8_weight_matmul": QM.int8_weight_matmul.launches})
+            rec["engine_death"] = fleet_engine_death(fleet, gen)
+        else:
+            caps = [e._fused.captures for e in fleet.engines]
+            assert all(caps), "a replica captured no graph"
+            rec["graph_captures"] = [
+                [{k: c[k] for k in ("key", "first_call_s", "capture_s")}
+                 for c in cap] for cap in caps]
+            rec["migrate"] = fleet_migrate(torch, fleet, groups, g_outs)
+    finally:
+        fleet.close()
+    rec["controls"] = fleet_controls(torch, model, kw, reqs, engine_tps)
+    if not quant:
+        rec["roles"] = fleet_roles(torch, model, kw, reqs, outs)
+    rec["seconds"] = time.monotonic() - t_phase
+    return rec, launches, outs + [t for g in g_outs for t in g]
+
+
+def fleet_controls(torch, model, kw, reqs, engine_tps):
+    """requests() again, paced as before, through fresh fleets of the
+    same engine kwargs, each replica warmed: one replica (the fleet
+    layer and the pacing without a second scheduler thread), and two
+    at a 0.5 ms interpreter switch interval (5 ms by default: a thread
+    that lets the lock go for a device sync may wait an interval to take
+    it back while the other thread runs Python).  tokens/s and
+    vs_engine of each."""
+    import sys
+
+    from container_engine_accelerators_tpu_torch.serving.fleet import (
+        FleetManager,
+    )
+
+    out = {}
+    interval = sys.getswitchinterval()
+    for name, n, switch in (("one_replica", 1, interval),
+                            ("two_replicas_switch_0.5ms", 2, 5e-4)):
+        fleet = FleetManager(model, n, N_SLOTS, engine_kw=kw)
+        try:
+            for eng in fleet.engines:
+                eng.submit([1, 2, 3, 4, 5, 6, 7, 8], 2, timeout=600)
+            idle_fleet(fleet)
+            sys.setswitchinterval(switch)
+            got, wall = fleet_run(fleet, reqs, record_placements(fleet))
+        finally:
+            sys.setswitchinterval(interval)
+            fleet.close()
+        n_tok = sum(len(t) for t in got)
+        out[name] = {"replicas": n, "switch_interval_s": switch,
+                     "tokens_per_s": n_tok / wall,
+                     "vs_engine": n_tok / wall / engine_tps}
+    return out
+
+
+def fleet_migrate(torch, fleet, groups, g_outs):
+    """A group's prefix moved off its owner: the owner serves prompt P
+    (the group's prefix + a MIGRATE_TAIL tail) itself, as a prefix hit;
+    then P goes through the fleet with affinity steering off and lands on
+    the other replica (a tail the ring puts there), which fetches the
+    prefix's pages from the owner (export, adopt) and must serve P's
+    tokens bitwise equal to the owner's."""
+    from container_engine_accelerators_tpu_torch.serving import router
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    prefix = np.asarray(groups[0][0][0][:FLEET_PREFIX])
+    owner, depth = fleet.router.owner_of(prefix)
+    assert owner is not None and depth == FLEET_PREFIX // PAGE, (owner, depth)
+    while True:
+        p = np.concatenate([prefix, torch_randint(gen, (MIGRATE_TAIL,))])
+        if fleet.router.ring.lookup(
+                router._token_key(p.astype(np.int32))) != owner:
+            break
+    idle_fleet(fleet)
+    want = fleet.engines[owner].submit(p, FLEET_NEW, timeout=900)[0]
+    s0 = fleet.snapshot()
+    h0 = fleet._migrate_hist.state()
+    fleet.router.affinity_enabled = False
+    try:
+        got = fleet.submit(p.astype(np.int32)[None], FLEET_NEW, 0.0,
+                           timeout=900)[0]
+    finally:
+        fleet.router.affinity_enabled = True
+    s1 = fleet.snapshot()
+    moved = s1["fleet"]["kv_pages_migrated"] - s0["fleet"]["kv_pages_migrated"]
+    assert s1["fleet"]["kv_migrations"] - s0["fleet"]["kv_migrations"] == 1
+    assert moved == FLEET_PREFIX // PAGE, moved
+    target = 1 - owner
+    hit = (s1["engines"][target]["prefix_hit_tokens"]
+           - s0["engines"][target]["prefix_hit_tokens"])
+    assert hit >= FLEET_PREFIX, hit
+    assert got == want, first_divergence(got, want)
+    h1 = fleet._migrate_hist.state()
+    return {"owner": owner, "target": target, "pages": moved,
+            "bytes": (s1["fleet"]["kv_migrate_bytes"]
+                      - s0["fleet"]["kv_migrate_bytes"]),
+            "migrate_ms": (h1[1] - h0[1]) * 1e3,
+            "migrate_ms_per_page": (h1[1] - h0[1]) / moved * 1e3,
+            "target_prefix_hit_tokens": hit, "tokens_equal_owner": True}
+
+
+def fleet_roles(torch, model, kw, reqs, outs):
+    """requests() through a prefill:1,decode:1 fleet of the same engines:
+    at least one prefill handoff (the prefill replica runs a long
+    prompt's prefill and its pages move to the decode replica), tokens
+    within the oracle rule."""
+    from container_engine_accelerators_tpu_torch.serving.fleet import (
+        FleetManager,
+    )
+
+    t0 = time.monotonic()
+    fleet = FleetManager(model, FLEET_REPLICAS, N_SLOTS, engine_kw=kw,
+                         roles=["prefill", "decode"])
+    try:
+        boot = time.monotonic() - t0
+        got, wall = fleet_run(fleet, reqs)
+        snap = fleet.snapshot()
+    finally:
+        fleet.close()
+    f = snap["fleet"]
+    assert f["prefill_handoffs"] >= 1 and f["kv_migrations"] >= 1, f
+    assert f["prefill_handoff_failures"] == 0, f
+    gap = fleet_gap(torch, model, False, reqs, got)
+    return {"roles": ["prefill", "decode"], "boot_s": boot,
+            "prefill_handoffs": f["prefill_handoffs"],
+            "kv_migrations": f["kv_migrations"],
+            "kv_pages_migrated": f["kv_pages_migrated"],
+            "tokens_per_s": sum(len(t) for t in got) / wall,
+            "tokens_equal_migrate_fleet": [a == b for a, b in zip(got, outs)],
+            "max_gap_to_oracle_argmax": gap}
+
+
+def compute_app_pids():
+    """The pids nvidia-smi lists as compute applications on the card, with
+    their memory."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    return {int(line.split(",")[0]): line.split(",")[1].strip()
+            for line in out.splitlines() if line.strip()}
+
+
+def replica_bytes(torch, eng):
+    """The bytes one in-process replica holds on the card, each storage
+    once: its model's weights and buffers, the engine's int8 tree and
+    dequantized prefill model where quantized, and its KV pool."""
+    from torch.utils._pytree import tree_leaves
+
+    held = {}
+
+    def add(tensors, part):
+        n = 0
+        for t in tensors:
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                st = t.untyped_storage()
+                if st.data_ptr() not in held:
+                    held[st.data_ptr()] = st.nbytes()
+                    n += st.nbytes()
+        parts[part] = n
+
+    parts = {}
+    for part, obj in (("model", eng._model),
+                      ("dequantized", getattr(eng, "_deq", None))):
+        if obj is not None:
+            add([*obj.parameters(), *obj.buffers()], part)
+    add(tree_leaves(getattr(eng, "_qparams", None)), "int8_tree")
+    add(tree_leaves(eng._cache), "kv_pool")
+    assert parts["kv_pool"] > 0 and parts["model"] > 0, parts
+    return sum(held.values()), parts
+
+
+def hold_workers_on_card(fleet, need):
+    """Each worker's engine lives on the card and its process holds there
+    at least what one in-process replica of the same kwargs holds
+    (`need`: weights, int8 tree, KV pool), as each worker's handshake
+    reports (RemoteEngine.device_report).  nvidia-smi must list each
+    worker's pid where it maps this PID namespace (where it does not, it
+    lists none of this process's own pids, this script's included)."""
+    pids = fleet.worker_pids()
+    reports = [e.device_report for e in fleet.engines]
+    for r in reports:
+        assert (r.get("device", "").startswith("cuda")
+                and r["device_bytes"] >= need), (reports, need)
+    apps = compute_app_pids()
+    rec = {"worker_pids": pids, "worker_device_reports": reports,
+           "replica_bytes": need, "compute_apps": apps}
+    if os.getpid() in apps:
+        assert all(p in apps for p in pids), (pids, apps)
+        rec["worker_memory"] = [apps[p] for p in pids]
+    else:
+        rec["pids_unmapped"] = True
+    return rec
+
+
+def run_fleet_procs(torch, engine_tps, want_outs, gen, need):
+    """fleet_procs_int8: a ProcessFleetManager over the port's
+    demo_lm_factory (the server's model from seed 0 at CFG's width), 2
+    worker processes on the card over Unix sockets, the int8 phase's
+    engine kwargs.  Its tokens must equal fleet_inproc_int8's, each
+    worker must hold the card (hold_workers_on_card, `need` the bytes
+    an in-process int8 replica holds), worker 1 is SIGKILLed while its
+    wave decodes: respawned within the supervisor's budget, its
+    request re-routed, none failed; the relabelled /metrics carries
+    engine="0" and "1"."""
+    import signal
+
+    from container_engine_accelerators_tpu_torch import server as SV
+    from container_engine_accelerators_tpu_torch.serving.fleet import (
+        ProcessFleetManager,
+    )
+
+    t_phase = time.monotonic()
+    kw = fleet_engine_kw()
+    t0 = time.monotonic()
+    fleet = ProcessFleetManager(
+        SV.WORKER_FACTORY, dict(CFG, device="cuda"), FLEET_REPLICAS,
+        N_SLOTS, engine_kw=kw)
+    spawn_s = time.monotonic() - t0
+    rec = {"phase": "fleet_procs_int8", "transport": "unix",
+           "spawn_s": spawn_s}
+    try:
+        for eng in fleet.engines:
+            eng.submit([1, 2, 3, 4, 5, 6, 7, 8], 2, timeout=600)
+        rec.update(hold_workers_on_card(fleet, need))
+        served, outs, g_outs, _ = fleet_serve(torch, fleet, engine_tps, gen)
+        flat = outs + [t for g in g_outs for t in g]
+        assert flat == want_outs, [first_divergence(a, b) for a, b in
+                                   zip(flat, want_outs)]
+        rec.update(served)
+        rec["tokens_equal_inproc"] = True
+        text = fleet.registry.render()
+        assert 'engine="0"' in text and 'engine="1"' in text
+        rec["metrics_engine_labels"] = ["0", "1"]
+        # SIGKILL worker 1 while its wave's request decodes.
+        pairs = wave_prompts(fleet, gen)
+        s0 = fleet.snapshot()
+        box = {}
+        runner = threading.Thread(
+            target=lambda: box.update(out=fleet_run(fleet, pairs[0])))
+        runner.start()
+        wait_for(lambda: fleet.engines[1].snapshot()["active_rows"] > 0,
+                 "worker 1 decoding")
+        victim = fleet.engines[1].pid
+        os.kill(victim, signal.SIGKILL)
+        t_kill = time.monotonic()
+        runner.join(timeout=900)
+        assert "out" in box, "a request failed across the kill"
+        wait_for(lambda: (fleet.engines[1].pid not in (None, victim)
+                          and not fleet.engines[1].crashed
+                          and fleet.replica_states()[1] == "up"),
+                 "worker 1 respawned", timeout=600)
+        respawn_s = time.monotonic() - t_kill
+        fleet_run(fleet, pairs[1])  # both replicas serve again
+        s1 = fleet.snapshot()
+        assert s1["replica_states"] == ["up", "up"], s1["replica_states"]
+        assert s1["engines"][1]["proc_restarts"] == 1, s1["engines"][1]
+        rerouted = s1["fleet"]["rerouted"] - s0["fleet"]["rerouted"]
+        assert rerouted >= 1, rerouted
+        rec["kill"] = {"victim_pid": victim,
+                       "respawned_pid": fleet.engines[1].pid,
+                       "respawn_s": respawn_s, "reroutes": rerouted,
+                       "requests_completed": 4, "failed": 0}
+    finally:
+        fleet.close()
+    rec["seconds"] = time.monotonic() - t_phase
+    return rec
+
+
+def run_server_fleet(torch, engine_tps, want_outs, gen):
+    """server_fleet: the server booted from --fleet 2, then from
+    --fleet-procs 2 (server_flags(), int8 at 16 slots): requests()
+    POSTed at once give fleet_inproc_int8's tokens, /metrics carries
+    engine="0" and "1", /tracez holds every response's trace with its
+    router and replica spans, and the drain (the SIGTERM path) finishes
+    two in-flight requests; the process fleet's workers exit 0."""
+    t_phase = time.monotonic()
+    reqs = requests(gen, torch)
+    bodies = [{"prompt": [p.tolist()], "max_new": n} for p, n in reqs]
+    rec = {"phase": "server_fleet"}
+    for mode, flag in (("inproc", "--fleet"), ("procs", "--fleet-procs")):
+        flags = server_flags() + [flag, str(FLEET_REPLICAS)]
+        app, httpd, thread, port, boot_s = boot_server(flags)
+        try:
+            assert app.fleet is not None and app.engine is None
+            placed = record_placements(app.fleet)
+            outs, wall = in_order(
+                [lambda b=b: http(port, "/generate", b) for b in bodies],
+                [pkey(p) for p, _ in reqs], placed)
+            for code, body, _, _ in outs:
+                assert code == 200, (mode, code, body[:300])
+            got = [json.loads(b)["tokens"][0] for _, b, _, _ in outs]
+            assert got == want_outs, [first_divergence(a, b)
+                                      for a, b in zip(got, want_outs)]
+            m = scrape(port)
+            labels = {lab for fam in m.values() for lab in fam}
+            for i in range(FLEET_REPLICAS):
+                assert any(f'engine="{i}"' in lab for lab in labels), i
+            code, body, _, _ = http(port, "/tracez")
+            tz = json.loads(body)
+            ids = {r["trace_id"] for r in tz["recent"]}
+            want_ids = [json.loads(b)["trace_id"] for _, b, _, _ in outs]
+            assert code == 200 and set(want_ids) <= ids, (want_ids, ids)
+            stages = sorted(k for k in tz["stages"] if k != "requests")
+            assert "placement" in stages and "decode" in stages, stages
+            pids = (app.fleet.worker_pids() if mode == "procs" else None)
+            n_tok = sum(len(t) for t in got)
+            sub = {"server_flags": flags, "boot_s": boot_s,
+                   "tokens": n_tok, "wall_s": wall,
+                   "tokens_per_s": n_tok / wall,
+                   "vs_engine": n_tok / wall / engine_tps,
+                   "request_latency_s": quantiles([s for *_, s in outs]),
+                   "tokens_equal_fleet_inproc_int8": True,
+                   "metrics_engine_labels": [str(i) for i in
+                                             range(FLEET_REPLICAS)],
+                   "tracez_stages": stages, "worker_pids": pids}
+            sub.update(drain_check(app, httpd, thread, port, gen))
+            if mode == "procs":
+                codes = [r.engine._proc.returncode
+                         for r in app.fleet.replicas]
+                assert codes == [0] * FLEET_REPLICAS, codes
+                sub["worker_exit_codes"] = codes
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            app.close()
+        rec[mode] = sub
+    rec["seconds"] = time.monotonic() - t_phase
+    return rec
 
 
 def forward_ms_median(torch, fn, n=3):
@@ -3920,13 +4675,18 @@ def main() -> int:
                                torch.Generator().manual_seed(SEED + 4))
         engine_launches[(quant, "_tiers")] = rec["returning_rows_launches"]
         emit({**rec, "card": smi})
-    foreign = None
+    migrated = {}
     for quant in (False, True):
-        rec, blob = run_engine_migrate(
+        migrated[quant] = run_engine_migrate(
             torch, model, quant, torch.Generator().manual_seed(SEED + 1),
-            foreign)
-        foreign = foreign or blob
-        emit({**rec, "card": smi})
+            migrated[False][1] if quant else None)
+    # Each layout refuses the other's blob: bf16 on a fresh engine, as
+    # its phase ran before the int8 blob existed.
+    rec, _, shared = migrated[False]
+    rec["foreign_blob_refused"] = refuse_foreign_fresh(
+        model, False, shared, migrated[True][1])
+    for quant in (False, True):
+        emit({**migrated[quant][0], "card": smi})
     emit({**run_engine_observe(torch, model,
                                torch.Generator().manual_seed(SEED + 1)),
           "card": smi})
@@ -3938,6 +4698,22 @@ def main() -> int:
             torch.Generator().manual_seed(SEED + 1), wave=wave)
         emit({**rec, "card": smi})
     emit({**run_server_predict(torch, torch.Generator().manual_seed(SEED + 5)),
+          "card": smi})
+    fleet_launches, fleet_outs, fleet_recs = {}, {}, {}
+    for quant in (True, False):
+        rec, fleet_launches[quant], fleet_outs[quant] = run_fleet_inproc(
+            torch, model, quant, engine_tps[quant],
+            torch.Generator().manual_seed(SEED + 1))
+        fleet_recs[quant] = rec
+        emit({**rec, "card": smi})
+    # The process fleet and the server's fleets serve the int8 fleet's
+    # traffic and must give its tokens.
+    emit({**run_fleet_procs(torch, engine_tps[True], fleet_outs[True],
+                            torch.Generator().manual_seed(SEED + 1),
+                            fleet_recs[True]["replica_bytes"]),
+          "card": smi})
+    emit({**run_server_fleet(torch, engine_tps[True], fleet_outs[True][:8],
+                             torch.Generator().manual_seed(SEED + 1)),
           "card": smi})
     del model
     torch.cuda.empty_cache()
@@ -4033,6 +4809,7 @@ def main() -> int:
             k["launches_spec"] = engine_launches[(quant, "_spec")][op]
             k["launches_tiers"] = engine_launches[(quant, "_tiers")][op]
             k["launches_server"] = server_launches[quant][op]
+            k["launches_fleet"] = fleet_launches[quant][op]
             if op == "int8_weight_matmul":  # the bf16 engine's drafter
                 k["launches_spec_bf16"] = engine_launches[(False, "_spec")][
                     op]

@@ -19,6 +19,7 @@ card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -170,6 +171,36 @@ def sm_count(device_index: int) -> int:
     import torch
 
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+# Launch counts: each wrapper's `launches` attribute counts its kernel's
+# launches.  Engines on several threads (replicas of an in-process
+# fleet) launch concurrently, so a count is added under one lock, and a
+# thread inside `tally()` also counts its own launches there.
+_count_lock = threading.Lock()
+_tallies = threading.local()
+
+
+def add_launches(wrapper, n: int = 1) -> None:
+    """Add `n` to `wrapper.launches`, and to the calling thread's tally
+    when it keeps one."""
+    with _count_lock:
+        wrapper.launches += n
+    counts = getattr(_tallies, "counts", None)
+    if counts is not None:
+        counts[wrapper] = counts.get(wrapper, 0) + n
+
+
+@contextlib.contextmanager
+def tally():
+    """The launches the calling thread makes inside the block, by
+    wrapper (other threads' launches are not in it)."""
+    outer = getattr(_tallies, "counts", None)
+    _tallies.counts = {}
+    try:
+        yield _tallies.counts
+    finally:
+        _tallies.counts = outer
 
 
 def check(rc: int, what: str) -> None:

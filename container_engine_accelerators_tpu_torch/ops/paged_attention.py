@@ -158,7 +158,7 @@ def _launch(q, k_pool, v_pool, block_tables, kv_mask, k_scale, v_scale):
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "paged_attention")
-    paged_attention.launches += 1
+    _build.add_launches(paged_attention)
     return out
 
 

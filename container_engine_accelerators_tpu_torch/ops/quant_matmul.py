@@ -137,7 +137,7 @@ def _launch(x, w_i8, scale):
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "int8_weight_matmul")
-    int8_weight_matmul.launches += 1
+    _build.add_launches(int8_weight_matmul)
     return out
 
 

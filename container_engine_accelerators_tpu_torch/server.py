@@ -1,5 +1,5 @@
-"""HTTP inference server over one engine on one card: the port of
-demo/serving/server.py's single-engine surface.
+"""HTTP inference server over one engine or a fleet of engine replicas:
+the port of demo/serving/server.py.
 
     python -m container_engine_accelerators_tpu_torch.server [flags]
 
@@ -10,8 +10,10 @@ Routes (the reference's contract):
                   HTTP outcomes, the drain state), in every state;
                   OpenMetrics to a scraper that asks for it
   GET  /tracez    the engine's recent traces and per-stage latency
-                  attribution (continuous engine only)
-  GET  /statz     DEPRECATED: the same counters as JSON
+                  attribution (continuous engine only; a fleet serves
+                  the router's assembled traces)
+  GET  /statz     DEPRECATED: the same counters as JSON (a fleet: its
+                  snapshot, every replica's engine snapshot included)
   POST /predict   raw float32 NHWC images -> {"labels": [...]}
   POST /generate  {"prompt": [[int, ...]], "max_new": N, "temperature":
                   T, "top_k": K, "top_p": P, "stop_token": S} ->
@@ -48,14 +50,24 @@ reads none); defaults and derived rules are the reference's:
   SERVE_LM_OBSERVE=0, --checkpoint SERVE_LM_CHECKPOINT, and --device
   (default cuda; without a card and without --device cpu the server
   exits 2).
-Accepted but not ported yet, each exits 2 naming its ROADMAP item: the
-fleet flags --fleet N (N >= 2), --fleet-affinity, --fleet-roles,
---fleet-migrate, --fleet-procs, --fleet-spawn-timeout-s, --fleet-tcp,
---fleet-hb-s, --fleet-hb-timeout-s and --fleet-reconnect-s
-(SERVE_LM_FLEET*: A6); --mesh dp (SERVE_LM_MESH: A10); --health-source
-(SERVE_HEALTH_SOURCE: A12).  SERVE_HEALTH_CRITICAL's default is
-`HEALTH_CRITICAL`, the codes `attach_health_source` drains on; its flag
-comes with --health-source (A12).
+The fleet (continuous engine only): --fleet N SERVE_LM_FLEET (N >= 2
+  in-process replicas of --slots slots each, all on --device, sharing
+  the model), --fleet-procs N SERVE_LM_FLEET_PROCS (N >= 2 engine-worker
+  processes, each rebuilding the model from the same flags; exclusive
+  with --fleet), --fleet-affinity 0|1 SERVE_LM_FLEET_AFFINITY,
+  --fleet-roles SERVE_LM_FLEET_ROLES ("prefill:1,decode:1"),
+  --fleet-migrate 0|1 SERVE_LM_FLEET_MIGRATE, --fleet-spawn-timeout-s
+  SERVE_LM_FLEET_SPAWN_TIMEOUT_S, --fleet-tcp 0|1 SERVE_LM_FLEET_TCP,
+  --fleet-hb-s / --fleet-hb-timeout-s / --fleet-reconnect-s
+  SERVE_LM_FLEET_HB_S / _HB_TIMEOUT_S / _RECONNECT_S.  Both fleet modes
+  build their engines from the same kwargs as the single engine
+  (`engine_kw`), warm every replica before readiness, and drain on the
+  last replica's eviction; SIGTERM closes a process fleet's workers.
+Accepted but not ported yet, each exits 2 naming its ROADMAP item:
+--mesh dp (SERVE_LM_MESH: A10); --health-source (SERVE_HEALTH_SOURCE:
+A12).  SERVE_HEALTH_CRITICAL's default is `HEALTH_CRITICAL`, the codes
+`attach_health_source` drains on; its flag comes with --health-source
+(A12).
 
 Differences of idiom from the reference: its module globals live in one
 `ServingApp`, so several servers can share a process (`main` alone
@@ -96,9 +108,9 @@ DRAIN_REASONS = ("device-health", "shutdown", "engine-failed")
 # The chip event codes that begin the "device-health" drain (the
 # reference's SERVE_HEALTH_CRITICAL default).
 HEALTH_CRITICAL = frozenset({1, 2, 3, 4, 5, 1000})
-_FLEET_FLAGS = ("fleet_affinity", "fleet_roles", "fleet_migrate",
-                "fleet_procs", "fleet_spawn_timeout_s", "fleet_tcp",
-                "fleet_hb_s", "fleet_hb_timeout_s", "fleet_reconnect_s")
+# The factory a process fleet's workers build their model with.
+WORKER_FACTORY = ("container_engine_accelerators_tpu_torch.serving.worker"
+                  ":demo_lm_factory")
 
 
 @dataclasses.dataclass
@@ -150,17 +162,17 @@ class ServeConfig:
     observe: bool = True
     checkpoint: str = ""
     device: str = "cuda"
-    # Not ported yet (main exits 2): A6, A10, A12.
     fleet: int = 0
-    fleet_affinity: Optional[str] = None
-    fleet_roles: Optional[str] = None
-    fleet_migrate: Optional[str] = None
-    fleet_procs: Optional[int] = None
-    fleet_spawn_timeout_s: Optional[float] = None
-    fleet_tcp: Optional[str] = None
-    fleet_hb_s: Optional[float] = None
-    fleet_hb_timeout_s: Optional[float] = None
-    fleet_reconnect_s: Optional[float] = None
+    fleet_affinity: bool = True
+    fleet_roles: str = ""
+    fleet_migrate: bool = False
+    fleet_procs: int = 0
+    fleet_spawn_timeout_s: float = 600.0
+    fleet_tcp: bool = False
+    fleet_hb_s: float = 5.0
+    fleet_hb_timeout_s: float = 15.0
+    fleet_reconnect_s: float = 10.0
+    # Not ported yet (main exits 2): A10, A12.
     mesh: Optional[str] = None
     health_source: Optional[str] = None
     grid: int = dataclasses.field(init=False)
@@ -179,11 +191,6 @@ class ServeConfig:
     def unported(self) -> Optional[str]:
         """Why this configuration cannot run yet, naming the ROADMAP
         item, or None."""
-        if self.fleet >= 2 or any(
-            getattr(self, f) is not None for f in _FLEET_FLAGS
-        ):
-            return ("the fleet (--fleet N >= 2 and the other --fleet-* "
-                    "flags) is not ported yet (ROADMAP A6)")
         if self.mesh is not None:
             return ("a device mesh (--mesh) is not ported yet (ROADMAP "
                     "A10)")
@@ -246,17 +253,56 @@ def parse_args(argv=None) -> ServeConfig:
     p.add_argument("--no-observe", dest="observe", action="store_false")
     opt("--checkpoint", str, default=d.checkpoint)
     opt("--device", str, default=d.device)
-    opt("--fleet", int, default=0, help="ROADMAP A6")
-    for flag, kind in (("--fleet-affinity", str), ("--fleet-roles", str),
-                       ("--fleet-migrate", str), ("--fleet-procs", int),
-                       ("--fleet-spawn-timeout-s", float),
-                       ("--fleet-tcp", str), ("--fleet-hb-s", float),
-                       ("--fleet-hb-timeout-s", float),
-                       ("--fleet-reconnect-s", float)):
-        opt(flag, kind, default=None, help="ROADMAP A6")
+    opt("--fleet", int, default=d.fleet, help="in-process replicas")
+    opt("--fleet-procs", int, default=d.fleet_procs,
+        help="engine-worker processes")
+    for flag, default in (("--fleet-affinity", d.fleet_affinity),
+                          ("--fleet-migrate", d.fleet_migrate),
+                          ("--fleet-tcp", d.fleet_tcp)):
+        p.add_argument(flag, choices=("0", "1"), default=str(int(default)))
+    opt("--fleet-roles", str, default=d.fleet_roles)
+    opt("--fleet-spawn-timeout-s", float, default=d.fleet_spawn_timeout_s)
+    opt("--fleet-hb-s", float, default=d.fleet_hb_s)
+    opt("--fleet-hb-timeout-s", float, default=d.fleet_hb_timeout_s)
+    opt("--fleet-reconnect-s", float, default=d.fleet_reconnect_s)
     opt("--mesh", str, default=None, help="ROADMAP A10")
     opt("--health-source", str, default=None, help="ROADMAP A12")
-    return ServeConfig(**vars(p.parse_args(argv)))
+    args = vars(p.parse_args(argv))
+    for key in ("fleet_affinity", "fleet_migrate", "fleet_tcp"):
+        args[key] = args[key] == "1"
+    return ServeConfig(**args)
+
+
+def _parse_fleet_roles(spec: str, n: int):
+    """"prefill:1,decode:2" -> ["prefill", "decode", "decode"] (replica
+    index order, as written); None for an empty spec."""
+    if not spec:
+        return None
+    roles = []
+    for part in spec.split(","):
+        name, sep, count = part.strip().partition(":")
+        if not sep:
+            raise ValueError(
+                f"--fleet-roles entry {part!r} must be role:count"
+            )
+        roles.extend([name.strip()] * int(count))
+    if len(roles) != n:
+        raise ValueError(
+            f"--fleet-roles names {len(roles)} replicas, the fleet has {n}"
+        )
+    return roles
+
+
+def _check_fleet_migration_knobs(cfg: ServeConfig, roles) -> None:
+    """Roles and migration need the paged engine with the radix prefix
+    cache (page export serializes trie pages): a misconfigured fleet
+    fails at boot, never as per-request export failures."""
+    if (roles or cfg.fleet_migrate) and not (cfg.paged and cfg.prefix_cache):
+        raise ValueError(
+            "--fleet-roles / --fleet-migrate need the paged engine with "
+            "the prefix cache (page migration moves radix-trie pool "
+            "pages)"
+        )
 
 
 # -- the bucket ladder and the quant policy ----------------------------------
@@ -520,6 +566,7 @@ class ServingApp:
         self.model = None
         self.engine = None
         self.supervisor = None
+        self.fleet = None  # FleetManager or ProcessFleetManager
         self.batcher = None
         self.qparams = self.deq = None  # the wave path's int8 twin
         self._generate = None
@@ -611,10 +658,11 @@ class ServingApp:
         with self._state_lock:
             if self._inflight:
                 return False
-        if self.engine is not None:
-            snap = self.engine.snapshot()
-            if snap["active_rows"] or snap["queue_depth"]:
-                return False
+        snaps = ([self.engine.snapshot()] if self.engine is not None
+                 else self.fleet.snapshot()["engines"]
+                 if self.fleet is not None else [])
+        if any(s["active_rows"] or s["queue_depth"] for s in snaps):
+            return False
         return self.batcher is None or not self.batcher.busy()
 
     def drain_for_shutdown(self, httpd=None, timeout=None) -> bool:
@@ -629,6 +677,12 @@ class ServingApp:
         while not self.idle() and time.monotonic() < deadline:
             time.sleep(0.1)
         idle = self.idle()
+        if self.fleet is not None and hasattr(self.fleet, "worker_pids"):
+            # A process fleet's workers drain too (SIGTERM each, reap):
+            # no worker outlives its router.  Before httpd.shutdown(),
+            # which lets main return and the process exit.
+            print("serving: draining worker processes", file=sys.stderr)
+            self.fleet.close()
         if httpd is not None:
             httpd.shutdown()
         return idle
@@ -642,12 +696,18 @@ class ServingApp:
         return self._health_watch
 
     def dump_flight_recorder(self, reason: str) -> None:
-        """Dump the engine's flight recorder to stderr (a no-op note
-        without an observed continuous engine)."""
-        obs = getattr(self.engine, "observability", None)
-        if getattr(obs, "enabled", False):
-            obs.dump(f"{reason} [engine 0]")
-        else:
+        """Dump the engine's flight recorder to stderr, every replica's
+        in a fleet (a process fleet's recorders live in its workers; a
+        no-op note without an observed engine)."""
+        engines = ([r.engine for r in self.fleet.replicas]
+                   if self.fleet is not None else [self.engine])
+        dumped = False
+        for i, eng in enumerate(engines):
+            obs = getattr(eng, "observability", None)
+            if getattr(obs, "enabled", False):
+                obs.dump(f"{reason} [engine {i}]")
+                dumped = True
+        if not dumped:
             print(f"serving: no flight recorder to dump ({reason})",
                   file=sys.stderr)
 
@@ -660,20 +720,30 @@ class ServingApp:
     # -- the model paths ------------------------------------------------
     def load_model(self, model=None) -> None:
         """Build the configured path and mark the app ready after a
-        warm-up: the continuous engine, the wave batcher
-        (--model transformer_lm) or the classifier.  `model`: a prebuilt
-        model on the configured device (a decode=True TransformerLM, or
-        a vision model), in place of random weights from seed 0 or
-        --checkpoint."""
+        warm-up: the continuous engine, a fleet of them (--fleet or
+        --fleet-procs), the wave batcher (--model transformer_lm) or the
+        classifier.  `model`: a prebuilt model on the configured device
+        (a decode=True TransformerLM, or a vision model), in place of
+        random weights from seed 0 or --checkpoint; a process fleet's
+        workers build their own."""
         cfg = self.cfg
         dev = resolve_device(cfg.device)
-        if cfg.model != "transformer_lm":
+        lm_fleet = cfg.model == "transformer_lm" and cfg.engine == "continuous"
+        if lm_fleet and cfg.fleet_procs >= 2:
+            if model is not None:
+                raise ValueError("a process fleet's workers build their "
+                                 "own model; load_model(model=) needs "
+                                 "--fleet")
+            self._load_fleet_procs(dev)
+        elif cfg.model != "transformer_lm":
             self._load_classifier(dev, model)
         else:
             if model is None:
                 model = self._build_lm(dev)
             self.model = model
-            if cfg.engine == "continuous":
+            if lm_fleet and cfg.fleet >= 2:
+                self._load_fleet(model)
+            elif cfg.engine == "continuous":
                 self._load_continuous(model)
             else:
                 self._load_wave(model)
@@ -702,13 +772,13 @@ class ServingApp:
         warm_p = min(cfg.warm_prompt, cfg.max_seq - 1)
         return warm_p, max(1, min(cfg.warm_new, cfg.max_seq - warm_p))
 
-    def _load_continuous(self, model):
-        from .serving import ContinuousBatchingEngine, EngineSupervisor
-
+    def engine_kw(self) -> dict:
+        """The ONE set of engine kwargs the single engine and both fleet
+        modes build from (the fleets' replicas each get --slots slots),
+        so a knob cannot reach one mode and miss another."""
         cfg = self.cfg
-        quant = self.pick_quant(cfg.slots)
-        engine = ContinuousBatchingEngine(
-            model, cfg.slots, quant=quant, prompt_grid=cfg.grid,
+        return dict(
+            quant=self.pick_quant(cfg.slots), prompt_grid=cfg.grid,
             prefill_chunk=cfg.prefill_chunk, pipeline=cfg.pipeline,
             paged=cfg.paged, page_size=cfg.page_size,
             kv_pages=cfg.kv_pages or None, prefix_cache=cfg.prefix_cache,
@@ -721,8 +791,18 @@ class ServingApp:
             rng_seed=int.from_bytes(os.urandom(4), "big"),
             max_queue=cfg.max_queue, step_retries=cfg.step_retries,
             retry_backoff_s=cfg.retry_backoff_ms / 1e3,
-            observe=cfg.observe, registry=self.registry,
-            device=model.device,
+            observe=cfg.observe,
+        )
+
+    def _load_continuous(self, model):
+        from .serving import ContinuousBatchingEngine, EngineSupervisor
+
+        cfg = self.cfg
+        kw = self.engine_kw()
+        quant = kw["quant"]
+        engine = ContinuousBatchingEngine(
+            model, cfg.slots, registry=self.registry, device=model.device,
+            **kw,
         )
         self.engine = engine
         # Past the restart budget the engine is dead and the server
@@ -759,6 +839,89 @@ class ServingApp:
         # deadline.
         engine.submit(np.zeros((1, warm_p), np.int32), warm_n, 0.0,
                       timeout=None)
+        self._generate = gen
+
+    def _load_fleet(self, model):
+        """--fleet N: N in-process replicas on the model's device behind
+        the router; each keeps a private registry that the fleet
+        relabels engine="<i>" onto this app's /metrics."""
+        from .serving.fleet import FleetManager
+
+        cfg = self.cfg
+        roles = _parse_fleet_roles(cfg.fleet_roles, cfg.fleet)
+        _check_fleet_migration_knobs(cfg, roles)
+        self.fleet = FleetManager(
+            model, cfg.fleet, cfg.slots, engine_kw=self.engine_kw(),
+            affinity=cfg.fleet_affinity, roles=roles,
+            migrate=cfg.fleet_migrate, max_restarts=cfg.max_restarts,
+            # The last replica evicted: nothing is left to serve.  One
+            # replica dying never drains the fleet.
+            on_all_dead=lambda err: self.begin_drain("engine-failed"),
+            registry=self.registry,
+        )
+        print(f"serving: fleet of {cfg.fleet} x {cfg.slots}-slot engines "
+              f"on {model.device}, affinity "
+              f"{'on' if cfg.fleet_affinity else 'off'}"
+              + (f", roles {cfg.fleet_roles}" if roles else
+                 ", kv migration on" if cfg.fleet_migrate else "")
+              + f", max_queue {cfg.max_queue} per replica", file=sys.stderr)
+        self._serve_fleet()
+
+    def _load_fleet_procs(self, dev):
+        """--fleet-procs N: N engine-worker processes behind the router;
+        each builds the model from these flags (WORKER_FACTORY) on
+        --device, so this process holds no model."""
+        from .serving.fleet import ProcessFleetManager
+
+        cfg = self.cfg
+        if cfg.fleet >= 2:
+            raise ValueError("--fleet and --fleet-procs are mutually "
+                             "exclusive")
+        roles = _parse_fleet_roles(cfg.fleet_roles, cfg.fleet_procs)
+        _check_fleet_migration_knobs(cfg, roles)
+        self.fleet = ProcessFleetManager(
+            WORKER_FACTORY,
+            dict(vocab=cfg.vocab, dim=cfg.dim, depth=cfg.depth,
+                 heads=cfg.heads, max_seq=cfg.max_seq,
+                 checkpoint=cfg.checkpoint, device=str(dev)),
+            cfg.fleet_procs, cfg.slots, engine_kw=self.engine_kw(),
+            affinity=cfg.fleet_affinity, roles=roles,
+            migrate=cfg.fleet_migrate, max_restarts=cfg.max_restarts,
+            spawn_timeout_s=cfg.fleet_spawn_timeout_s,
+            transport="tcp" if cfg.fleet_tcp else "unix",
+            heartbeat_s=cfg.fleet_hb_s,
+            heartbeat_timeout_s=cfg.fleet_hb_timeout_s,
+            reconnect_budget_s=cfg.fleet_reconnect_s,
+            on_all_dead=lambda err: self.begin_drain("engine-failed"),
+            registry=self.registry,
+        )
+        print(f"serving: process fleet of {cfg.fleet_procs} x "
+              f"{cfg.slots}-slot {'TCP' if cfg.fleet_tcp else 'UDS'} engine "
+              f"workers on {dev} (pids {self.fleet.worker_pids()}), "
+              f"affinity {'on' if cfg.fleet_affinity else 'off'}"
+              + (f", roles {cfg.fleet_roles}" if roles else
+                 ", kv migration on" if cfg.fleet_migrate else "")
+              + f", max_queue {cfg.max_queue} per worker", file=sys.stderr)
+        self._serve_fleet()
+
+    def _serve_fleet(self):
+        """Both fleet modes' tail: the generate seam over fleet.submit,
+        and every replica warmed before readiness (the router would warm
+        only the replica it picked)."""
+        cfg, fleet = self.cfg, self.fleet
+
+        def gen(prompt, max_new, temperature, top_k=None, top_p=None,
+                stop_token=None, trace_ctx=None):
+            return fleet.submit(
+                prompt, max_new, temperature, top_k=top_k, top_p=top_p,
+                stop_token=stop_token, timeout=cfg.request_timeout_s,
+                trace_ctx=trace_ctx,
+            )
+
+        warm_p, warm_n = self._warm_shape()
+        for eng in fleet.engines:
+            eng.submit(np.zeros((1, warm_p), np.int32), warm_n, 0.0,
+                       timeout=None)
         self._generate = gen
 
     def _load_wave(self, model):
@@ -875,11 +1038,14 @@ class ServingApp:
         self._predict = predict
 
     def close(self) -> None:
-        """Stop the health watch, the supervisor, the engine, the batcher
-        (requests still queued fail) and the classifier's thread."""
+        """Stop the health watch, the supervisor, the engine or the fleet
+        (a process fleet's workers exit), the batcher (requests still
+        queued fail) and the classifier's thread."""
         if self._health_watch is not None:
             self._health_watch.stop()
             self._health_watch = None
+        if self.fleet is not None:
+            self.fleet.close()
         if self.supervisor is not None:
             self.supervisor.stop()
         if self.engine is not None:
@@ -933,16 +1099,25 @@ class Handler(BaseHTTPRequestHandler):
                 "charset=utf-8" if om else
                 "text/plain; version=0.0.4; charset=utf-8"))
             app.count_http("metrics", 200)
-        elif self.path == "/tracez" and app.engine is not None:
-            ring = app.engine.observability.traces
-            payload = otel.tracez_payload(ring.traces())
-            payload["total"] = ring.total
+        elif self.path == "/tracez" and (app.engine is not None
+                                         or app.fleet is not None):
+            # A fleet serves the router's assembled view: spans from
+            # every replica under one trace id, partial traces for a
+            # worker lost mid-flight.
+            if app.fleet is not None:
+                payload = app.fleet.tracez()
+            else:
+                ring = app.engine.observability.traces
+                payload = otel.tracez_payload(ring.traces())
+                payload["total"] = ring.total
             self._send(200, json.dumps(payload).encode(), "application/json")
             app.count_http("tracez", 200)
         elif self.path == "/statz" and (app.engine is not None
+                                        or app.fleet is not None
                                         or app.batcher is not None):
             # DEPRECATED: the same counters live in /metrics.
-            stats = (app.engine.snapshot() if app.engine is not None
+            stats = (app.fleet.snapshot() if app.fleet is not None
+                     else app.engine.snapshot() if app.engine is not None
                      else dict(app.batcher.stats))
             stats["server_state"] = app.server_state()
             self._send(200, json.dumps(stats).encode(), "application/json",
@@ -1041,7 +1216,8 @@ class Handler(BaseHTTPRequestHandler):
             return
         # A server-minted trace id, returned so a client can quote it
         # against /tracez; the wave path records no spans.
-        ctx = otel.TraceContext.new() if app.engine is not None else None
+        ctx = (otel.TraceContext.new()
+               if app.engine is not None or app.fleet is not None else None)
         try:
             rows = app._generate(prompt, max_new, temperature, top_k=top_k,
                                  top_p=top_p, stop_token=stop_token,

@@ -37,10 +37,13 @@ What capture asks of the seam and of this holder:
   - no host sync inside the seam: positions stay per-row tensors;
   - threads: capture runs on the calling (scheduler) thread with
     capture_error_mode="thread_local", and every key shares one memory
-    pool;
+    pool.  Engines of one process (an in-process fleet's replicas) each
+    capture on their own thread, each into its own pool, while the
+    others capture or launch eagerly;
   - launch counters: the kernel wrappers count in Python, so they see
     the first call and the capture, not the replays; the capture's
-    counts are taken back, and each replay adds the calls it replays.
+    counts (the capturing thread's own, `_build.tally`) are taken back,
+    and each replay adds the calls it replays.
 
 There is no fallback: a failed capture or replay raises to the caller
 (the engine's retry, degrade or crash path) and never runs the eager
@@ -54,6 +57,7 @@ from typing import Callable, Dict, Hashable, Optional
 
 import torch
 
+from ..ops import _build
 from ..ops.paged_attention import paged_attention
 from ..ops.quant_matmul import int8_weight_matmul
 
@@ -80,9 +84,8 @@ class SeamGraphs:
     them.
 
     `captures` records each capture: {"key", "first_call_s",
-    "capture_s", "pool_bytes"} (first_call_s: the eager first call;
-    pool_bytes: the growth of the allocator's reserved memory over the
-    capture, the key's share of the shared pool)."""
+    "capture_s"} (first_call_s: the eager first call; capture_s: the
+    capture, from the eager call's end)."""
 
     def __init__(self, seam: Callable, generator: Optional[torch.Generator],
                  device: torch.device):
@@ -127,7 +130,7 @@ class SeamGraphs:
                 buf.copy_(inputs[name], non_blocking=True)
         g.graph.replay()
         for fn, n_calls in g.launches:
-            fn.launches += n_calls
+            _build.add_launches(fn, n_calls)
         return cache, g.out
 
     def _first_call(self, weights, cache, inputs, key):
@@ -153,27 +156,25 @@ class SeamGraphs:
         main.wait_stream(side)
         torch.cuda.synchronize(self.device)
         t1 = time.monotonic()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        before = [fn.launches for fn in COUNTED]
         graph = torch.cuda.CUDAGraph()
         if self._gen is not None:
             graph.register_generator_state(self._gen)
         try:
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  capture_error_mode="thread_local"):
+            with _build.tally() as captured, torch.cuda.graph(
+                    graph, pool=self._pool,
+                    capture_error_mode="thread_local"):
                 _, out = self._seam(weights, cache, static, self._gen, key)
         finally:
-            captured = [fn.launches - b for fn, b in zip(COUNTED, before)]
-            for fn, b in zip(COUNTED, before):
-                fn.launches = b  # the capture launched nothing
+            # The capture launched nothing (taken back outside the tally,
+            # which would count the correction too).
+            for fn, n in captured.items():
+                _build.add_launches(fn, -n)
         self._graphs[key] = _Graph(graph, static, out, [
-            (fn, c) for fn, c in zip(COUNTED, captured) if c
+            (fn, captured.get(fn, 0)) for fn in COUNTED if captured.get(fn)
         ])
         self.captures.append({
             "key": key,
             "first_call_s": t1 - t0,
             "capture_s": time.monotonic() - t1,
-            "pool_bytes": torch.cuda.memory_reserved(self.device) - reserved,
         })
         return first

@@ -836,10 +836,11 @@ def test_config_derives_the_reference_rules():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--fleet", "2"], "A6"),
-    (["--fleet-procs", "2"], "A6"),
-    (["--fleet-affinity", "0"], "A6"),
-    (["--fleet-roles", "prefill:1,decode:1"], "A6"),
+    (["--fleet", "2", "--mesh", "dp"], "A10"),
+    (["--fleet-procs", "2", "--health-source", "auto"], "A12"),
+    (["--fleet-affinity", "0", "--mesh", "dp"], "A10"),
+    (["--fleet-roles", "prefill:1,decode:1", "--health-source", "auto"],
+     "A12"),
     (["--mesh", "dp"], "A10"),
     (["--health-source", "auto"], "A12"),
 ])
