@@ -211,7 +211,30 @@ Phases, one JSON line each (stdout):
                 a second run resumes from its checkpoint and saves past
                 it; a saved and restored trainer's tensors are bitwise
                 the saved ones; resnet_main --model-dir writes
-                checkpoint_<n>.
+                checkpoint_<n>;
+  10. moe_train — the MoE LM (models/moe_lm.py) at lm_main's full width
+                (vocab 32000, dim 1024, depth 8, heads 8, seq 2048, batch
+                8, 8 experts, top-2 every 2nd block, capacity 1.25, 2
+                reroute rounds, aux weight 0.01, AdamW 3e-4) on a
+                one-rank NCCL group (the script needs one card): the
+                backend nccl and every parameter and the batch on the
+                card; one step of the flash path against the dense
+                attention path from the same weights, the dense path
+                replaying the flash path's routing (the loss within
+                2**-9, every gradient within 2**-5; the tokens whose own
+                routing would differ are counted), 8 + 8 flash
+                launches a step; 10 steps (aux, drop fraction, step
+                time, tokens/s, peak bytes, the model-FLOPs share:
+                bench.py's dense formula plus its moe_extra at 989
+                TFLOP/s) and a 2-step profile by kind;
+  11. mesh_modes — on the same one-rank NCCL group, at lm_main's widths
+                cut to depth 2: dp, sp (contiguous and zigzag ring), tp
+                and pp (one stage, n_virtual 2, 8 microbatches), each
+                one step from the seed's weights with its first loss
+                within 2**-9 of build_lm_training's without a mesh and
+                its flash and xent launches counted; a ResNet-50 dp step
+                at batch 32 against its no-mesh step (2**-9); lm_main
+                --mode ep on the one card exits 2 naming ">1 chip".
 Then the card's name and power limit (nvidia-smi), the kernels record,
 and last the contract line {"ok": true, "device": {...}}.  Each JSON line
 is also written to smoke_out/chip_smoke.jsonl beside this script.  Any failed
@@ -4586,6 +4609,289 @@ def run_checkpoint(torch):
             "bitwise_tensors": len(want), "resnet_main_dirs": rn}
 
 
+# The MoE LM at lm_main's width (lm_main.py:22-27) with
+# build_moe_lm_training's routing defaults (moe_lm.py:135-151) and 8
+# experts, as bench.py's ep arm gives on 8 chips (bench.py:175-205).
+MOE = dict(vocab=32000, dim=1024, depth=8, heads=8, seq_len=2048, batch=8,
+           n_experts=8, moe_every=2, capacity_factor=1.25, n_reroute=2,
+           aux_weight=0.01, learning_rate=3e-4)
+MOE_STEPS = 10
+MESH_DEPTH = 2  # lm_main's width, cut to 2 layers to save time
+RESNET_DP_BATCH = 32
+# Tokens of the 16384 a MoE layer whose routing the dense path's own
+# router would flip against the flash path's: sound runs read 421 / 791
+# / 972 / 933 (NVIDIA H100 80GB HBM3, 700.00 W); a bound at about twice
+# the worst holds a kernel that moved many tokens' routes.
+MOE_FLIPPED_MAX = 2048
+
+
+def _nccl_group(torch):
+    """A one-rank NCCL process group (parallel/launch.py): the mesh paths
+    on this one card.  NCCL or it raises."""
+    import torch.distributed as dist
+
+    from container_engine_accelerators_tpu_torch.parallel import launch
+
+    launch.one_rank_group("cuda")
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+    return dist.get_backend()
+
+
+def _grads_rel(torch, model_a, model_b):
+    rel = {}
+    for (name, pa), pb in zip(model_a.named_parameters(),
+                              model_b.parameters()):
+        ga, gb = pa.grad.float(), pb.grad.float()
+        if not finite(ga):
+            raise AssertionError(f"{name}: non-finite gradient")
+        rel[name] = ((ga - gb).norm() / gb.norm().clamp_min(1e-30)).item()
+    return rel
+
+
+def run_moe_train(torch, gen):
+    """The MoE LM at full width on a one-rank NCCL group (phase 10)."""
+    import torch.distributed as dist
+
+    from container_engine_accelerators_tpu_torch.models import moe_lm
+    from container_engine_accelerators_tpu_torch.ops import (
+        flash_attention as FA,
+        fused_xent as FX,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import mesh as M
+    from container_engine_accelerators_tpu_torch.parallel import moe as MOE_MOD
+
+    backend = _nccl_group(torch)
+    t_phase = time.monotonic()
+    try:
+        mesh = M.mesh_1d("ep")
+        cfg = dict(MOE)
+
+        def build(attn):
+            return moe_lm.build_moe_lm_training(
+                mesh, "ep", seed=SEED, attn_impl=attn, device="cuda", **cfg)
+
+        k_step, k_state, batch_fn = build("auto")
+        p_step, p_state, _ = build("dense")
+        p_state["model"].load_state_dict(k_state["model"].state_dict())
+        tokens, targets = batch_fn(torch.Generator().manual_seed(SEED))
+        model = k_state["model"]
+        on_card = all(p.is_cuda for p in model.parameters()) and (
+            tokens.is_cuda and targets.is_cuda)
+        if not on_card:
+            raise AssertionError("a parameter or the batch is off the card")
+        n_params = sum(p.numel() for p in model.parameters())
+        per_step = {"flash_attention_fwd": cfg["depth"],
+                    "flash_attention_bwd": cfg["depth"],
+                    "fused_xent_fwd": 0, "fused_xent_bwd": 0}
+        # The router is discrete: a rounding-level difference in what
+        # reaches it flips near-tie routes and moves the router's and
+        # the experts' gradients by O(1) there.  The plain path replays
+        # the kernel path's routing (moe.top_candidates patched for its
+        # step), so that the check holds the kernel; the routes its own
+        # router would have flipped are counted and bounded.
+        k_blocks = model.moe_blocks()
+        for blk in k_blocks:
+            blk.trace = {}
+        _train_counts(FA, FX, reset=True)
+        k_state, (k_loss, k_aux, k_drop) = k_step(k_state, tokens, targets)
+        one = _train_counts(FA, FX)
+        if one != per_step:
+            raise AssertionError(f"one MoE step launched {one}")
+        recorded = [kb.trace["cand_idx"] for kb in k_blocks]
+        for blk in k_blocks:
+            blk.trace = None
+        own_top, flipped = MOE_MOD.top_candidates, []
+
+        def replay(probs, n_cand):
+            want = recorded[len(flipped)]
+            flipped.append(int((own_top(probs, n_cand) != want).any(-1).sum()))
+            return want
+
+        MOE_MOD.top_candidates = replay
+        try:
+            p_state, (p_loss, _, _) = p_step(p_state, tokens, targets)
+        finally:
+            MOE_MOD.top_candidates = own_top
+        if len(flipped) != len(recorded) or max(flipped) > MOE_FLIPPED_MAX:
+            raise AssertionError(
+                f"moe routing: {flipped} tokens a layer route apart "
+                f"(limit {MOE_FLIPPED_MAX}, {len(recorded)} layers)")
+        loss_rel = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
+        grad_rel = _grads_rel(torch, model, p_state["model"])
+        worst = max(grad_rel, key=grad_rel.get)
+        if loss_rel > TRAIN_LOSS_REL or grad_rel[worst] > TRAIN_GRAD_REL:
+            raise AssertionError(
+                f"moe parity: loss rel {loss_rel}, {worst} grad rel "
+                f"{grad_rel[worst]}")
+        parity = {"loss_flash": float(k_loss), "loss_dense": float(p_loss),
+                  "routing": "the dense path replays the flash path's",
+                  "tokens_own_routing_differs": flipped,
+                  "tokens_own_routing_differs_limit": MOE_FLIPPED_MAX,
+                  "loss_rel": loss_rel, "loss_tolerance_rel": TRAIN_LOSS_REL,
+                  "grad_rel_worst": [worst, grad_rel[worst]],
+                  "grad_tolerance_rel": TRAIN_GRAD_REL,
+                  "leaves": len(grad_rel)}
+        del p_step, p_state
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        _train_counts(FA, FX, reset=True)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        outs = [k_step(k_state, tokens, targets)[1] for _ in range(MOE_STEPS)]
+        losses = [float(o[0]) for o in outs]  # the fence
+        wall = time.monotonic() - t0
+        aux = [float(o[1]) for o in outs]
+        drop = [float(o[2]) for o in outs]
+        launches = _train_counts(FA, FX)
+        want = {k: v * MOE_STEPS for k, v in per_step.items()}
+        if launches != want:
+            raise AssertionError(f"MoE launches {launches} != {want}")
+        if not all(math.isfinite(x) for x in losses) or not (
+            losses[-1] < losses[0]
+        ):
+            raise AssertionError(f"MoE loss did not fall: {losses}")
+        peak = torch.cuda.max_memory_allocated()
+        profile = device_profile(
+            torch, lambda: [k_step(k_state, tokens, targets)
+                            for _ in range(2)], top=6)
+        b, s, dim = cfg["batch"], cfg["seq_len"], cfg["dim"]
+        depth, vocab = cfg["depth"], cfg["vocab"]
+        tok = b * s
+        step_ms = wall / MOE_STEPS * 1e3
+        # bench.py :421-424 and :199: model FLOPs a token.
+        flops_token = 3 * (depth * (24 * dim * dim + 4 * (s // 2) * dim)
+                           + 2 * dim * vocab) + 3 * (depth // 2) * 16 * dim * dim
+        ideal_ms = flops_token * tok / PEAK_OPS["bf16"] * 1e3
+        return {
+            "phase": "moe_train", **cfg, "steps": MOE_STEPS,
+            "backend": backend, "world": dist.get_world_size(),
+            "params_on_card": on_card, "params": n_params,
+            "attn": "flash", "parity": parity,
+            "first_aux": float(k_aux), "first_drop": float(k_drop),
+            "losses": losses, "aux": aux, "drop_frac": drop,
+            "step_ms": step_ms, "tokens_per_s": tok * MOE_STEPS / wall,
+            "peak_bytes": peak, "model_flops_per_token": flops_token,
+            "ideal_ms_at_bf16_peak": ideal_ms,
+            "model_flops_share_of_peak": ideal_ms / step_ms,
+            "launches_per_step": one, "launches": launches,
+            "profile": profile, "seconds": time.monotonic() - t_phase,
+        }, launches
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh_modes(torch):
+    """dp, sp (both layouts), tp and pp on a one-rank NCCL group at
+    lm_main's widths cut to depth 2, each against the trainer without a
+    mesh; a ResNet-50 dp step; lm_main --mode ep refused (phase 11)."""
+    import torch.distributed as dist
+
+    from container_engine_accelerators_tpu_torch import lm_main
+    from container_engine_accelerators_tpu_torch.models import (
+        pipeline_lm as PL,
+        train as TT,
+        transformer as T,
+    )
+    from container_engine_accelerators_tpu_torch.ops import (
+        flash_attention as FA,
+        fused_xent as FX,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import mesh as M
+
+    backend = _nccl_group(torch)
+    t_phase = time.monotonic()
+    try:
+        cfg = dict(TRAIN, depth=MESH_DEPTH)
+        base_step, base_state, batch_fn = T.build_lm_training(
+            **cfg, seed=SEED, device="cuda")
+        tokens, targets = batch_fn(torch.Generator().manual_seed(SEED))
+        _, base = base_step(base_state, tokens, targets)
+        base = float(base)
+        del base_step, base_state
+        builders = {
+            "dp": lambda: T.build_lm_training(
+                M.make_mesh(), **cfg, seed=SEED, device="cuda"),
+            "sp": lambda: T.build_lm_training(
+                M.make_mesh(model_parallel=1), M.MODEL_AXIS, **cfg,
+                seed=SEED, device="cuda"),
+            "sp_zigzag": lambda: T.build_lm_training(
+                M.make_mesh(model_parallel=1), M.MODEL_AXIS, **cfg,
+                seed=SEED, seq_layout="zigzag", device="cuda"),
+            "tp": lambda: T.build_lm_training_tp(
+                M.mesh_1d(M.MODEL_AXIS), M.MODEL_AXIS, **cfg, seed=SEED,
+                device="cuda"),
+            "pp": lambda: PL.build_lm_training_pp(
+                M.mesh_1d("pp"), "pp", 8, **cfg, seed=SEED, n_virtual=2,
+                device="cuda")[:3],
+        }
+        modes, launches = {}, {}
+        for name, build in builders.items():
+            step, state, bfn = build()
+            tok, tgt = bfn(torch.Generator().manual_seed(SEED))
+            _train_counts(FA, FX, reset=True)
+            t0 = time.monotonic()
+            state, loss = step(state, tok, tgt)
+            loss = float(loss)
+            ms = (time.monotonic() - t0) * 1e3
+            launches[name] = _train_counts(FA, FX)
+            rel = abs(loss - base) / abs(base)
+            if not math.isfinite(loss) or rel > TRAIN_LOSS_REL:
+                raise AssertionError(
+                    f"mesh {name}: loss {loss} vs {base} (rel {rel})")
+            modes[name] = {"loss": loss, "loss_rel": rel,
+                           "first_step_ms": ms, "launches": launches[name]}
+            del step, state
+            torch.cuda.empty_cache()
+        if launches["dp"]["flash_attention_fwd"] != MESH_DEPTH or (
+            launches["dp"]["fused_xent_fwd"] != 1
+        ) or launches["tp"]["flash_attention_fwd"] != MESH_DEPTH or (
+            launches["pp"]["flash_attention_fwd"] != 8 * MESH_DEPTH
+        ):
+            raise AssertionError(f"mesh launches {launches}")
+
+        # ResNet-50 data parallel (global BatchNorm statistics) against
+        # the step without a mesh.
+        rn = {}
+        for key, mesh in (("plain", None), ("dp", M.make_mesh())):
+            step, bfn, state = TT.build_training(mesh=mesh, seed=SEED,
+                                                 device="cuda")
+            g = torch.Generator(device="cuda").manual_seed(SEED)
+            images, labels = bfn(g, RESNET_DP_BATCH)
+            state, loss = step(state, images, labels)
+            rn[key] = float(loss)
+            del step, state
+            torch.cuda.empty_cache()
+        rn_rel = abs(rn["dp"] - rn["plain"]) / abs(rn["plain"])
+        if rn_rel > TRAIN_LOSS_REL:
+            raise AssertionError(f"resnet dp: {rn} (rel {rn_rel})")
+    finally:
+        dist.destroy_process_group()
+
+    class _Errors(logging.Handler):
+        lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    seen = _Errors()
+    logging.getLogger("lm_main").addHandler(seen)
+    try:
+        rc = lm_main.main(["--mode", "ep", "--train-steps", "1"])
+    finally:
+        logging.getLogger("lm_main").removeHandler(seen)
+    if rc != 2 or not any(">1 chip" in x for x in seen.lines):
+        raise AssertionError(f"lm_main --mode ep on one card: rc {rc}, "
+                             f"{seen.lines}")
+    return {"phase": "mesh_modes", "backend": backend, "world": 1,
+            **cfg, "loss_no_mesh": base, "loss_tolerance_rel": TRAIN_LOSS_REL,
+            "modes": modes, "resnet50_dp_batch": RESNET_DP_BATCH,
+            "resnet50_loss": rn, "resnet50_loss_rel": rn_rel,
+            "lm_main_ep_rc": rc, "lm_main_ep_error": seen.lines[-1],
+            "seconds": time.monotonic() - t_phase}, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4745,6 +5051,12 @@ def main() -> int:
     emit({**run_inception_train(torch, vgen), "card": smi})
     torch.cuda.empty_cache()
     emit({**run_checkpoint(torch), "card": smi})
+    torch.cuda.empty_cache()
+    moe, l_moe = run_moe_train(torch, tgen)
+    emit({**moe, "card": smi})
+    torch.cuda.empty_cache()
+    mesh_rec, l_mesh = run_mesh_modes(torch)
+    emit({**mesh_rec, "card": smi})
 
     src = "container_engine_accelerators_tpu_torch/csrc/"
     ref = "container_engine_accelerators_tpu/ops/"
@@ -4816,6 +5128,14 @@ def main() -> int:
                 k["launches_server_wave"] = server_launches["wave"][op]
     for k in kernels[3:5]:  # lm_large runs flash at head dim 128 too
         k["launches_lm_large"] = l_large[k["name"]]
+    # The mesh paths (phases 10-11) at head dim 128: flash on the MoE LM
+    # and dp / tp / pp, the fused loss on dp.
+    for k in kernels[3:5] + kernels[11:13]:
+        k["launches_moe_train"] = l_moe[k["name"]]
+        for mode, counts in l_mesh.items():
+            k[f"launches_mesh_{mode}"] = counts[k["name"]]
+        if k["name"].startswith("flash") and k["launches_moe_train"] < 1:
+            raise AssertionError(f"{k['name']} never ran in moe_train")
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

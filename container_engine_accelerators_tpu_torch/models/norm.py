@@ -16,6 +16,13 @@ activation-sized tensor kept for the backward, whose ReLU mask is
 gamma * xhat + beta > 0 in f32.  Without autograd (no_grad, or nothing
 requiring a gradient) the primal runs, which does not round xhat, as
 JAX evaluates the primal outside a derivative.
+
+Under a data-parallel mesh (models/train.py) a norm's `groups` are the
+mesh's axes: the statistics are those of the global batch, as GSPMD has
+flax's BatchNorm take them, from per-channel sums and sums of squares
+all-reduced over the groups, and the backward all-reduces its two
+per-channel sums likewise (the adjoint of that reduction); the scale
+and bias gradients stay this rank's share, which the trainer sums.
 """
 
 from __future__ import annotations
@@ -32,18 +39,34 @@ def ema_update(ra_mean, ra_var, mean, var, momentum):
         ra_var.mul_(momentum).add_((1.0 - momentum) * var.detach())
 
 
-def batch_stats(y):
+def _all_reduce(t, groups):
+    import torch.distributed as dist
+
+    for g in groups:
+        dist.all_reduce(t, group=g)
+    return t
+
+
+def batch_stats(y, groups=()):
     """Per-channel (mean, biased variance) in f32 over every axis but the
-    last: E[y^2] - E[y]^2, as the reference computes it."""
+    last: E[y^2] - E[y]^2, as the reference computes it; over the global
+    batch of the ranks of `groups` when given."""
     yf = y.float()
     axes = tuple(range(y.ndim - 1))
-    mean = yf.mean(axes)
-    var = (yf * yf).mean(axes) - mean * mean
-    return mean, var
+    if not groups:
+        mean = yf.mean(axes)
+        var = (yf * yf).mean(axes) - mean * mean
+        return mean, var
+    sums = torch.stack([yf.sum(axes), (yf * yf).sum(axes)])
+    count = torch.tensor([float(yf.numel() // yf.shape[-1])], device=y.device)
+    flat = _all_reduce(torch.cat([sums.reshape(-1), count]), groups)
+    n = flat[-1]
+    mean = flat[:y.shape[-1]] / n
+    return mean, flat[y.shape[-1]:-1] / n - mean * mean
 
 
-def _bn_act_primal(y, gamma, beta, eps, act, residual):
-    mean, var = batch_stats(y)
+def _bn_act_primal(y, gamma, beta, eps, act, residual, groups=()):
+    mean, var = batch_stats(y, groups)
     inv = torch.rsqrt(var + eps)
     if residual == "y":
         z = (y.float() - mean) * inv * gamma + beta
@@ -54,14 +77,20 @@ def _bn_act_primal(y, gamma, beta, eps, act, residual):
     return z.to(y.dtype), mean, var
 
 
-def _bn_act_backward(xf, dz, gamma, beta, inv, act):
+def _bn_act_backward(xf, dz, gamma, beta, inv, act, groups=()):
     dzf = dz.float()
     dp = torch.where(gamma * xf + beta > 0.0, dzf, 0.0) if act else dzf
     axes = tuple(range(xf.ndim - 1))
     m = xf.numel() // xf.shape[-1]
     dbeta = dp.sum(axes)
     dgamma = (dp * xf).sum(axes)
-    dy = (gamma * inv) * (dp - (dbeta + xf * dgamma) * (1.0 / m))
+    if not groups:
+        dy = (gamma * inv) * (dp - (dbeta + xf * dgamma) * (1.0 / m))
+        return dy, dgamma, dbeta
+    c = xf.shape[-1]
+    flat = _all_reduce(torch.cat([dbeta, dgamma, torch.tensor(
+        [float(m)], device=xf.device)]), groups)
+    dy = (gamma * inv) * (dp - (flat[:c] + xf * flat[c:2 * c]) / flat[-1])
     return dy, dgamma, dbeta
 
 
@@ -69,15 +98,15 @@ class _BnAct(torch.autograd.Function):
     """_bn_act (xhat residual) with its custom VJP."""
 
     @staticmethod
-    def forward(ctx, y, gamma, beta, eps, act):
-        mean, var = batch_stats(y)
+    def forward(ctx, y, gamma, beta, eps, act, groups):
+        mean, var = batch_stats(y, groups)
         inv = torch.rsqrt(var + eps)
         # xhat in the compute type is the ONLY activation-sized residual.
         xhat = ((y.float() - mean) * inv).to(y.dtype)
         z = gamma * xhat.float() + beta
         if act:
             z = torch.relu(z)
-        ctx.act = act
+        ctx.act, ctx.groups = act, groups
         ctx.save_for_backward(xhat, gamma, beta, inv)
         ctx.mark_non_differentiable(mean, var)
         return z.to(y.dtype), mean, var
@@ -86,21 +115,21 @@ class _BnAct(torch.autograd.Function):
     def backward(ctx, dz, _dmean, _dvar):
         xhat, gamma, beta, inv = ctx.saved_tensors
         dy, dgamma, dbeta = _bn_act_backward(
-            xhat.float(), dz, gamma, beta, inv, ctx.act)
-        return dy.to(xhat.dtype), dgamma, dbeta, None, None
+            xhat.float(), dz, gamma, beta, inv, ctx.act, ctx.groups)
+        return dy.to(xhat.dtype), dgamma, dbeta, None, None, None
 
 
 class _BnActY(torch.autograd.Function):
     """_bn_act_y (y residual, xhat recomputed in f32) with its VJP."""
 
     @staticmethod
-    def forward(ctx, y, gamma, beta, eps, act):
-        mean, var = batch_stats(y)
+    def forward(ctx, y, gamma, beta, eps, act, groups):
+        mean, var = batch_stats(y, groups)
         inv = torch.rsqrt(var + eps)
         z = (y.float() - mean) * inv * gamma + beta
         if act:
             z = torch.relu(z)
-        ctx.act = act
+        ctx.act, ctx.groups = act, groups
         ctx.save_for_backward(y, gamma, beta, mean, inv)
         ctx.mark_non_differentiable(mean, var)
         return z.to(y.dtype), mean, var
@@ -110,19 +139,21 @@ class _BnActY(torch.autograd.Function):
         y, gamma, beta, mean, inv = ctx.saved_tensors
         xf = (y.float() - mean) * inv
         dy, dgamma, dbeta = _bn_act_backward(
-            xf, dz, gamma, beta, inv, ctx.act)
-        return dy.to(y.dtype), dgamma, dbeta, None, None
+            xf, dz, gamma, beta, inv, ctx.act, ctx.groups)
+        return dy.to(y.dtype), dgamma, dbeta, None, None, None
 
 
-def bn_act(y, gamma, beta, eps, act, residual="xhat"):
+def bn_act(y, gamma, beta, eps, act, residual="xhat", groups=()):
     """(z, mean, var) of the fused train-time BatchNorm(+ReLU): the
-    autograd Function when a gradient is wanted, else the primal."""
+    autograd Function when a gradient is wanted, else the primal;
+    global statistics over `groups` when given."""
+    groups = tuple(groups)
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (y, gamma, beta)
     ):
         fn = _BnActY if residual == "y" else _BnAct
-        return fn.apply(y, gamma, beta, eps, act)
-    return _bn_act_primal(y, gamma, beta, eps, act, residual)
+        return fn.apply(y, gamma, beta, eps, act, groups)
+    return _bn_act_primal(y, gamma, beta, eps, act, residual, groups)
 
 
 class FusedBatchNormAct(nn.Module):
@@ -147,6 +178,7 @@ class FusedBatchNormAct(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.groups = ()  # a data-parallel mesh's axes: global statistics
 
     def forward(self, x, train=True):
         if not train:
@@ -156,6 +188,6 @@ class FusedBatchNormAct(nn.Module):
                 z = torch.relu(z)
             return z.to(self.dtype)
         z, mean, var = bn_act(x, self.scale, self.bias, self.epsilon,
-                              self.act, self.residual)
+                              self.act, self.residual, self.groups)
         ema_update(self.mean, self.var, mean, var, self.momentum)
         return z

@@ -2,7 +2,7 @@
 container_engine_accelerators_tpu/models/train.py (`create_model` :35,
 `make_optimizer` :51, `create_train_state` :60, `synthetic_batch` :79,
 `train_step` :91, `build_training` :179, `build_scan_training` :224,
-`build_bank_training` :267), single-chip (`mesh=None`).
+`build_bank_training` :267), on one card or over a data-parallel mesh.
 
 The model holds f32 parameters and running statistics and computes in
 bf16 (models/resnet.py).  The optimizer is optax's chain of
@@ -16,7 +16,15 @@ drawn on the device from an explicit torch.Generator; JAX's random
 streams are not reproduced.  The reference's jit, donation and scan
 have no counterpart here: the K steps of a scan are a Python loop.
 
-Not ported: a device mesh (ROADMAP A10), which raises naming its item.
+Under a mesh (a DeviceMesh, parallel/mesh.py; this process one of its
+ranks) the step takes the global batch, trains on this rank's share of
+it (split over every mesh axis, as the reference's batch_sharding), and
+sums the gradients over the mesh (parallel/layout.py `step_on_mesh`).
+BatchNorm takes the global batch's statistics, as GSPMD gives flax's:
+models/norm.py's fused norm all-reduces them, so the mesh path takes the
+ResNets at the reference's defaults (norm_impl "fused" or "fused_y",
+block_impl "flax", the ones its dp tests run) and raises for any other
+model or norm, whose statistics would stay per rank.
 """
 
 from __future__ import annotations
@@ -100,23 +108,56 @@ def train_step(state, images, labels, loss_impl: str = "xla"):
     return state, loss.detach()
 
 
+def _check_mesh_model(model_name, model_kwargs):
+    kw = model_kwargs or {}
+    if model_name == "inception_v3" or kw.get("block_impl", "flax") != (
+        "flax"
+    ) or kw.get("norm_impl", "fused") not in ("fused", "fused_y"):
+        raise NotImplementedError(
+            f"data-parallel training of {model_name} with {kw}: only the "
+            "ResNets with the fused norm (norm_impl 'fused' or 'fused_y', "
+            "block_impl 'flax') take the global batch's BatchNorm "
+            "statistics under a mesh; another norm would keep per-rank "
+            "statistics, unlike the reference")
+
+
 def _setup_training(model_name, num_classes, learning_rate, seed, loss_impl,
                     model_kwargs, mesh, device, params, batch_stats):
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel ResNet training comes with the port of "
-            "parallel/ (ROADMAP A10)"
-        )
     if loss_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown loss_impl {loss_impl!r}")
+    if mesh is not None:
+        _check_mesh_model(model_name, model_kwargs)
     dev = resolve_device(device)
     model = create_model(model_name, num_classes, device=dev,
                          **(model_kwargs or {}))
     state = create_train_state(torch.Generator().manual_seed(seed), model,
                                learning_rate, params, batch_stats)
+    if mesh is None:
+        def step_fn(state, images, labels):
+            return train_step(state, images, labels, loss_impl)
+
+        return state, step_fn, dev
+
+    from ..parallel import layout as LY
+    from ..parallel.mesh import batch_sharding, world_groups
+    from .norm import FusedBatchNormAct
+
+    groups = world_groups(mesh)
+    for m in model.modules():
+        if isinstance(m, FusedBatchNormAct):
+            m.groups = tuple(groups)
+    state.update(mesh=mesh, layout=LY.identity_layout(model, groups))
+    take = batch_sharding(mesh)
+    loss_of = (fused_cross_entropy_loss if loss_impl == "pallas"
+               else cross_entropy_loss)
 
     def step_fn(state, images, labels):
-        return train_step(state, images, labels, loss_impl)
+        def loss_fn():
+            logits = state["model"](take.shard(images), train=True)
+            return loss_of(logits, take.shard(labels)), None
+
+        loss, _ = LY.step_on_mesh(state, loss_fn)
+        return state, loss
 
     return state, step_fn, dev
 
@@ -129,7 +170,8 @@ def build_training(mesh=None, model_name: str = "resnet50",
                    device="cuda", params=None, batch_stats=None):
     """(step_fn, batch_fn, state): step_fn(state, images, labels) ->
     (state, loss); batch_fn(generator, batch_size) -> (images, labels)
-    on the generator's device.  params / batch_stats: flax trees to start
+    on the generator's device.  With a mesh, images and labels are the
+    global batch and the loss its mean (module docstring).  params / batch_stats: flax trees to start
     from instead of the seeded draw.  Runs on the card unless
     device="cpu"."""
     state, step_fn, _ = _setup_training(

@@ -2,7 +2,10 @@
 container_engine_accelerators_tpu/models/transformer.py
 (`full_causal_attention` :32, `DecoderBlock` :43, `apply_embed` :357,
 `apply_head` :381, `_HeadParams` :392, `TransformerLM` :415,
-`_auto_use_flash` :501, `resolve_attn` :521, `build_lm_training` :776).
+`_auto_use_flash` :501, `resolve_attn` :521 (with `shard_batch_fn`
+:545 and `shard_heads_fn` :568), `lm_tp_param_specs` :593,
+`build_lm_training_tp` :631, `build_ring_attn` :761,
+`build_lm_training` :776).
 
 The numerics follow the flax module: parameters of the embedding,
 positional table, LayerNorms and vocab head are f32; the block
@@ -15,11 +18,15 @@ for training, cast to `dtype` at each call as flax does (an optimizer
 stepping bf16 weights would drift from optax within a few steps), and
 `dtype` itself for serving, which keeps one copy of the weights.
 
-Training (`build_lm_training`, single chip): attention through
-`attn_fn` (flash, ops/flash_attention.py, or the dense math); the dense
-head's loss through ops/fused_xent.py or ops/losses.py, or the chunked
-head (ops/chunked_xent.py) that never holds the (tokens, vocab) logits;
-AdamW as optax's.
+Training (`build_lm_training`): attention through `attn_fn` (flash,
+ops/flash_attention.py, or the dense math); the dense head's loss
+through ops/fused_xent.py or ops/losses.py, or the chunked head
+(ops/chunked_xent.py) that never holds the (tokens, vocab) logits;
+AdamW as optax's.  Over a mesh (parallel/, one process a rank) it trains
+data parallel (flash and the fused loss on each rank's batch shard) or
+sequence parallel (the KV ring, parallel/ring_attention.py), and
+`build_lm_training_tp` tensor parallel (TPTransformerLM: this rank's
+heads and vocab columns, the vocab-parallel cross entropy).
 
 Decode paths ported (a `cache` argument selects them):
   - the PAGED path (:177-265): the cache holds page pools (n_pages,
@@ -273,7 +280,11 @@ class DecoderBlock(nn.Module):
             )
         x = x + self.proj(attn.reshape(b, s, self.dim))
         h = self.ln1(x)
-        return x + self.fc1(gelu_tanh(self.fc0(h)))
+        return x + self.ffn(h)
+
+    def ffn(self, h):
+        """The MLP (models/moe_lm.py's block overrides this alone)."""
+        return self.fc1(gelu_tanh(self.fc0(h)))
 
 
 class TransformerLM(nn.Module):
@@ -304,21 +315,30 @@ class TransformerLM(nn.Module):
         )
         self.vocab, self.dim, self.depth = vocab, dim, depth
         self.heads, self.max_seq = heads, max_seq
+        self.qkv_heads = heads  # the heads this rank's qkv holds
         self.dtype, self.decode, self.device = dtype, decode, dev
+        self.embed_dtype = dtype
         self.remat = remat
         self.embed = nn.Parameter(torch.zeros((vocab, dim), device=dev))
         self.pos_emb = nn.Parameter(torch.zeros((max_seq, dim), device=dev))
         self.blocks = nn.ModuleList(
-            DecoderBlock(dim, heads, dtype, dev, param_dtype=param_dtype,
-                         attn_fn=attn_fn)
-            for _ in range(depth)
+            self._block(i, dim, heads, dtype, dev, param_dtype, attn_fn)
+            for i in range(depth)
         )
         self.ln_f = LayerNorm(dim, dtype, dev)
+        head_cols = vocab // self._head_shards()
         self.head_kernel = nn.Parameter(
-            torch.zeros((dim, vocab), device=dev)
+            torch.zeros((dim, head_cols), device=dev)
         )
-        self.head_bias = nn.Parameter(torch.zeros((vocab,), device=dev))
+        self.head_bias = nn.Parameter(torch.zeros((head_cols,), device=dev))
         self.requires_grad_(False)
+
+    def _block(self, i, dim, heads, dtype, dev, param_dtype, attn_fn):
+        return DecoderBlock(dim, heads, dtype, dev, param_dtype=param_dtype,
+                            attn_fn=attn_fn)
+
+    def _head_shards(self) -> int:
+        return 1
 
     def init_random(self, generator: torch.Generator, scale: float = 1.0):
         """Draw every parameter from `generator`: matmul kernels
@@ -351,13 +371,13 @@ class TransformerLM(nn.Module):
         gather clamps (a fused block's dead tail may run past max_seq:
         its tokens are never committed)."""
         s = tokens.shape[1]
-        x = self.embed[tokens.long()].to(self.dtype)
+        x = self.embed[tokens.long()].to(self.embed_dtype)
         pos = self.pos_emb[:s] if positions is None else self.pos_emb[
             positions.long().clamp(max=self.max_seq - 1)
         ]
         if pos.ndim == 2:
             pos = pos[None]
-        return x + pos.to(self.dtype)
+        return x + pos.to(self.embed_dtype)
 
     def forward(self, tokens, positions=None, cache=None, kv_mask=None,
                 write_pos=None, block_tables=None, head_impl="dense"):
@@ -393,33 +413,70 @@ def _auto_use_flash(attn_impl: str, seq_len: int, device="cuda") -> bool:
     )
 
 
-def resolve_attn(attn_impl: str, seq_len: int, mesh=None, batch_axes=None,
-                 device="cuda"):
+def resolve_attn(attn_impl: str, seq_len: int, device="cuda"):
     """Attention selection (reference :521): flash on the card when the
     length passes the gate, the dense math otherwise.  Explicit 'flash'
     skips the gate (the wrapper raises at call time on a shape it does
-    not take).  A mesh raises: data-parallel wrapping comes with
-    parallel/ (ROADMAP A10)."""
-    if mesh is not None or batch_axes is not None:
-        raise NotImplementedError(
-            "attention under a device mesh comes with the port of "
-            "parallel/ (ROADMAP A10)"
-        )
-    if _auto_use_flash(attn_impl, seq_len, device):
-        return flash_causal_attention
-    return full_causal_attention
+    not take).  Under a mesh it is the same choice: the port runs one
+    program per rank, so a rank's activations already are its batch
+    (or, tensor parallel, its heads) shard, and the kernel runs on them
+    as they are, where the reference wraps it in shard_map
+    (`shard_batch_fn` :545, `shard_heads_fn` :568)."""
+    if not _auto_use_flash(attn_impl, seq_len, device):
+        return full_causal_attention
+    return flash_causal_attention
 
 
 def resolve_loss(loss_impl: str, rows: int, device="cuda") -> str:
-    """'fused' or 'xla' (reference :836-851, single chip): 'auto' takes
-    the fused kernels on the card where the row count divides the
-    reference's 8-row blocks."""
+    """'fused' or 'xla' (reference :836-851): 'auto' takes the fused
+    kernels on the card where the row count (a rank's shard under a
+    mesh) divides the reference's 8-row blocks."""
     if loss_impl not in ("auto", "xla", "fused"):
         raise ValueError(f"unknown loss_impl {loss_impl!r}")
     if loss_impl != "auto":
         return loss_impl
     cuda = torch.device(device).type == "cuda"
     return "fused" if cuda and rows and rows % 8 == 0 else "xla"
+
+
+def build_ring_attn(mesh, axis_name: str, layout: str = "contiguous"):
+    """Causal ring attention over `axis_name` of `mesh` on each rank's
+    sequence shard (reference :761); layout "zigzag" takes shards in
+    zigzag storage order."""
+    from ..parallel import ring_attention as RA
+
+    group = mesh.get_group(axis_name)
+    if layout == "zigzag":
+        return lambda q, k, v: RA.ring_attention_zigzag(q, k, v, group)
+    if layout != "contiguous":
+        raise ValueError(f"unknown ring attention layout {layout!r}")
+    return lambda q, k, v: RA.ring_attention(q, k, v, group, causal=True)
+
+
+def _adamw(model, learning_rate):
+    # optax.adamw(learning_rate) as this repo's optax builds it: b1 0.9,
+    # b2 0.999, eps 1e-8, decoupled weight decay 1e-4 on every leaf (no
+    # mask: biases, LayerNorms and embeddings decay too).
+    return torch.optim.AdamW(
+        model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=1e-4,
+    )
+
+
+def _random_batch_fn(vocab, batch, seq_len, dev, perm=None):
+    def batch_fn(generator: torch.Generator):
+        tok = torch.randint(
+            0, vocab, (batch, seq_len + 1), generator=generator,
+            device=generator.device,
+        ).to(dev)
+        tokens, targets = tok[:, :-1], tok[:, 1:]
+        if perm is not None:
+            # Zigzag storage order; targets ride along, so each slot
+            # still predicts its own next global token.
+            tokens, targets = tokens[:, perm], targets[:, perm]
+        return tokens, targets
+
+    return batch_fn
 
 
 def build_lm_training(
@@ -444,33 +501,53 @@ def build_lm_training(
     device="cuda",
     params=None,
 ):
-    """(step_fn, state, batch_fn) for single-chip LM training (reference
-    :776, its `mesh=None` path).  head_impl "chunked" takes the model's
-    f32 hidden rows, head kernel and bias and the loss from
-    ops/chunked_xent.py in `head_chunk`-column blocks (reference
-    :902-910); "dense" the f32 logits and the resolved loss.
+    """(step_fn, state, batch_fn) for LM training (reference :776).
+    head_impl "chunked" takes the model's f32 hidden rows, head kernel
+    and bias and the loss from ops/chunked_xent.py in `head_chunk`-column
+    blocks (reference :902-910); "dense" the f32 logits and the resolved
+    loss.
+
+    With a mesh (a DeviceMesh, parallel/mesh.py; this process one of its
+    ranks): without seq_axis, data parallelism, the batch split over
+    every mesh axis, flash on each rank's shard and the fused loss per
+    shard, its mean over the shards; with seq_axis, sequence
+    parallelism, the sequence split over that axis and attention by the
+    KV ring (seq_layout "zigzag": the balanced layout, tokens, targets
+    and positions in zigzag storage order), the XLA loss.  Every rank
+    holds the whole model; the gradients are summed over the mesh
+    (parallel/layout.py `step_on_mesh`).
 
     state: {"model": TransformerLM with f32 master weights, "opt": AdamW,
-    "step": int}.  step_fn(state, tokens, targets) -> (state, loss) runs
-    one forward, backward and AdamW update in place; the step's
+    "step": int} (plus "mesh" and "layout" under a mesh).
+    step_fn(state, tokens, targets) -> (state, loss) runs one forward,
+    backward and AdamW update in place on the GLOBAL batch (each rank
+    takes its shard) and returns the global mean loss; the step's
     gradients stay on the parameters (`.grad`) until the next step.
-    batch_fn(generator) draws (tokens, targets), each (batch, seq_len),
-    from a torch.Generator.  params: a flax TransformerLM tree of numpy
-    arrays to start from instead of the seeded draw.  dtype: the blocks'
-    compute type (the reference's TransformerLM default bf16; f32 for
-    parity tests).  Runs on the card unless device="cpu"."""
+    batch_fn(generator) draws the global (tokens, targets), each (batch,
+    seq_len), from a torch.Generator (zigzag order under that layout).
+    params: a flax TransformerLM tree of numpy arrays to start from
+    instead of the seeded draw.  dtype: the blocks' compute type (bf16,
+    the reference's default; f32 for parity tests).  Runs on the card
+    unless device="cpu"."""
     if seq_layout not in ("contiguous", "zigzag"):
         raise ValueError(f"unknown seq_layout {seq_layout!r}")
-    if seq_layout == "zigzag" and (mesh is None or seq_axis is None):
+    sp = mesh is not None and seq_axis is not None
+    if seq_layout == "zigzag" and not sp:
         raise ValueError("seq_layout='zigzag' needs mesh + seq_axis")
-    if mesh is not None:
-        raise NotImplementedError(
-            "data- and sequence-parallel LM training come with the port of "
-            "parallel/ (ROADMAP A10)"
-        )
     dev = resolve_device(device)
-    attn_fn = resolve_attn(attn_impl, seq_len, device=dev)
-    loss_kind = resolve_loss(loss_impl, batch * seq_len, dev)
+    world = 1 if mesh is None else mesh.size()
+    if sp:
+        if attn_impl not in ("auto", "dense", "flash"):
+            raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        attn_fn = build_ring_attn(mesh, seq_axis, layout=seq_layout)
+    else:
+        attn_fn = resolve_attn(attn_impl, seq_len, device=dev)
+    if mesh is not None and not sp and batch % world:
+        raise ValueError(
+            f"data-parallel LM: batch {batch} must divide evenly across "
+            f"{world} devices (pass seq_axis for sequence parallelism "
+            "instead)"
+        )
     if head_impl not in ("dense", "chunked"):
         raise ValueError(f"unknown head_impl {head_impl!r}")
     if head_impl == "chunked":
@@ -481,6 +558,11 @@ def build_lm_training(
                 "head_impl='chunked' subsumes the loss; it is "
                 "incompatible with loss_impl='fused'"
             )
+    # Under sequence parallelism the logits are seq-sharded: the XLA
+    # loss (reference :845-851).
+    shard_rows = (batch // world) * seq_len
+    loss_kind = ("xla" if sp and loss_impl == "auto"
+                 else resolve_loss(loss_impl, shard_rows, dev))
     loss_of = (
         fused_cross_entropy_loss if loss_kind == "fused"
         else cross_entropy_loss
@@ -495,37 +577,293 @@ def build_lm_training(
     else:
         load_flax_params(model, params)
     model.requires_grad_(True)
-    # optax.adamw(learning_rate) as this repo's optax builds it: b1 0.9,
-    # b2 0.999, eps 1e-8, decoupled weight decay 1e-4 on every leaf (no
-    # mask: biases, LayerNorms and embeddings decay too).
-    opt = torch.optim.AdamW(
-        model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
-        weight_decay=1e-4,
-    )
+    opt = _adamw(model, learning_rate)
     state = {"model": model, "opt": opt, "step": 0}
 
-    def step_fn(state, tokens, targets):
-        model, opt = state["model"], state["opt"]
-        opt.zero_grad(set_to_none=True)
-        if head_impl == "chunked":
-            hidden, head_k, head_b = model(tokens, head_impl="chunked")
-            loss = chunked_softmax_xent(
-                hidden.reshape(-1, dim), head_k, head_b,
-                targets.reshape(-1), chunk_size=head_chunk,
-            )
+    perm = None
+    if seq_layout == "zigzag":
+        from ..parallel.mesh import axis_len
+        from ..parallel.ring_attention import zigzag_permutation
+
+        perm = torch.as_tensor(
+            zigzag_permutation(seq_len, axis_len(mesh, seq_axis)), device=dev)
+    take = positions = None
+    if mesh is not None:
+        from ..parallel import layout as LY
+        from ..parallel.mesh import Sharding, batch_sharding, world_groups
+
+        if sp:
+            take = Sharding(mesh, (seq_axis,), dim=1)
+            order = perm if perm is not None else torch.arange(
+                seq_len, device=dev)
+            positions = take.shard(order[None])[0]
         else:
-            logits = model(tokens)
-            loss = loss_of(logits.reshape(-1, vocab), targets.reshape(-1))
+            take = batch_sharding(mesh)
+        state.update(mesh=mesh,
+                     layout=LY.identity_layout(model, world_groups(mesh)))
+
+    def loss_on(tokens, targets):
+        labels = targets.reshape(-1)
+        if head_impl == "chunked":
+            hidden, head_k, head_b = model(tokens, positions=positions,
+                                           head_impl="chunked")
+            return chunked_softmax_xent(
+                hidden.reshape(-1, dim), head_k, head_b, labels,
+                chunk_size=head_chunk,
+            )
+        logits = model(tokens, positions=positions)
+        return loss_of(logits.reshape(-1, vocab), labels)
+
+    def step_fn(state, tokens, targets):
+        if mesh is not None:
+            loss, _ = LY.step_on_mesh(state, lambda: (
+                loss_on(take.shard(tokens), take.shard(targets)), None))
+            return state, loss
+        opt.zero_grad(set_to_none=True)
+        loss = loss_on(tokens, targets)
         loss.backward()
         opt.step()
         state["step"] += 1
         return state, loss.detach()
 
-    def batch_fn(generator: torch.Generator):
-        tok = torch.randint(
-            0, vocab, (batch, seq_len + 1), generator=generator,
-            device=generator.device,
-        ).to(dev)
-        return tok[:, :-1], tok[:, 1:]
+    return step_fn, state, _random_batch_fn(vocab, batch, seq_len, dev, perm)
 
-    return step_fn, state, batch_fn
+
+# ---- tensor parallelism (reference :568-759) ----
+
+def lm_tp_param_specs(tree, tp_axis: str):
+    """The reference's tensor-parallel placements of a flax
+    TransformerLM tree (reference :593), as the dim each leaf splits
+    along over `tp_axis` (None: replicated): column-parallel qkv (heads),
+    row-parallel proj, the Dense_0 / Dense_1 pair, the vocab-split head;
+    embeddings, LayerNorms and the biases that add after a reduction are
+    replicated.  The axis is the reference's argument; the dims serve
+    any tp axis (models/convert.py `shard_flax_params` cuts by them)."""
+
+    def spec(path, leaf):
+        name = path[-1]
+        if "qkv" in path:
+            return 2 if name == "kernel" else 1
+        if "proj" in path or "Dense_1" in path:
+            return 0 if name == "kernel" else None
+        if "Dense_0" in path or "lm_head" in path:
+            return 1 if name == "kernel" else 0
+        return None
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return spec(path, node)
+
+    return walk(tree, ())
+
+
+def _tp_placement(name, shape, dim, heads, vocab, index, count):
+    """Where a TPTransformerLM parameter sits in the one-rank model's."""
+    from ..parallel.layout import split_placement, whole
+
+    d_head = dim // heads
+    full = {
+        "qkv.kernel": ((dim, 3 * dim), (dim, 3, heads, d_head), 2),
+        "qkv.bias": ((3 * dim,), (3, heads, d_head), 1),
+        "proj.kernel": ((dim, dim), None, 0),
+        "fc0.kernel": ((dim, 4 * dim), None, 1),
+        "fc0.bias": ((4 * dim,), None, 0),
+        "fc1.kernel": ((4 * dim, dim), None, 0),
+        "head_kernel": ((dim, vocab), None, 1),
+        "head_bias": ((vocab,), None, 0),
+    }
+    for suffix, (cshape, view, split) in full.items():
+        if name == suffix or name.endswith("." + suffix):
+            return split_placement(name, cshape, split, index, count, view)
+    return whole(name, shape)
+
+
+class TPDecoderBlock(DecoderBlock):
+    """DecoderBlock over a tensor-parallel group: this rank's heads of
+    qkv and rows of proj, columns of Dense_0 and rows of Dense_1; the
+    row-parallel partial products are psum'd and their (replicated)
+    biases added after the sum, as the reference's layout has GSPMD do.
+    Names and shapes otherwise DecoderBlock's, so the flax loaders
+    serve a rank's shard tree."""
+
+    def __init__(self, dim, heads, dtype, device, group, n_tp,
+                 param_dtype=None, attn_fn=full_causal_attention):
+        nn.Module.__init__(self)
+        self.dim, self.heads = dim, heads // n_tp
+        self.d_head = dim // heads
+        self.group, self.attn_fn = group, attn_fn
+        local = self.heads * self.d_head
+        self.ln0 = LayerNorm(dim, dtype, device)
+        self.qkv = Dense(dim, 3 * local, dtype, device, param_dtype)
+        self.proj = Dense(local, dim, dtype, device, param_dtype)
+        self.ln1 = LayerNorm(dim, dtype, device)
+        self.fc0 = Dense(dim, 4 * dim // n_tp, dtype, device, param_dtype)
+        self.fc1 = Dense(4 * dim // n_tp, dim, dtype, device, param_dtype)
+
+    @staticmethod
+    def _row_parallel(dense, x, group):
+        from ..parallel import _collectives as C
+
+        part = torch.matmul(x.to(dense.dtype), dense.kernel.to(dense.dtype))
+        return C.psum(part, group) + dense.bias.to(dense.dtype)
+
+    def forward(self, x, cache=None, kv_mask=None, write_pos=None,
+                block_tables=None):
+        if cache is not None:
+            raise NotImplementedError("tensor-parallel decode is not ported")
+        b, s, _ = x.shape
+        h = self.ln0(x)
+        qkv = self.qkv(h).view(b, s, 3, self.heads, self.d_head)
+        attn = self.attn_fn(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        x = x + self._row_parallel(self.proj, attn.reshape(b, s, -1),
+                                   self.group)
+        h = self.ln1(x)
+        return x + self._row_parallel(self.fc1, gelu_tanh(self.fc0(h)),
+                                      self.group)
+
+
+class TPTransformerLM(TransformerLM):
+    """TransformerLM over a tensor-parallel group: TPDecoderBlocks and
+    this rank's vocab columns of the head, so forward returns (tokens,
+    vocab / tp) logits.  `heads` is the model's; `qkv_heads` this
+    rank's."""
+
+    def __init__(self, group, index, n_tp, **kw):
+        object.__setattr__(self, "_tp", (group, index, n_tp))
+        super().__init__(**kw)
+        self.qkv_heads = self.heads // n_tp
+        self.tp_index, self.tp_size = index, n_tp
+
+    def _block(self, i, dim, heads, dtype, dev, param_dtype, attn_fn):
+        group, _, n_tp = self._tp
+        return TPDecoderBlock(dim, heads, dtype, dev, group, n_tp,
+                              param_dtype=param_dtype, attn_fn=attn_fn)
+
+    def _head_shards(self) -> int:
+        return self._tp[2]
+
+
+def vocab_parallel_xent(logits, labels, group, vocab_start: int):
+    """Per-row softmax cross entropy of logits split over the vocab:
+    logits (rows, vocab / tp) this rank's columns from `vocab_start`.
+    The row max and the sum of exponentials are reduced over the group
+    and each row's label logit comes from the rank that holds it."""
+    from ..parallel import _collectives as C
+
+    m = C.pmax(logits.max(-1).values, group)
+    sumexp = C.psum(torch.exp(logits - m[:, None]).sum(-1), group)
+    local = labels.long() - vocab_start
+    inside = (local >= 0) & (local < logits.shape[1])
+    picked = logits.gather(1, local.clamp(0, logits.shape[1] - 1)[:, None])
+    target = C.psum(torch.where(inside, picked[:, 0], 0.0), group)
+    return torch.log(sumexp) + m - target
+
+
+def _draw_flax_params(vocab, dim, depth, heads, seq_len, seed):
+    """The seeded draw of the one-rank trainer as a flax tree, on the
+    CPU (every rank draws the same, then keeps its shard)."""
+    from .convert import to_flax_params
+
+    full = TransformerLM(vocab=vocab, dim=dim, depth=depth, heads=heads,
+                         max_seq=seq_len, dtype=torch.float32, device="cpu",
+                         param_dtype=torch.float32)
+    return to_flax_params(full.init_random(torch.Generator().manual_seed(seed)))
+
+
+def build_lm_training_tp(
+    mesh,
+    tp_axis: str,
+    vocab: int = 1024,
+    dim: int = 256,
+    depth: int = 2,
+    heads: int = 4,
+    seq_len: int = 512,
+    batch: int = 4,
+    learning_rate: float = 1e-3,
+    seed: int = 0,
+    attn_impl: str = "auto",
+    data_axis=None,
+    *,
+    dtype=torch.bfloat16,
+    device="cuda",
+    params=None,
+):
+    """(step_fn, state, batch_fn) for tensor-parallel LM training
+    (reference :631): this rank holds its shard of every split parameter
+    (lm_tp_param_specs) and its AdamW moments, flash runs on its heads,
+    the loss is the vocab-parallel cross entropy.  data_axis: a second
+    mesh axis for 2-D dp x tp, the batch split over it.  The same seed
+    (or `params`, a one-rank flax tree) gives the one-rank trainer's
+    weights, so the loss matches build_lm_training's.  step_fn and
+    batch_fn as build_lm_training's; gradients are summed over the data
+    axis for split parameters and over the whole mesh for replicated
+    ones."""
+    from ..parallel import layout as LY
+    from ..parallel.mesh import Sharding, axis_len, world_groups
+    from .convert import shard_flax_params
+
+    n_tp = axis_len(mesh, tp_axis)
+    if data_axis is not None:
+        if data_axis == tp_axis:
+            raise ValueError("data_axis must differ from tp_axis")
+        n_dp = axis_len(mesh, data_axis)
+        if batch % n_dp:
+            raise ValueError(
+                f"2D dp x tp: batch {batch} must divide over {n_dp} "
+                "data-parallel replicas"
+            )
+    if heads % n_tp:
+        raise ValueError(
+            f"tensor parallel: heads {heads} must divide over {n_tp} devices")
+    if (4 * dim) % n_tp:
+        raise ValueError(
+            f"tensor parallel: MLP hidden {4 * dim} must divide over "
+            f"{n_tp} devices")
+    if vocab % n_tp:
+        raise ValueError(
+            f"tensor parallel: vocab {vocab} must divide over {n_tp} "
+            "devices (the head is split by vocab)")
+    dev = resolve_device(device)
+    tp_group = mesh.get_group(tp_axis)
+    t = mesh.get_local_rank(tp_axis)
+    attn_fn = resolve_attn(attn_impl, seq_len, device=dev)
+    model = TPTransformerLM(
+        tp_group, t, n_tp, vocab=vocab, dim=dim, depth=depth, heads=heads,
+        max_seq=seq_len, dtype=dtype, device=dev,
+        param_dtype=torch.float32, attn_fn=attn_fn,
+    )
+    tree = params if params is not None else _draw_flax_params(
+        vocab, dim, depth, heads, seq_len, seed)
+    load_flax_params(model, shard_flax_params(
+        tree, lm_tp_param_specs(tree, tp_axis), t, n_tp))
+    model.requires_grad_(True)
+    opt = _adamw(model, learning_rate)
+    groups = world_groups(mesh)
+    dp_groups = [mesh.get_group(data_axis)] if data_axis else []
+    placements, grad_groups = {}, {}
+    for name, p in model.named_parameters():
+        pl = _tp_placement(name, tuple(p.shape), dim, heads, vocab, t, n_tp)
+        placements[name] = pl
+        grad_groups[name] = groups if pl.dim is None else dp_groups
+    canon = [n for n, _ in TransformerLM(
+        vocab=vocab, dim=dim, depth=depth, heads=heads, max_seq=seq_len,
+        device="meta").named_parameters()]
+    state = {"model": model, "opt": opt, "step": 0, "mesh": mesh,
+             "layout": LY.Layout(placements, grad_groups, canon)}
+    take = Sharding(mesh, (data_axis,) if data_axis else ())
+    v_local = vocab // n_tp
+
+    def loss_on(tokens, targets):
+        logits = model(tokens)
+        rows = vocab_parallel_xent(logits.reshape(-1, v_local),
+                                   targets.reshape(-1), tp_group,
+                                   t * v_local)
+        return rows.mean(), None
+
+    def step_fn(state, tokens, targets):
+        loss, _ = LY.step_on_mesh(state, lambda: loss_on(
+            take.shard(tokens), take.shard(targets)))
+        return state, loss
+
+    return step_fn, state, _random_batch_fn(vocab, batch, seq_len, dev)

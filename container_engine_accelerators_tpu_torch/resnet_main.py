@@ -1,5 +1,4 @@
-"""ResNet training job on one card: the port of
-demo/tpu-training/resnet_main.py.
+"""ResNet training job: the port of demo/tpu-training/resnet_main.py.
 
     python -m container_engine_accelerators_tpu_torch.resnet_main [flags]
 
@@ -22,7 +21,15 @@ reference's demo job runs it at --image-size 299 --batch-per-chip 128).
 (utils/checkpoint.py, torch-native files); like the reference's job it
 does not restore.
 
-Not ported yet: --distributed (A10), which exits 2 naming its item.
+--distributed reads the plugin's env contract from the process
+environment (parallel/distributed.py): on one host it initializes
+nothing and trains on this card; across hosts this process is one rank,
+one card a host, and the job trains data parallel over the global mesh
+(global_mesh), the global batch batch-per-chip times the ranks,
+BatchNorm over the global batch.  Where the reference's process drives
+every local chip, this job trains one card a process, so --distributed
+exits 2 when more than one card is visible rather than leave the others
+idle.
 """
 
 from __future__ import annotations
@@ -48,7 +55,9 @@ def parse_args(argv=None):
                    help="Steps per call: 1 = one call per step; >1 runs K "
                    "steps per call, each batch drawn on the device")
     p.add_argument("--distributed", action="store_true",
-                   help="Multi-host (ROADMAP A10)")
+                   help="Multi-host: torch.distributed from the plugin's "
+                   "env contract (TPU_WORKER_*, MEGASCALE_*) before "
+                   "building the mesh")
     p.add_argument("--model-dir", default="",
                    help="Save a checkpoint here after the last step")
     p.add_argument("--profile-dir", default="",
@@ -62,10 +71,6 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
     log = logging.getLogger("resnet_main")
     args = parse_args(argv)
-    if args.distributed:
-        log.error("--distributed: multi-host training comes with the port "
-                  "of parallel/ (ROADMAP A10)")
-        return 2
 
     import torch
 
@@ -77,7 +82,23 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         log.error("%s", e)
         return 2
-    n_chips = 1
+    mesh, n_chips = None, 1
+    if args.distributed:
+        from .parallel import distributed
+
+        if device.type == "cuda" and torch.cuda.device_count() > 1:
+            log.error("--distributed trains one card a host, and %d are "
+                      "visible: make one visible to each host's process",
+                      torch.cuda.device_count())
+            return 2
+
+        if distributed.initialize_from_env(os.environ, device=str(device)):
+            mesh = distributed.global_mesh()
+            n_chips = mesh.size()
+            if device.type == "cuda":
+                device = torch.device("cuda", torch.cuda.current_device())
+            if torch.distributed.get_rank():
+                log.setLevel(logging.WARNING)
     global_batch = args.batch_per_chip * n_chips
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
@@ -87,7 +108,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=device).manual_seed(0)
     if args.steps_per_call > 1:
         multi, state = train_mod.build_scan_training(
-            model_name=args.model, image_size=args.image_size,
+            mesh=mesh, model_name=args.model, image_size=args.image_size,
             learning_rate=args.learning_rate,
             steps_per_call=args.steps_per_call, global_batch=global_batch,
             device=device,
@@ -118,7 +139,7 @@ def main(argv=None) -> int:
             return multi(state, gen)
     else:
         step_fn, batch_fn, state = train_mod.build_training(
-            model_name=args.model, image_size=args.image_size,
+            mesh=mesh, model_name=args.model, image_size=args.image_size,
             learning_rate=args.learning_rate, device=device,
         )
         images, labels = batch_fn(gen, global_batch)

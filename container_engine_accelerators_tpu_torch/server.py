@@ -64,7 +64,7 @@ The fleet (continuous engine only): --fleet N SERVE_LM_FLEET (N >= 2
   (`engine_kw`), warm every replica before readiness, and drain on the
   last replica's eviction; SIGTERM closes a process fleet's workers.
 Accepted but not ported yet, each exits 2 naming its ROADMAP item:
---mesh dp (SERVE_LM_MESH: A10); --health-source (SERVE_HEALTH_SOURCE:
+--mesh dp (SERVE_LM_MESH: A10b); --health-source (SERVE_HEALTH_SOURCE:
 A12).  SERVE_HEALTH_CRITICAL's default is `HEALTH_CRITICAL`, the codes
 `attach_health_source` drains on; its flag comes with --health-source
 (A12).
@@ -172,7 +172,7 @@ class ServeConfig:
     fleet_hb_s: float = 5.0
     fleet_hb_timeout_s: float = 15.0
     fleet_reconnect_s: float = 10.0
-    # Not ported yet (main exits 2): A10, A12.
+    # Not ported yet (main exits 2): A10b, A12.
     mesh: Optional[str] = None
     health_source: Optional[str] = None
     grid: int = dataclasses.field(init=False)
@@ -193,7 +193,7 @@ class ServeConfig:
         item, or None."""
         if self.mesh is not None:
             return ("a device mesh (--mesh) is not ported yet (ROADMAP "
-                    "A10)")
+                    "A10b)")
         if self.health_source is not None:
             return ("--health-source needs plugin/health.py's event "
                     "sources, not ported yet (ROADMAP A12)")
@@ -265,7 +265,7 @@ def parse_args(argv=None) -> ServeConfig:
     opt("--fleet-hb-s", float, default=d.fleet_hb_s)
     opt("--fleet-hb-timeout-s", float, default=d.fleet_hb_timeout_s)
     opt("--fleet-reconnect-s", float, default=d.fleet_reconnect_s)
-    opt("--mesh", str, default=None, help="ROADMAP A10")
+    opt("--mesh", str, default=None, help="ROADMAP A10b")
     opt("--health-source", str, default=None, help="ROADMAP A12")
     args = vars(p.parse_args(argv))
     for key in ("fleet_affinity", "fleet_migrate", "fleet_tcp"):

@@ -39,7 +39,12 @@ What capture asks of the seam and of this holder:
     capture_error_mode="thread_local", and every key shares one memory
     pool.  Engines of one process (an in-process fleet's replicas) each
     capture on their own thread, each into its own pool, while the
-    others capture or launch eagerly;
+    others launch eagerly, but one first call and capture at a time
+    (`_CAPTURE_LOCK`): the first call synchronizes the device, and
+    torch.cuda.graph's entry synchronizes it and empties the cache;
+    either, from another thread while one engine captures, invalidates
+    that capture (a two-replica fleet on the card lost one so, and its
+    generator was left mid-capture);
   - launch counters: the kernel wrappers count in Python, so they see
     the first call and the capture, not the replays; the capture's
     counts (the capturing thread's own, `_build.tally`) are taken back,
@@ -52,6 +57,7 @@ loop.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Callable, Dict, Hashable, Optional
 
@@ -60,6 +66,9 @@ import torch
 from ..ops import _build
 from ..ops.paged_attention import paged_attention
 from ..ops.quant_matmul import int8_weight_matmul
+
+# One first call and capture at a time in a process (module docstring).
+_CAPTURE_LOCK = threading.RLock()
 
 # The kernel wrappers whose `launches` counters a replay advances.
 COUNTED = (paged_attention, int8_weight_matmul)
@@ -136,6 +145,10 @@ class SeamGraphs:
     def _first_call(self, weights, cache, inputs, key):
         """The eager call on the real inputs, then the capture of `key`
         on the same static buffers.  Returns the eager call's output."""
+        with _CAPTURE_LOCK:
+            return self._capture(weights, cache, inputs, key)
+
+    def _capture(self, weights, cache, inputs, key):
         if self._bound is None:
             self._bound = (weights, cache)
             self._pool = torch.cuda.graph_pool_handle()

@@ -83,7 +83,7 @@ Observability (observe=True, the default): latency histograms, a trace
 per request and the flight recorder (serving/observe.py, otel.py),
 folded from monotonic stamps staged on the rows and windows at admit,
 commit, retire and failure boundaries, never between staging and
-dispatch.  A mesh (A10) raises NotImplementedError.
+dispatch.  A mesh (A10b) raises NotImplementedError.
 
 Failure semantics are the reference's: a failed admission fails only
 its ticket; a failed step retries with capped backoff, then fails the
@@ -495,7 +495,7 @@ class ContinuousBatchingEngine:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         if mesh is not None:
             raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP A10)"
+                "a device mesh is not ported yet (ROADMAP A10b)"
             )
         self._model = model
         self.n_slots = int(n_slots)

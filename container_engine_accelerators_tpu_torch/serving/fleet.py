@@ -8,7 +8,7 @@ tier fetch, traces and the metrics relabel.  The replicas are the
 port's engines: `devices=` (one torch device per replica; default
 every replica on the model's device) takes the place of the
 reference's dp `submeshes`, which wait for a device mesh (ROADMAP
-A10).  Replicas on one device share the model: an engine only reads
+A10b).  Replicas on one device share the model: an engine only reads
 the weights.  The process fleet spawns the port's worker
 (container_engine_accelerators_tpu_torch.serving.worker), each worker
 an interpreter with its own CUDA context.
@@ -175,7 +175,7 @@ class FleetManager:
     torch device per replica (None: every replica on model.device); a
     replica on another device serves a copy of the model made there,
     one copy a device.  submeshes: the reference's dp submeshes, which
-    need a device mesh (ROADMAP A10) and raise NotImplementedError.
+    need a device mesh (ROADMAP A10b) and raise NotImplementedError.
     engine_kw: passed to every engine (paged, page size, prefill chunk,
     max_queue, ... — rng_seed is offset per replica so replicas don't
     sample in lockstep).  affinity=False builds the consistent-hash-only
@@ -216,7 +216,7 @@ class FleetManager:
         if submeshes is not None:
             raise NotImplementedError(
                 "dp submeshes need a device mesh, not ported yet "
-                "(ROADMAP A10); pass devices= instead"
+                "(ROADMAP A10b); pass devices= instead"
             )
         if devices is not None and len(devices) != n_replicas:
             raise ValueError(

@@ -15,6 +15,13 @@ torch.load(weights_only=True) onto the device of the state it is
 restored into, so the restored tensors are bitwise the saved ones.
 Crossing between the two formats goes through models/convert.py (flax
 trees of numpy arrays), as the tests do.
+
+A trainer over a mesh (a state with a "layout", parallel/layout.py)
+saves and restores the same file: its ranks' pieces are put together on
+rank 0 into the one-rank trainer's state, which rank 0 writes, and a
+restore cuts that state into this rank's pieces, so a checkpoint written
+at one world size restores at another, as the reference's Orbax trees
+do.  Every rank calls save and restore.
 """
 
 from __future__ import annotations
@@ -35,12 +42,20 @@ def save_checkpoint(model_dir: str, state: Any, step: int) -> str:
     under model_dir; returns its path.  The file is written beside and
     renamed into place, so a reader never sees half of it."""
     path = os.path.join(os.path.abspath(model_dir), f"checkpoint_{step}")
+    if "layout" in state:
+        from ..parallel.layout import gather_state
+
+        saved = gather_state(state)
+        if saved is None:  # not rank 0
+            return path
+    else:
+        saved = {"model": state["model"].state_dict(),
+                 "opt": state["opt"].state_dict(),
+                 "step": int(state["step"])}
     os.makedirs(path, exist_ok=True)
     target = os.path.join(path, STATE_FILE)
     tmp = f"{target}.{os.getpid()}.tmp"
-    torch.save({"model": state["model"].state_dict(),
-                "opt": state["opt"].state_dict(),
-                "step": int(state["step"])}, tmp)
+    torch.save(saved, tmp)
     os.replace(tmp, target)
     log.info("saved checkpoint %s", path)
     return path
@@ -184,6 +199,12 @@ def restore_checkpoint(model_dir: str, state: Any) -> Optional[Any]:
     path = latest_checkpoint(model_dir)
     if path is None:
         return None
+    if "layout" in state:
+        from ..parallel.layout import scatter_state
+
+        scatter_state(state, _load(path, "cpu"))
+        log.info("restored checkpoint %s", path)
+        return state
     saved = _load(path, _device(state["model"]))
     state["model"].load_state_dict(saved["model"])
     state["opt"].load_state_dict(_steps_where_kept(saved["opt"]))

@@ -116,3 +116,61 @@ def rand_prompt(seed: int, p_len: int, vocab: int = CFG["vocab"]):
     return np.random.default_rng(seed).integers(
         0, vocab, size=(1, p_len)
     ).astype(np.int32)
+
+
+def rank_pools(tmp_path_factory):
+    """A module fixture's body: get(world) gives a pool of `world` gloo
+    ranks (tests/torch_ranks.py), started once per test module and
+    restarted after a failure; all are closed at the module's end."""
+    from torch_ranks import RankPool
+
+    made = {}
+
+    def get(world):
+        pool = made.get(world)
+        if pool is None or pool.broken:
+            if pool is not None:
+                pool.close()
+            pool = made[world] = RankPool(
+                world, str(tmp_path_factory.mktemp(f"ranks{world}")))
+        return pool
+
+    yield get
+    for pool in made.values():
+        pool.close()
+
+
+def assert_trees_close(got, want, rel, what=""):
+    """Every leaf of `want` (a flax tree) within rel * max|leaf| of the
+    same leaf of `got`."""
+    got = dict(jax.tree_util.tree_leaves_with_path(got))
+    want = dict(jax.tree_util.tree_leaves_with_path(want))
+    assert got.keys() == want.keys(), (what, sorted(map(str, got)),
+                                       sorted(map(str, want)))
+    for path, w in want.items():
+        w = np.asarray(w, np.float32)
+        g = np.asarray(got[path], np.float32)
+        assert g.shape == w.shape, (what, path)
+        np.testing.assert_allclose(
+            g, w, rtol=0, atol=rel * max(float(np.abs(w).max()), 1e-30),
+            err_msg=what + jax.tree_util.keystr(path))
+
+
+def reference_adamw(loss_fn, params, steps, lr, *args, jit_kw=None):
+    """The reference trainers' step (value_and_grad, optax.adamw) run
+    `steps` times on `loss_fn(params, *args)` -> (losses, the first
+    step's gradients)."""
+    import optax
+
+    tx = optax.adamw(lr)
+    grad_fn = jax.jit(jax.value_and_grad(loss_fn), **(jit_kw or {}))
+    params = jax.tree_util.tree_map(jnp.asarray, params)
+    opt = tx.init(params)
+    losses, first = [], None
+    for _ in range(steps):
+        loss, grads = grad_fn(params, *args)
+        losses.append(float(loss))
+        first = grads if first is None else first
+        updates, opt = tx.update(grads, opt, params)
+        params = optax.apply_updates(params, updates)
+    return losses, first

@@ -5,7 +5,10 @@ sys.modules, no port file (nor chip_smoke.py) names either in an
 import statement, and none names a module of the JAX package in a
 string (a `-m` target or a factory spec would run the reference in a
 spawned process).  A spawned port worker's own sys.modules is held in
-tests/test_torch_worker_rpc.py."""
+tests/test_torch_worker_rpc.py.  The rank helper of the parallel tests
+(tests/torch_ranks.py, which spawned ranks import by name) names
+neither in an import, imports neither in a fresh interpreter, and each
+rank it spawns holds neither in sys.modules."""
 
 import json
 import os
@@ -101,3 +104,40 @@ def test_a_spawned_worker_runs_the_port_and_imports_no_jax(tmp_path):
         assert len(fleet.submit([[1, 2, 3]], 3, 0.0, timeout=120)[0]) == 3
     finally:
         fleet.close()
+
+
+RANKS_HELPER = os.path.join(ROOT, "tests", "torch_ranks.py")
+
+
+def test_rank_helper_imports_no_jax():
+    with open(RANKS_HELPER) as f:
+        src = f.read()
+    assert not _IMPORT.search(src)
+    assert not _MODULE_STRING.search(src)
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {os.path.dirname(RANKS_HELPER)!r})\n"
+        "import torch_ranks\n"
+        "import container_engine_accelerators_tpu_torch.parallel.moe\n"
+        "print(torch_ranks.modules(0, 1))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, cwd=ROOT, timeout=300, check=True,
+    )
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_spawned_ranks_import_no_jax(tmp_path):
+    sys.path.insert(0, os.path.dirname(RANKS_HELPER))
+    from torch_ranks import RankPool
+
+    pool = RankPool(2, str(tmp_path))
+    try:
+        # A task first, so each rank has imported the port's parallel
+        # modules (mesh, collectives) before it reports.
+        pool.run("meshes")
+        assert pool.run("modules") == [[], []]
+    finally:
+        pool.close()

@@ -21,14 +21,16 @@ images, batch 8):
       it step by step;
   (c) the builders' contracts (scan: K steps per call on batches drawn
       on the device; bank: the bank's shape and cycle), the synthetic
-      batch, the Inception-v3 factory, and what is not ported (a mesh:
-      A10);
+      batch, the Inception-v3 factory, and what a mesh refuses (a
+      model whose BatchNorm would keep per-rank statistics);
   (d) the job end to end in a subprocess at a tiny size on the CPU: it
       logs the reference's lines; --model-dir writes checkpoint_<step>
       after the last step (the reference's job saves and never
-      restores); --model inception_v3 trains at a 75-pixel image; its
-      unported option exits 2 naming its ROADMAP item; without --device
-      cpu and no card it exits 2.
+      restores); --model inception_v3 trains at a 75-pixel image;
+      --distributed on one host initializes nothing and trains, as the
+      reference's does, and exits 2 when more than one card is visible
+      (it trains one card a process); without --device cpu and no card
+      it exits 2.
 """
 
 import os
@@ -185,11 +187,17 @@ def test_pallas_loss_is_the_xla_loss_on_the_cpu():
 
 
 def test_unported_paths_raise_naming_their_items():
-    # Inception-v3 is ported (models/inception.py); a mesh is not.
+    # Inception-v3 is ported (models/inception.py), and a mesh (models/
+    # train.py); under a mesh only the fused norm takes the global
+    # batch's statistics, so other models and norms raise saying so.
     assert type(TT.create_model("inception_v3", device="cpu")).__name__ == (
         "InceptionV3")
-    with pytest.raises(NotImplementedError, match="A10"):
-        TT.build_training(mesh=object(), device="cpu")
+    for name, kw in (("inception_v3", None),
+                     ("resnet50", dict(norm_impl="flax")),
+                     ("resnet50", dict(block_impl="fused_pallas"))):
+        with pytest.raises(NotImplementedError, match="BatchNorm"):
+            TT.build_training(mesh=object(), model_name=name,
+                              model_kwargs=kw, device="cpu")
     with pytest.raises(ValueError, match="loss_impl"):
         _tiny(TT.build_training, loss_impl="bogus")
 
@@ -248,13 +256,27 @@ def test_inception_v3_job_runs_at_a_small_image():
     assert re.search(r"step 1 loss [0-9.]+ images/sec", out.stderr)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--distributed"], "A10"),
-])
-def test_unported_options_exit_2(flags, item):
-    out = _run(*JOB, "--device", "cpu", *flags)
-    assert out.returncode == 2, out.stderr
-    assert item in out.stderr
+def test_distributed_on_one_host_trains_without_init():
+    out = _run(*JOB, "--device", "cpu", "--distributed")
+    assert out.returncode == 0, out.stderr
+    assert "single-host slice; skipping torch.distributed init" in (
+        out.stderr)
+    assert "training resnet50 on 1 devices (cpu), global batch 2" in (
+        out.stderr)
+
+
+def test_distributed_refuses_several_visible_cards(monkeypatch, caplog):
+    import logging
+
+    from container_engine_accelerators_tpu_torch import _device, resnet_main
+
+    monkeypatch.setattr(_device, "resolve_device",
+                        lambda name: torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with caplog.at_level(logging.ERROR, logger="resnet_main"):
+        assert resnet_main.main([*JOB, "--distributed"]) == 2
+    assert "--distributed trains one card a host, and 2 are visible" in (
+        caplog.text)
 
 
 def test_default_device_needs_a_card():

@@ -313,16 +313,17 @@ def test_validation_messages_match_reference(kw):
 
 
 def test_unported_paths_raise_not_implemented():
-    # The chunked head is ported (ops/chunked_xent.py); a mesh is not.
+    # The chunked head is ported (ops/chunked_xent.py), and the mesh
+    # paths (tests/test_torch_lm_parallel.py); a tensor-parallel block
+    # has no decode path.
     step, state, batch_fn = PT.build_lm_training(
         head_impl="chunked", head_chunk=300, vocab=1000, dim=32, depth=1,
         heads=2, seq_len=16, batch=2, device="cpu")
     state, loss = step(state, *batch_fn(torch.Generator().manual_seed(0)))
     assert state["step"] == 1 and bool(torch.isfinite(loss))
-    with pytest.raises(NotImplementedError, match="A10"):
-        PT.build_lm_training(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        PT.resolve_attn("auto", 2048, mesh=object())
+    blk = PT.TPDecoderBlock(32, 2, torch.float32, "cpu", None, 2)
+    with pytest.raises(NotImplementedError, match="decode"):
+        blk(torch.zeros(1, 1, 32), cache=[{}])
 
 
 def test_default_device_is_the_card():
