@@ -9,6 +9,8 @@ one NVIDIA H100, and hold every kernel on those paths against its plain
 PyTorch version.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only mesh_serve   # phase 4e alone, over
+                                              # every visible card
 
 Phases, one JSON line each (stdout):
   1. device   — torch's view of the card; requires compute capability 9.0;
@@ -148,6 +150,24 @@ Phases, one JSON line each (stdout):
                 (`vs_engine`), placements, hits, reroutes and spills,
                 eviction and respawn s, migrate ms a page, boot and spawn
                 s;
+  4e. mesh and health — mesh_serve: the contiguous bf16 engine (16
+                slots) on a parallel.mesh.LocalMesh of every visible card,
+                or of the one card named twice (two shards of 8 rows),
+                against the unsharded contiguous engine on requests():
+                equal greedy tokens or the oracle rule where a row parts,
+                each shard's cache on its device, the serving kernels and
+                flash counted (0 on this path); generate_sharded against
+                generate_prefill on the 8 prompts; the server with --mesh
+                dp answering two requests within the oracle rule; tokens/s
+                against the unsharded engine.  health_nvml: native/nvml.py
+                against torch (device count, UUID unless the NVIDIA driver
+                redacts it, total less its reservation, used
+                bytes up by a 1 GiB allocation), an Xid event set whose
+                wait(500) times out within 0.45-1.5 s, the nvml-fields
+                layer active with no event on the healthy card, and the
+                server with --health-source auto ready and answering
+                (where NVML refuses event registration, the refusal is
+                held instead and that server must fail to load);
   5. train_kernels — flash attention forward and backward at (8, 2048,
                 h, 1024 / h) bf16 for h 8, 16, 32 and 4 (head dims 128,
                 64, 32 on the d-64 instance, 256) and at the ragged
@@ -3164,6 +3184,319 @@ def run_server_predict(torch, gen):
     }
 
 
+# -- phase 4e: dp-mesh serving and the NVML health layer -------------------
+# mesh_serve: the contiguous bf16 engine sharded over a LocalMesh
+# (mesh_devices), against the unsharded contiguous engine on
+# requests().  GEN_SHARDED_NEW: the new tokens of the generate_sharded
+# check over requests()' 8 prompts.
+GEN_SHARDED_NEW = 32
+
+
+def mesh_devices(torch):
+    """mesh_serve's shards: every visible card, or the one card named
+    twice (two shards on one card exercise the shard logic)."""
+    n = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(n)] if n > 1 else ["cuda:0"] * 2
+
+
+def mesh_counts(PA, QM, FA, reset=False):
+    """The serving kernels' and flash's launch counters (the contiguous
+    bf16 engine runs neither serving kernel; its prefill runs flash only
+    where the model's attention resolves to it)."""
+    fns = {"paged_attention": PA.paged_attention,
+           "int8_weight_matmul": QM.int8_weight_matmul,
+           "flash_attention_fwd": FA.flash_attention_fwd}
+    if reset:
+        for fn in fns.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def contiguous_run(torch, model, reqs, mesh, counts):
+    """requests() through a bf16 contiguous engine (under `mesh`, or
+    unsharded), after a warm-up request, with the launch counters set
+    to 0 just before and read just after: (outs, wall s, launches, the
+    per-shard device and cache bytes)."""
+    from container_engine_accelerators_tpu_torch.serving import (
+        ContinuousBatchingEngine,
+    )
+
+    eng = ContinuousBatchingEngine(
+        model, N_SLOTS, paged=False, prefill_chunk=CHUNK, observe=False,
+        device=model.device, mesh=mesh)
+    try:
+        eng.submit([1, 2, 3, 4, 5, 6, 7, 8], 2, timeout=600)  # warm-up
+        wait_idle(eng)
+        counts(reset=True)
+        t0 = time.monotonic()
+        handles = [eng.submit_nowait(p, n) for p, n in reqs]
+        outs = [h.wait(timeout=900)[0] for h in handles]
+        wall = time.monotonic() - t0
+        wait_idle(eng)
+        launches = counts()
+        shards = []
+        for sh, cache in zip(eng._shards, eng._cache if mesh else []):
+            shards.append({
+                "device": str(sh.device), "rows": sh.hi - sh.lo,
+                "cache_bytes": sum(t.numel() * t.element_size()
+                                   for blk in cache for t in blk.values()),
+                "on_device": all(t.device == sh.device
+                                 for blk in cache for t in blk.values())})
+    finally:
+        eng.close()
+    return outs, wall, launches, shards
+
+
+def held_to_oracle(torch, model, prompts, got, want, what):
+    """Greedy tokens equal `want`, or, where a row parts from it, off
+    the oracle's argmax by at most TOP2_TOL along its own path.  Returns
+    (first divergences, the largest gap)."""
+    firsts, gaps = [], [0.0]
+    for p, g, w in zip(prompts, got, want):
+        firsts.append(first_divergence(g, w))
+        if g != w:
+            gaps.append(oracle_gap(torch, model, p, g, False, None, None))
+    if max(gaps) > TOP2_TOL:
+        raise AssertionError(f"{what}: token off the oracle's argmax by "
+                             f"{max(gaps)} logits (> {TOP2_TOL})")
+    return firsts, max(gaps)
+
+
+def run_mesh_serve(torch, model, gen_reqs):
+    """mesh_serve: the dp-mesh engine on LocalMesh(mesh_devices) with
+    16 slots against the unsharded contiguous engine on requests()
+    (equal greedy tokens, or the oracle rule where they part);
+    generate_sharded over the same 8 prompts against generate_prefill;
+    the server booted with --mesh dp (every visible card: a one-card
+    mesh) answering /generate within the oracle rule.  Prints tokens/s
+    against the unsharded engine, each shard's device and cache bytes,
+    and the kernels launched (set to 0 before each run, read after)."""
+    from container_engine_accelerators_tpu_torch.models import generate as G
+    from container_engine_accelerators_tpu_torch.ops import (
+        flash_attention as FA,
+    )
+    from container_engine_accelerators_tpu_torch.ops import (
+        paged_attention as PA,
+    )
+    from container_engine_accelerators_tpu_torch.ops import quant_matmul as QM
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        LocalMesh,
+    )
+
+    t_phase = time.monotonic()
+    reqs = requests(gen_reqs, torch)
+    prompts = [p for p, _ in reqs]
+    n_tok = sum(n for _, n in reqs)
+
+    def counts(reset=False):
+        return mesh_counts(PA, QM, FA, reset)
+
+    mesh = LocalMesh(mesh_devices(torch))
+    base_outs, base_wall, base_l, _ = contiguous_run(
+        torch, model, reqs, None, counts)
+    outs, wall, launches, shards = contiguous_run(
+        torch, model, reqs, mesh, counts)
+    assert len(shards) == mesh.size and all(s["on_device"]
+                                            for s in shards), shards
+    assert [s["rows"] for s in shards] == [N_SLOTS // mesh.size] * mesh.size
+    assert launches["paged_attention"] == launches[
+        "int8_weight_matmul"] == 0, launches
+    assert launches == base_l, (launches, base_l)
+    firsts, gap = held_to_oracle(torch, model, prompts, outs, base_outs,
+                                 "mesh_serve engine")
+
+    # generate_sharded against generate_prefill on the same batch.
+    b = len(reqs)
+    p_max = max(len(p) for p in prompts)
+    padded = np.zeros((b, p_max), np.int64)
+    for i, p in enumerate(prompts):
+        padded[i, :len(p)] = p
+    plens = np.array([len(p) for p in prompts], np.int64)
+    counts(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    want = G.generate_prefill(model, padded, plens, GEN_SHARDED_NEW, 0.0,
+                              torch.Generator(device="cuda")).cpu()
+    prefill_s = time.monotonic() - t0
+    gen_l = {"generate_prefill": counts()}
+    counts(reset=True)
+    models = G.models_on(model, mesh.devices)
+    t0 = time.monotonic()
+    got = G.generate_sharded(model, padded, GEN_SHARDED_NEW, mesh,
+                             prompt_len=plens, models=models).cpu()
+    sharded_s = time.monotonic() - t0
+    gen_l["generate_sharded"] = counts()
+    assert got.shape == want.shape == (b, GEN_SHARDED_NEW), got.shape
+    g_firsts, g_gap = held_to_oracle(
+        torch, model, prompts, got.tolist(), want.tolist(),
+        "generate_sharded")
+
+    # The server with --mesh dp: a mesh of every visible card.
+    app, httpd, thread, port, boot_s = boot_server(
+        server_flags() + ["--mesh", "dp"])
+    try:
+        assert app.mesh is not None and app.engine._mesh is app.mesh
+        assert app.mesh.size == torch.cuda.device_count(), app.mesh
+        assert not app.engine.quant and not app.engine._paged
+        counts(reset=True)
+        served, s_wall = volley(port, [{"prompt": [p.tolist()],
+                                        "max_new": n} for p, n in reqs[:2]])
+        wait_idle(app.engine)
+        server_l = counts()
+        toks = []
+        for code, body, _, _ in served:
+            assert code == 200, (code, body[:300])
+            toks.append(json.loads(body)["tokens"][0])
+        s_firsts, s_gap = held_to_oracle(
+            torch, app.model, prompts[:2], toks, [
+                G.generate_prefill(app.model, p[None], len(p), n, 0.0,
+                                   torch.Generator(device="cuda"))[0]
+                .tolist() for p, n in reqs[:2]], "server --mesh dp")
+        server = {"boot_s": boot_s, "mesh_devices": app.mesh.size,
+                  "slots": app.engine.n_slots, "requests": 2,
+                  "wall_s": s_wall, "first_divergence_vs_oracle": s_firsts,
+                  "max_gap_to_oracle_argmax": s_gap, "launches": server_l}
+    finally:
+        app.drain_for_shutdown(httpd, timeout=60)
+        httpd.server_close()
+        app.close()
+    return {
+        "phase": "mesh_serve", "shards": shards,
+        "requests": b, "tokens": n_tok,
+        "tokens_per_s": n_tok / wall, "unsharded_tokens_per_s":
+            n_tok / base_wall,
+        "vs_unsharded": base_wall / wall,
+        "first_divergence_vs_unsharded": firsts,
+        "max_gap_to_oracle_argmax": gap, "top2_tolerance": TOP2_TOL,
+        "launches": launches, "unsharded_launches": base_l,
+        "generate_sharded": {
+            "rows": b, "new": GEN_SHARDED_NEW, "sharded_s": sharded_s,
+            "prefill_s": prefill_s,
+            "first_divergence_vs_prefill": g_firsts,
+            "max_gap_to_oracle_argmax": g_gap, "launches": gen_l},
+        "server": server,
+        "allocated_bytes": torch.cuda.memory_allocated(),
+        "seconds": time.monotonic() - t_phase,
+    }
+
+
+def run_health_nvml(torch):
+    """health_nvml: the NVML seam held against torch on the card (device
+    count, UUID, total memory, used memory rising by a 1 GiB allocation),
+    an Xid event set whose wait(500) times out on a healthy card within
+    its bound, the nvml-fields vendor layer's reads and state, and the
+    server booted with --health-source auto staying ready and answering.
+    Where NVML refuses event registration the phase holds that refusal
+    instead: the source raises naming it, and the server with
+    --health-source auto fails to load."""
+    from container_engine_accelerators_tpu_torch import server as SV
+    from container_engine_accelerators_tpu_torch.native import nvml as N
+    from container_engine_accelerators_tpu_torch.plugin import health as H
+
+    t_phase = time.monotonic()
+    nv = N.Nvml()
+    n = nv.device_count
+    assert n == torch.cuda.device_count(), (n, torch.cuda.device_count())
+    uuids = [nv.uuid(i) for i in range(n)]
+    mine = "GPU-" + str(torch.cuda.get_device_properties(0).uuid)
+    # The NVIDIA driver may redact every UUID it reports.
+    redacted = set(uuids) == {"GPU-REDACTED"}
+    assert mine in uuids or redacted, (mine, uuids)
+    idx = uuids.index(mine) if mine in uuids else 0
+    total = nv.memory_total_bytes(idx)
+    reserved = nv.memory_reserved_bytes(idx)
+    assert total - reserved == torch.cuda.mem_get_info(0)[1], (total,
+                                                               reserved)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    used0 = nv.memory_used_bytes(idx)
+    block = torch.ones(1 << 30, dtype=torch.uint8, device="cuda")
+    torch.cuda.synchronize()
+    used1 = nv.memory_used_bytes(idx)
+    del block
+    torch.cuda.empty_cache()
+    assert used1 - used0 >= 1 << 30, (used0, used1)
+    rec = {"phase": "health_nvml", "devices": n,
+           "names": nv.device_names(), "uuid_matches_torch": mine in uuids,
+           "uuid_redacted_by_driver": redacted, "total_bytes": total,
+           "reserved_bytes": reserved,
+           "used_rise_bytes": used1 - used0,
+           "duty_cycle_pct": nv.average_duty_cycle(idx),
+           "clocks_event_reasons": nv.clocks_event_reasons(idx),
+           "nvlink_states": nv.nvlink_states(idx)}
+    es = nv.event_set_create()
+    try:
+        nv.register_event(es, idx)
+        refusal = None
+    except N.NvmlError as e:
+        if e.code != N.NVML_ERROR_NOT_SUPPORTED:
+            raise
+        refusal = str(e)
+    if refusal is None:
+        t0 = time.monotonic()
+        ev = nv.wait_for_event(es, 500)
+        waited = time.monotonic() - t0
+        assert ev is None, ev  # a healthy card
+        assert 0.45 <= waited <= 1.5, waited
+        rec["event_wait_500_s"] = waited
+    nv.event_set_free(es)
+    rec["event_registration"] = refusal or "accepted"
+    flags = server_flags() + ["--health-source", "auto"]
+    if refusal is not None:
+        with_refusal = None
+        try:
+            H.make_event_source(nv, "auto")
+        except N.NvmlError as e:
+            with_refusal = str(e)
+        assert with_refusal and "refused" in with_refusal, with_refusal
+        app = SV.ServingApp(SV.parse_args(flags))
+        try:
+            try:
+                app.load_model()
+                loaded = True
+            except N.NvmlError:
+                loaded = False
+            assert not loaded and not app.ready.is_set()
+        finally:
+            app.close()
+        rec["server_refused_to_load"] = True
+        rec["seconds"] = time.monotonic() - t_phase
+        return rec
+    src = H.make_event_source(nv, "nvml-fields")
+    src.POLL_INTERVAL_S = 0.0
+    try:
+        events = [src.wait(100) for _ in range(3)]
+        assert events == [None] * 3, events  # a healthy card
+        assert src.sdk_state() == "active", src._metric_state
+        rec["vendor_state"] = {"aggregate": src.sdk_state(),
+                               **src._metric_state}
+    finally:
+        src.close()
+    app, httpd, thread, port, boot_s = boot_server(flags)
+    try:
+        watch = app._health_watch
+        assert watch is not None and isinstance(
+            app._health_source, H.NvmlFieldsEventSource)
+        time.sleep(2.5)  # two of the watch's 1 s waits and polls
+        assert app.draining() == "" and not watch.unhealthy
+        code, body, _, _ = http(port, "/healthz")
+        assert (code, body) == (200, b"ok"), (code, body)
+        code, body, _, secs = http(port, "/generate", {
+            "prompt": [[1, 2, 3, 4, 5, 6, 7, 8]], "max_new": 8})
+        assert code == 200, (code, body[:300])
+        assert len(json.loads(body)["tokens"][0]) == 8
+        rec["server"] = {"boot_s": boot_s, "generate_s": secs,
+                         "source": type(app._health_source).__name__,
+                         "vendor_state": app._health_source.sdk_state()}
+    finally:
+        app.drain_for_shutdown(httpd, timeout=60)
+        httpd.server_close()
+        app.close()
+    nv.shutdown()
+    rec["seconds"] = time.monotonic() - t_phase
+    return rec
+
+
 # -- phases 5-6: LM training -----------------------------------------------
 TRAIN = dict(vocab=32000, dim=1024, depth=8, heads=8, seq_len=2048,
              batch=8, learning_rate=3e-4)
@@ -4892,7 +5225,13 @@ def run_mesh_modes(torch):
             "seconds": time.monotonic() - t_phase}, launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", choices=("mesh_serve",),
+                        help="run this phase alone (the device line first)")
+    only = parser.parse_args(argv).only
     try:
         import torch
     except ImportError:
@@ -4934,6 +5273,17 @@ def main() -> int:
     })
     if (props.major, props.minor) != (9, 0):
         raise RuntimeError(f"needs compute capability 9.0, got {props}")
+    if only == "mesh_serve":
+        model = G.make_decoder(device="cuda", **CFG)
+        model.init_random(torch.Generator().manual_seed(SEED))
+        emit({**run_mesh_serve(torch, model,
+                               torch.Generator().manual_seed(SEED + 1)),
+              "card": smi})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return 0
     global SMS
     SMS = props.multi_processor_count
 
@@ -5021,7 +5371,12 @@ def main() -> int:
     emit({**run_server_fleet(torch, engine_tps[True], fleet_outs[True][:8],
                              torch.Generator().manual_seed(SEED + 1)),
           "card": smi})
+    serve_rec = run_mesh_serve(torch, model,
+                               torch.Generator().manual_seed(SEED + 1))
+    emit({**serve_rec, "card": smi})
     del model
+    torch.cuda.empty_cache()
+    emit({**run_health_nvml(torch), "card": smi})
     torch.cuda.empty_cache()
 
     tgen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -5122,12 +5477,17 @@ def main() -> int:
             k["launches_tiers"] = engine_launches[(quant, "_tiers")][op]
             k["launches_server"] = server_launches[quant][op]
             k["launches_fleet"] = fleet_launches[quant][op]
+            k["launches_mesh_serve"] = serve_rec["launches"][op]
             if op == "int8_weight_matmul":  # the bf16 engine's drafter
                 k["launches_spec_bf16"] = engine_launches[(False, "_spec")][
                     op]
                 k["launches_server_wave"] = server_launches["wave"][op]
     for k in kernels[3:5]:  # lm_large runs flash at head dim 128 too
         k["launches_lm_large"] = l_large[k["name"]]
+    # The dp-mesh engine's prefill (phase 4e) runs flash only where the
+    # decode model's attention resolves to it.
+    kernels[3]["launches_mesh_serve"] = serve_rec["launches"][
+        "flash_attention_fwd"]
     # The mesh paths (phases 10-11) at head dim 128: flash on the MoE LM
     # and dp / tp / pp, the fused loss on dp.
     for k in kernels[3:5] + kernels[11:13]:

@@ -17,3 +17,13 @@ def resolve_device(device="cuda") -> torch.device:
             "the CPU"
         )
     return dev
+
+
+def canonical_device(device) -> torch.device:
+    """`device` with its index filled in: "cuda" is the current card
+    (so "cuda" and "cuda:0" compare equal on one card); other devices
+    as given."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev

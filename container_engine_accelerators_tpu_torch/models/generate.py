@@ -3,6 +3,7 @@ container_engine_accelerators_tpu/models/generate.py for the paged
 and the contiguous serving paths (`make_decoder` :36, `_sample` :122,
 `generate_padded` :171, the oracle `generate_prefill` :241,
 `init_decode_cache` :356, `prefill_chunk` :446,
+`generate_sharded` :1072,
 `prefill_finish_into_slot` :491,
 `init_paged_cache` :566, `paged_scatter_row` :595,
 `paged_preload_scratch` :627, `_pool_leaves` :660, `gather_kv_pages`
@@ -26,14 +27,17 @@ Differences of idiom, not of math:
   - the reference's lax.scan over k chained steps is a Python loop of k
     steps; on the card the engine captures that loop into one CUDA
     graph (serving/decode_graph.py), so nothing in a step's body may
-    read a device value back to the host.
+    read a device value back to the host;
+  - the reference's dp mesh is one SPMD program; here a mesh is a
+    parallel.mesh.LocalMesh of local devices, and `generate_sharded`
+    runs each shard's rows through `generate_prefill` on its own device.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .._device import resolve_device
+from .._device import canonical_device, resolve_device
 from .transformer import TransformerLM
 
 
@@ -209,6 +213,85 @@ def generate_prefill(  # hot-path
         tok = _sample(logits[:, 0], temperature, generator, top_k, top_p)
         toks.append(tok)
     return torch.stack(toks, dim=1)
+
+
+def model_copy(model: TransformerLM, device) -> TransformerLM:
+    """A copy of `model` (same config, same weights) on `device`."""
+    copy = type(model)(**dict(model.config, device=device))
+    copy.load_state_dict(model.state_dict())
+    return copy
+
+
+def models_on(model: TransformerLM, devices) -> dict:
+    """{device: model} over the distinct `devices` (canonical, see
+    _device.canonical_device): `model` itself on its own device and a
+    copy on each other one, so the weights are placed once a device."""
+    out = {canonical_device(model.device): model}
+    for d in devices:
+        d = canonical_device(d)
+        if d not in out:
+            out[d] = model_copy(model, d)
+    return out
+
+
+def generate_sharded(
+    model: TransformerLM,
+    prompt,
+    max_new: int,
+    mesh,
+    temperature=0.0,
+    seed: int = 0,
+    prompt_len=None,
+    top_k=None,
+    top_p=None,
+    models=None,
+):
+    """Data-parallel batched decode over a LocalMesh: the prompt rows
+    split into one contiguous block a shard, each block decodes through
+    `generate_prefill` on its shard's device with the model placed there
+    (`models`: a `models_on` dict made once by the caller, default made
+    here), and the outputs concatenate in row order on the mesh's first
+    device.  No step exchanges anything between shards.  prompt_len /
+    temperature / top_k / top_p: scalars (broadcast) or per-row (b,)
+    vectors, which split with their rows.  Shard s samples from a
+    generator seeded `seed + s` on its device (the reference's rng key;
+    greedy rows ignore it).  Greedy output equals `generate_prefill` on
+    one device.  Requires batch % shards == 0.  Returns (b, max_new)."""
+    devs = [canonical_device(d) for d in mesh.devices]
+    n_shard = len(devs)
+    prompt = torch.as_tensor(prompt, dtype=torch.int64, device="cpu")
+    b, p_max = prompt.shape
+    if b % n_shard:
+        raise ValueError(
+            f"sharded decode: batch {b} must divide over {n_shard} "
+            f"devices (axes {tuple(mesh.axis_names)})"
+        )
+    if models is None:
+        models = models_on(model, devs)
+    per = b // n_shard
+
+    def rows(x, lo, dtype):
+        x = torch.as_tensor(x, dtype=dtype)
+        return x[lo:lo + per] if x.ndim == 1 else x
+
+    outs = []
+    for s, dev in enumerate(devs):
+        lo = s * per
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed) + s)
+        kw = {}
+        if top_k is not None:
+            kw["top_k"] = rows(top_k, lo, torch.int64)
+        if top_p is not None:
+            kw["top_p"] = rows(top_p, lo, torch.float32)
+        toks = generate_prefill(
+            models[dev], prompt[lo:lo + per],
+            rows(p_max if prompt_len is None else prompt_len, lo,
+                 torch.int64),
+            max_new, rows(temperature, lo, torch.float32), gen, **kw,
+        )
+        outs.append(toks.to(devs[0], non_blocking=True))
+    return torch.cat(outs)
 
 
 def _kv_buffers(model, shape, device):

@@ -14,6 +14,13 @@ the port runs one program per rank, so a tensor is either whole on every
 rank (replicated) or held in pieces.  `mesh_from_env` reads the
 plugin's env contract from a mapping the caller passes; the port reads
 no environment itself.
+
+Serving meshes are another thing: the reference's dp engine is one
+SPMD program over the local devices, and one scheduler cannot span
+processes.  `LocalMesh` is that mesh in one process: a list of torch
+devices along the data axis, one shard of the batch each.  It may name
+one device more than once (two shards on one card), and
+`local_dp_submeshes` carves it into fleet replicas.
 """
 
 from __future__ import annotations
@@ -140,6 +147,54 @@ def dp_submeshes(n: int, ranks: Optional[Sequence[int]] = None) -> list:
         return [None] * n
     return [_mesh(ranks[i * per:(i + 1) * per], (per,), (DATA_AXIS,))
             for i in range(n)]
+
+
+class LocalMesh:
+    """A data-parallel mesh of local devices in one process (the
+    reference's `Mesh(np.array(devices), (DATA_AXIS,))` under a serving
+    engine): `devices` in shard order, `axis_names` (DATA_AXIS,) and
+    `shape` {DATA_AXIS: n}.  A device may repeat: each entry is one
+    shard."""
+
+    axis_names = (DATA_AXIS,)
+
+    def __init__(self, devices: Sequence):
+        self.devices = tuple(torch.device(d) for d in devices)
+        if not self.devices:
+            raise ValueError("a LocalMesh needs at least one device")
+        if len({d.type for d in self.devices}) != 1:
+            raise ValueError(
+                f"a LocalMesh's devices share one type, got {self.devices}")
+
+    @property
+    def shape(self) -> dict:
+        return {DATA_AXIS: len(self.devices)}
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def __repr__(self):
+        return f"LocalMesh({[str(d) for d in self.devices]})"
+
+
+def local_dp_submeshes(n: int, devices: Sequence) -> list:
+    """`dp_submeshes` over local devices: `n` contiguous groups of
+    `devices`, a LocalMesh per multi-device group and None for a group
+    of one device (a single-device replica needs no mesh, so it keeps
+    the paged cache and the int8 path)."""
+    devices = list(devices)
+    n = int(n)
+    if n < 1:
+        raise ValueError(f"need >= 1 replica group, got {n}")
+    if len(devices) % n:
+        raise ValueError(
+            f"{len(devices)} devices do not divide into {n} replica groups"
+        )
+    per = len(devices) // n
+    if per == 1:
+        return [None] * n
+    return [LocalMesh(devices[i * per:(i + 1) * per]) for i in range(n)]
 
 
 @dataclass(frozen=True)

@@ -63,11 +63,21 @@ The fleet (continuous engine only): --fleet N SERVE_LM_FLEET (N >= 2
   build their engines from the same kwargs as the single engine
   (`engine_kw`), warm every replica before readiness, and drain on the
   last replica's eviction; SIGTERM closes a process fleet's workers.
-Accepted but not ported yet, each exits 2 naming its ROADMAP item:
---mesh dp (SERVE_LM_MESH: A10b); --health-source (SERVE_HEALTH_SOURCE:
-A12).  SERVE_HEALTH_CRITICAL's default is `HEALTH_CRITICAL`, the codes
-`attach_health_source` drains on; its flag comes with --health-source
-(A12).
+The dp mesh: --mesh dp SERVE_LM_MESH decodes data-parallel over a
+  parallel.mesh.LocalMesh of every visible card (on the CPU,
+  --cpu-mesh-shards shards, the stand-in for the reference's virtual
+  device count): the continuous engine shards its slots (--slots
+  rounds up to a multiple of the shards), the wave batcher decodes each
+  group through generate_sharded, --fleet N carves the cards into N
+  contiguous submeshes (one card each: one replica a card), and the
+  int8 path is off; it does not compose with --fleet-procs.
+Health-gated drain: --health-source auto|native|nvml-fields
+  SERVE_HEALTH_SOURCE subscribes to plugin/health.py's NVML event
+  source once the app is ready: an event whose code is in
+  --health-critical SERVE_HEALTH_CRITICAL (default 1,2,3,4,5,1000), or
+  any host-wide event, drains the server, and an ERROR_CLEARED restores
+  it.  Without NVML, or where the NVIDIA driver refuses registration,
+  loading fails.
 
 Differences of idiom from the reference: its module globals live in one
 `ServingApp`, so several servers can share a process (`main` alone
@@ -108,6 +118,8 @@ DRAIN_REASONS = ("device-health", "shutdown", "engine-failed")
 # The chip event codes that begin the "device-health" drain (the
 # reference's SERVE_HEALTH_CRITICAL default).
 HEALTH_CRITICAL = frozenset({1, 2, 3, 4, 5, 1000})
+# plugin/health.py's event sources (--health-source).
+HEALTH_SOURCES = ("auto", "native", "nvml-fields")
 # The factory a process fleet's workers build their model with.
 WORKER_FACTORY = ("container_engine_accelerators_tpu_torch.serving.worker"
                   ":demo_lm_factory")
@@ -172,9 +184,10 @@ class ServeConfig:
     fleet_hb_s: float = 5.0
     fleet_hb_timeout_s: float = 15.0
     fleet_reconnect_s: float = 10.0
-    # Not ported yet (main exits 2): A10b, A12.
-    mesh: Optional[str] = None
-    health_source: Optional[str] = None
+    mesh: str = ""
+    cpu_mesh_shards: int = 8
+    health_source: str = ""
+    health_critical: frozenset = HEALTH_CRITICAL
     grid: int = dataclasses.field(init=False)
 
     def __post_init__(self):
@@ -188,16 +201,15 @@ class ServeConfig:
                              self.max_gen_batch)
         self.retry_after_s = max(1, int(float(self.retry_after_s)))
 
-    def unported(self) -> Optional[str]:
-        """Why this configuration cannot run yet, naming the ROADMAP
-        item, or None."""
-        if self.mesh is not None:
-            return ("a device mesh (--mesh) is not ported yet (ROADMAP "
-                    "A10b)")
-        if self.health_source is not None:
-            return ("--health-source needs plugin/health.py's event "
-                    "sources, not ported yet (ROADMAP A12)")
-        return None
+
+def _codes(spec: str) -> frozenset:
+    """"1,2,1000" -> frozenset({1, 2, 1000}) (--health-critical)."""
+    try:
+        return frozenset(int(x) for x in spec.split(",") if x.strip())
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--health-critical takes comma-separated integer codes, got "
+            f"{spec!r}") from None
 
 
 def parse_args(argv=None) -> ServeConfig:
@@ -265,8 +277,13 @@ def parse_args(argv=None) -> ServeConfig:
     opt("--fleet-hb-s", float, default=d.fleet_hb_s)
     opt("--fleet-hb-timeout-s", float, default=d.fleet_hb_timeout_s)
     opt("--fleet-reconnect-s", float, default=d.fleet_reconnect_s)
-    opt("--mesh", str, default=None, help="ROADMAP A10b")
-    opt("--health-source", str, default=None, help="ROADMAP A12")
+    opt("--mesh", str, default=d.mesh, choices=("", "dp"))
+    opt("--cpu-mesh-shards", int, default=d.cpu_mesh_shards,
+        help="--mesh dp shards with --device cpu")
+    opt("--health-source", str, default=d.health_source,
+        choices=("",) + HEALTH_SOURCES)
+    opt("--health-critical", _codes,
+        default=",".join(map(str, sorted(HEALTH_CRITICAL))))
     args = vars(p.parse_args(argv))
     for key in ("fleet_affinity", "fleet_migrate", "fleet_tcp"):
         args[key] = args[key] == "1"
@@ -293,15 +310,18 @@ def _parse_fleet_roles(spec: str, n: int):
     return roles
 
 
-def _check_fleet_migration_knobs(cfg: ServeConfig, roles) -> None:
+def _check_fleet_migration_knobs(cfg: ServeConfig, roles,
+                                 submeshes=None) -> None:
     """Roles and migration need the paged engine with the radix prefix
-    cache (page export serializes trie pages): a misconfigured fleet
-    fails at boot, never as per-request export failures."""
-    if (roles or cfg.fleet_migrate) and not (cfg.paged and cfg.prefix_cache):
+    cache (page export serializes trie pages) and no mesh: a
+    misconfigured fleet fails at boot, never as per-request export
+    failures."""
+    if (roles or cfg.fleet_migrate) and (
+            submeshes is not None or not (cfg.paged and cfg.prefix_cache)):
         raise ValueError(
             "--fleet-roles / --fleet-migrate need the paged engine with "
-            "the prefix cache (page migration moves radix-trie pool "
-            "pages)"
+            "the prefix cache and no mesh (page migration moves "
+            "radix-trie pool pages)"
         )
 
 
@@ -545,10 +565,13 @@ class ServingApp:
     watch, and the model path `load_model` builds (the continuous engine
     under its supervisor, the wave batcher, or the classifier).  The
     server is SERVING once ready and while no drain reason is held;
-    reasons compose, and service resumes when every one has cleared."""
+    reasons compose, and service resumes when every one has cleared.
+    `nvml`: the NVML handle --health-source watches (None opens the
+    NVIDIA driver's library)."""
 
-    def __init__(self, cfg: ServeConfig):
+    def __init__(self, cfg: ServeConfig, nvml=None):
         self.cfg = cfg
+        self._nvml = nvml
         self.ready = threading.Event()
         self.registry = Registry()
         self._http = self.registry.counter(
@@ -573,6 +596,9 @@ class ServingApp:
         self._predict = None
         self._predict_pool = None  # the classifier's one device thread
         self._health_watch = None
+        self._health_source = None  # the --health-source one, owned here
+        self.mesh = None  # the --mesh dp LocalMesh
+        self._mesh_models = None  # the wave path's model a mesh device
 
     # -- the drain state machine ----------------------------------------
     def count_http(self, route: str, code: int) -> None:
@@ -692,8 +718,22 @@ class ServingApp:
         if self._health_watch is not None:
             self._health_watch.stop()
         self._health_watch = _HealthWatch(
-            self, source, HEALTH_CRITICAL if critical is None else critical)
+            self, source,
+            self.cfg.health_critical if critical is None else critical)
         return self._health_watch
+
+    def _attach_configured_health_source(self) -> None:
+        """--health-source: watch plugin/health.py's NVML source."""
+        if not self.cfg.health_source:
+            return
+        from .plugin import health as plugin_health
+
+        self._health_source = plugin_health.make_event_source(
+            self._nvml, source=self.cfg.health_source)
+        self.attach_health_source(self._health_source)
+        print(f"serving: health-gated degradation on "
+              f"({self.cfg.health_source}, critical "
+              f"{sorted(self.cfg.health_critical)})", file=sys.stderr)
 
     def dump_flight_recorder(self, reason: str) -> None:
         """Dump the engine's flight recorder to stderr, every replica's
@@ -729,6 +769,8 @@ class ServingApp:
         cfg = self.cfg
         dev = resolve_device(cfg.device)
         lm_fleet = cfg.model == "transformer_lm" and cfg.engine == "continuous"
+        if cfg.mesh == "dp" and cfg.model == "transformer_lm":
+            self.mesh = self._local_mesh(dev)
         if lm_fleet and cfg.fleet_procs >= 2:
             if model is not None:
                 raise ValueError("a process fleet's workers build their "
@@ -747,7 +789,24 @@ class ServingApp:
                 self._load_continuous(model)
             else:
                 self._load_wave(model)
+        self._attach_configured_health_source()
         self.ready.set()
+
+    def _local_mesh(self, dev):
+        """--mesh dp: every visible card (--cpu-mesh-shards shards on
+        the CPU), with the int8 path off."""
+        from .parallel.mesh import LocalMesh
+
+        cfg = self.cfg
+        devs = ([torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+                if dev.type == "cuda" else [dev] * cfg.cpu_mesh_shards)
+        if cfg.quant != "off":
+            print("serving: --mesh dp disables the int8 path (single-card "
+                  f"kernels); decoding bf16 over {len(devs)} devices",
+                  file=sys.stderr)
+            cfg.quant = "off"
+        return LocalMesh(devs)
 
     def _build_lm(self, dev):
         from .models import generate as G
@@ -772,13 +831,16 @@ class ServingApp:
         warm_p = min(cfg.warm_prompt, cfg.max_seq - 1)
         return warm_p, max(1, min(cfg.warm_new, cfg.max_seq - warm_p))
 
-    def engine_kw(self) -> dict:
+    def engine_kw(self, slots=None) -> dict:
         """The ONE set of engine kwargs the single engine and both fleet
-        modes build from (the fleets' replicas each get --slots slots),
-        so a knob cannot reach one mode and miss another."""
+        modes build from (the fleets' replicas each get --slots slots;
+        `slots`: the per-engine count the quant ladder prices, which a
+        mesh may round up), so a knob cannot reach one mode and miss
+        another."""
         cfg = self.cfg
         return dict(
-            quant=self.pick_quant(cfg.slots), prompt_grid=cfg.grid,
+            quant=self.pick_quant(cfg.slots if slots is None else slots),
+            prompt_grid=cfg.grid,
             prefill_chunk=cfg.prefill_chunk, pipeline=cfg.pipeline,
             paged=cfg.paged, page_size=cfg.page_size,
             kv_pages=cfg.kv_pages or None, prefix_cache=cfg.prefix_cache,
@@ -797,12 +859,17 @@ class ServingApp:
     def _load_continuous(self, model):
         from .serving import ContinuousBatchingEngine, EngineSupervisor
 
-        cfg = self.cfg
-        kw = self.engine_kw()
+        cfg, mesh = self.cfg, self.mesh
+        slots = cfg.slots
+        if mesh is not None and slots % mesh.size:
+            slots = mesh.size * -(-slots // mesh.size)
+            print(f"serving: rounded --slots to {slots} (must divide over "
+                  f"{mesh.size} devices)", file=sys.stderr)
+        kw = self.engine_kw(slots)
         quant = kw["quant"]
         engine = ContinuousBatchingEngine(
-            model, cfg.slots, registry=self.registry, device=model.device,
-            **kw,
+            model, slots, registry=self.registry, device=model.device,
+            mesh=mesh, **kw,
         )
         self.engine = engine
         # Past the restart budget the engine is dead and the server
@@ -813,14 +880,16 @@ class ServingApp:
         ).start()
         snap = engine.snapshot()
         print(
-            f"serving: continuous engine, {cfg.slots} slots, "
-            f"{'int8 weight+kv' if quant else 'bf16'} decode, "
+            f"serving: continuous engine, {slots} slots, "
+            f"{'int8 weight+kv' if quant else 'bf16'} decode"
+            + (f", dp over {mesh.size} devices" if mesh else "")
+            + ", "
             f"prefill_chunk {cfg.prefill_chunk}, pipeline "
             f"{'on' if cfg.pipeline else 'off'}, "
             + (f"paged page{cfg.page_size} pool"
                f"{snap.get('kv_pages_total', 0)} prefix_cache "
                f"{'on' if cfg.prefix_cache else 'off'}, "
-               if cfg.paged else "contiguous cache, ")
+               if engine._paged else "contiguous cache, ")
             + (f"spec_k {cfg.spec_k}, " if cfg.spec_k else "")
             + f"max_queue {cfg.max_queue}, {cfg.step_retries} step retries",
             file=sys.stderr,
@@ -848,20 +917,45 @@ class ServingApp:
         from .serving.fleet import FleetManager
 
         cfg = self.cfg
+        submeshes = devices = None
+        fleet_slots = cfg.slots
+        if self.mesh is not None:
+            from .parallel.mesh import local_dp_submeshes
+
+            devs = self.mesh.devices
+            if len(devs) % cfg.fleet == 0:
+                per = len(devs) // cfg.fleet
+                if per == 1:
+                    devices = list(devs)  # one replica a device
+                else:
+                    submeshes = local_dp_submeshes(cfg.fleet, devs)
+                    if fleet_slots % per:
+                        fleet_slots = per * -(-fleet_slots // per)
+                        print(f"serving: rounded --slots to {fleet_slots} "
+                              f"per replica (must divide over {per} "
+                              "devices)", file=sys.stderr)
+            else:
+                print(f"serving: {len(devs)} devices do not divide into "
+                      f"{cfg.fleet} replicas; building single-device "
+                      "replicas", file=sys.stderr)
         roles = _parse_fleet_roles(cfg.fleet_roles, cfg.fleet)
-        _check_fleet_migration_knobs(cfg, roles)
+        _check_fleet_migration_knobs(cfg, roles, submeshes)
         self.fleet = FleetManager(
-            model, cfg.fleet, cfg.slots, engine_kw=self.engine_kw(),
-            affinity=cfg.fleet_affinity, roles=roles,
+            model, cfg.fleet, fleet_slots,
+            engine_kw=self.engine_kw(fleet_slots), devices=devices,
+            submeshes=submeshes, affinity=cfg.fleet_affinity, roles=roles,
             migrate=cfg.fleet_migrate, max_restarts=cfg.max_restarts,
             # The last replica evicted: nothing is left to serve.  One
             # replica dying never drains the fleet.
             on_all_dead=lambda err: self.begin_drain("engine-failed"),
             registry=self.registry,
         )
-        print(f"serving: fleet of {cfg.fleet} x {cfg.slots}-slot engines "
-              f"on {model.device}, affinity "
-              f"{'on' if cfg.fleet_affinity else 'off'}"
+        print(f"serving: fleet of {cfg.fleet} x {fleet_slots}-slot engines "
+              + (f"over dp submeshes of {len(self.mesh.devices)} devices"
+                 if submeshes else
+                 f"one a device of {len(devices)}" if devices else
+                 f"on {model.device}")
+              + f", affinity {'on' if cfg.fleet_affinity else 'off'}"
               + (f", roles {cfg.fleet_roles}" if roles else
                  ", kv migration on" if cfg.fleet_migrate else "")
               + f", max_queue {cfg.max_queue} per replica", file=sys.stderr)
@@ -877,6 +971,10 @@ class ServingApp:
         if cfg.fleet >= 2:
             raise ValueError("--fleet and --fleet-procs are mutually "
                              "exclusive")
+        if cfg.mesh:
+            raise ValueError("--mesh does not compose with --fleet-procs: "
+                             "each worker owns its own runtime's device "
+                             "view")
         roles = _parse_fleet_roles(cfg.fleet_roles, cfg.fleet_procs)
         _check_fleet_migration_knobs(cfg, roles)
         self.fleet = ProcessFleetManager(
@@ -928,12 +1026,16 @@ class ServingApp:
         from .models import generate as G
         from .models import quant_generate as QG
 
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self.mesh
+        n_shard = 1 if mesh is None else mesh.size
         if cfg.quant != "off":
             # Once at load: the int8 tree and its dequantized twin (the
             # prefill model) serve every group.
             self.qparams = QG.quantize_decode_params(model)
             self.deq = QG.dequantize_decode_params(self.qparams, model)
+        if mesh is not None:
+            # Once at load: the model on each mesh device.
+            self._mesh_models = G.models_on(model, mesh.devices)
 
         def run_group(group):
             # One decode for a group sharing (p_bucket, n_bucket); rows
@@ -941,6 +1043,13 @@ class ServingApp:
             p_bucket, n_bucket, adv = group[0]["key"]
             rows = sum(r["rows"] for r in group)
             b_bucket = _bucket(rows, 1)
+            if n_shard > 1:
+                # n_shard x a power of two, so every bucket divides over
+                # the mesh; the exact multiple where that would pass the
+                # row cap (non-power-of-two shard counts only).
+                b_bucket = n_shard * _bucket(-(-rows // n_shard), 1)
+                if b_bucket > max(cfg.max_gen_batch, n_shard):
+                    b_bucket = n_shard * -(-rows // n_shard)
             padded = np.zeros((b_bucket, p_bucket), np.int32)
             p_lens = np.ones((b_bucket,), np.int64)
             temps = np.zeros((b_bucket,), np.float32)
@@ -966,9 +1075,15 @@ class ServingApp:
                 padded[at:, :p0.shape[1]] = p0[0]
                 p_lens[at:] = p0.shape[1]
             sampling = {"top_k": tks, "top_p": tps} if adv else {}
+            seed = int.from_bytes(os.urandom(4), "big")
             gen = torch.Generator(device=model.device)
-            gen.manual_seed(int.from_bytes(os.urandom(4), "big"))
-            if self.pick_quant(b_bucket):
+            gen.manual_seed(seed)
+            if mesh is not None:
+                toks = G.generate_sharded(
+                    model, padded, n_bucket, mesh, temperature=temps,
+                    seed=seed, prompt_len=p_lens, models=self._mesh_models,
+                    **sampling)
+            elif self.pick_quant(b_bucket):
                 toks = QG.generate_prefill_quant(
                     model, padded, p_lens, n_bucket, temps, gen,
                     qparams=self.qparams, deq=self.deq, **sampling)
@@ -1044,6 +1159,9 @@ class ServingApp:
         if self._health_watch is not None:
             self._health_watch.stop()
             self._health_watch = None
+        if self._health_source is not None:
+            self._health_source.close()  # frees its NVML event set
+            self._health_source = None
         if self.fleet is not None:
             self.fleet.close()
         if self.supervisor is not None:
@@ -1281,10 +1399,6 @@ def main(argv=None) -> int:
     import signal
 
     cfg = parse_args(argv)
-    why = cfg.unported()
-    if why:
-        print(f"serving: {why}", file=sys.stderr)
-        return 2
     try:
         resolve_device(cfg.device)
     except RuntimeError as e:

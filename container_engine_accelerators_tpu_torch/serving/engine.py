@@ -83,7 +83,16 @@ Observability (observe=True, the default): latency histograms, a trace
 per request and the flight recorder (serving/observe.py, otel.py),
 folded from monotonic stamps staged on the rows and windows at admit,
 commit, retire and failure boundaries, never between staging and
-dispatch.  A mesh (A10b) raises NotImplementedError.
+dispatch.
+
+A dp mesh (mesh=parallel.mesh.LocalMesh, the bf16 contiguous engine
+only, as in the reference): the slot rows split into one contiguous
+block a shard, each block's cache rows live on its shard's device with
+the model placed once a device, an admission prefills on its slot's
+shard, and a decode step launches every shard's rows on its own device
+and gathers the next tokens onto the first device, so the commit keeps
+its one readback.  Paged KV, speculative and fused decode fall away,
+and with them export, adopt and the tiers.
 
 Failure semantics are the reference's: a failed admission fails only
 its ticket; a failed step retries with capped backoff, then fails the
@@ -105,7 +114,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import canonical_device, resolve_device
 from ..models import generate as G
 from ..models import quant_generate as QG
 from ..models.transformer import TransformerLM
@@ -408,6 +417,15 @@ class _StageSet:
         }
 
 
+class _Shard:
+    """One shard of a dp-mesh engine: its device, the model placed
+    there, its sampling generator and its slot rows [lo, hi)."""
+
+    def __init__(self, i, device, model, gen, lo, hi):
+        self.i, self.device, self.model, self.gen = i, device, model, gen
+        self.lo, self.hi = lo, hi
+
+
 class ContinuousBatchingEngine:
     """In-flight batching over a paged KV pool.
 
@@ -439,7 +457,10 @@ class ContinuousBatchingEngine:
     observability (histograms, traces, flight recorder; False builds the
     uninstrumented engine); registry: an observe.Registry to share with
     the embedder (None builds a private one).  device: where the engine
-    runs (default the card; raises without one unless "cpu")."""
+    runs (default the card; raises without one unless "cpu").  mesh: a
+    parallel.mesh.LocalMesh whose first device is `device`; the engine
+    then shards its slot rows over the mesh (module docstring); n_slots
+    must divide over it, and quant=True raises."""
 
     def __init__(
         self,
@@ -493,10 +514,24 @@ class ContinuousBatchingEngine:
         spec = int(spec_k)
         if spec < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP A10b)"
+        if quant and mesh is not None:
+            raise ValueError(
+                "the int8 engine is single-chip (its weight matmuls run "
+                "on one card); build a bf16 engine for a mesh"
             )
+        if paged and mesh is not None:
+            log.info(
+                "paged KV cache disabled under a mesh: the contiguous "
+                "layout batch-partitions, the paged flat scatter does "
+                "not"
+            )
+            paged = False
+        if spec > 0 and mesh is not None:
+            log.info(
+                "speculative decoding disabled under a mesh: the int8 "
+                "drafter and the batched verify scatter are single-chip"
+            )
+            spec = 0
         self._model = model
         self.n_slots = int(n_slots)
         self.quant = bool(quant)
@@ -568,6 +603,13 @@ class ContinuousBatchingEngine:
         self._step_retries = max(0, int(step_retries))
         self._retry_backoff_s = float(retry_backoff_s)
         self._retry_backoff_cap_s = float(retry_backoff_cap_s)
+        self._mesh = mesh
+        self._shards: List[_Shard] = []
+        if mesh is not None:
+            self._shards = self._make_shards(mesh, model, int(rng_seed))
+        # Every distinct device the engine's state lives on.
+        self._devices = list(dict.fromkeys(
+            [self.device] + [sh.device for sh in self._shards]))
 
         # The device seams, as attributes so a fault injector can wrap
         # them: the chunk seam (a non-final prefill chunk into the
@@ -665,6 +707,8 @@ class ContinuousBatchingEngine:
                 )
 
             self._preload_fn = G.paged_preload_scratch
+            if self._shards:
+                prefill_fn, decode_fn = self._mesh_seams()
         # The page seams of export / adopt and the tiers, as attributes
         # a fault injector can wrap: (cache, page ids) -> gathered
         # leaves on the device, and (cache, page ids, parts) -> cache.
@@ -881,6 +925,76 @@ class ContinuousBatchingEngine:
         the flight recorder, `.traces` the recent-request trace ring."""
         return self._obs
 
+    def _make_shards(self, mesh, model, rng_seed) -> List[_Shard]:
+        """The shards of a dp mesh (n_slots split into contiguous
+        blocks), the model placed once a distinct device."""
+        devs = [canonical_device(d) for d in mesh.devices]
+        if devs[0] != canonical_device(self.device):
+            raise ValueError(
+                f"the engine runs on {self.device}, its mesh starts at "
+                f"{devs[0]}"
+            )
+        n_dev = len(devs)
+        if self.n_slots % n_dev:
+            raise ValueError(
+                f"n_slots {self.n_slots} must divide over {n_dev} "
+                f"devices (axes {tuple(mesh.axis_names)})"
+            )
+        models = G.models_on(model, devs)
+        per = self.n_slots // n_dev
+        shards = []
+        for i, dev in enumerate(devs):
+            gen = self._gen
+            if i:
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(rng_seed + i)
+            shards.append(_Shard(i, dev, models[dev], gen, i * per,
+                                 (i + 1) * per))
+        return shards
+
+    def _mesh_seams(self):
+        """The dp mesh's final-chunk and decode seams over the shard
+        caches (`self._cache` is then a list of them, one a shard)."""
+        shards, home = self._shards, self.device
+
+        def prefill_fn(cache, scratch, chunk, where, start, wfrom, plen,
+                       temp, gen, **kw):
+            sh = self._shard_of(where)
+            cache[sh.i], tok0 = G.prefill_finish_into_slot(
+                sh.model, cache[sh.i], scratch, chunk, where - sh.lo, start,
+                plen, temp, sh.gen, **kw
+            )
+            return cache, tok0
+
+        def decode_fn(cache, prev, tok, use, pos, act, bt, temp, gen,
+                      **kw):
+            tok = torch.where(use, tok, prev)
+            outs = []
+            for sh in shards:
+                def part(x, sh=sh):
+                    return x[sh.lo:sh.hi].to(sh.device, non_blocking=True)
+
+                cache[sh.i], nxt = G.decode_step(
+                    sh.model, cache[sh.i], part(tok), part(pos), part(act),
+                    part(temp), sh.gen,
+                    **{k: part(v) for k, v in kw.items()}
+                )
+                outs.append(nxt.to(home, non_blocking=True))
+            return cache, torch.cat(outs)
+
+        return prefill_fn, decode_fn
+
+    def _shard_of(self, slot: int) -> _Shard:
+        return self._shards[slot // self._shards[0].hi]
+
+    def _admission_target(self, slot: int):
+        """(device, float model) an admission into `slot` prefills on:
+        its shard's under a mesh."""
+        if self._shards:
+            sh = self._shard_of(slot)
+            return sh.device, sh.model
+        return self.device, self._prefill_params
+
     def _zeros_tok(self):
         return torch.zeros((self.n_slots,), dtype=torch.int32,
                            device=self.device)
@@ -1088,6 +1202,10 @@ class ContinuousBatchingEngine:
     def _build_cache(self):
         """A fresh page pool (+ the reserved null page 0), or fresh
         contiguous slot rows when not paged."""
+        if self._shards:
+            return [G.init_decode_cache(sh.model, sh.hi - sh.lo,
+                                        device=sh.device)
+                    for sh in self._shards]
         if not self._paged:
             if self.quant:
                 return QG.init_quant_decode_cache(
@@ -1198,7 +1316,8 @@ class ContinuousBatchingEngine:
         if self.device.type != "cuda":
             return True
         try:
-            torch.cuda.synchronize(self.device)
+            for dev in self._devices:
+                torch.cuda.synchronize(dev)
         except Exception:  # pylint: disable=broad-except
             return False
         return True
@@ -2133,15 +2252,12 @@ class ContinuousBatchingEngine:
             return
         start, width = pf.plan[pf.pi]
         last = pf.pi == len(pf.plan) - 1
-        chunk = torch.from_numpy(pf.padded[:, start: start + width]).to(
-            self.device
-        )
+        dev, pmodel = self._admission_target(pf.slot)
+        chunk = torch.from_numpy(pf.padded[:, start: start + width]).to(dev)
         t_chunk = time.monotonic()
         try:
             if pf.scratch is None:
-                pf.scratch = G.init_decode_cache(
-                    self._prefill_params, 1, device=self.device
-                )
+                pf.scratch = G.init_decode_cache(pmodel, 1, device=dev)
                 if pf.resume > 0:
                     # Prefix preload: the matched pages' KV into the
                     # scratch, so resumed chunks attend over them.
@@ -2150,7 +2266,7 @@ class ContinuousBatchingEngine:
                     )
             if not last:
                 pf.scratch = self._prefill_chunk_fn(
-                    self._prefill_params, pf.scratch, chunk, start
+                    pmodel, pf.scratch, chunk, start
                 )
                 pf.pi += 1
                 with self._cv:

@@ -5,11 +5,12 @@ The port's own copy of container_engine_accelerators_tpu/serving/
 fleet.py.  Everything above `_build_replicas` is the reference's:
 placement, drains, eviction, re-route-not-fail, migrate-or-recompute,
 tier fetch, traces and the metrics relabel.  The replicas are the
-port's engines: `devices=` (one torch device per replica; default
-every replica on the model's device) takes the place of the
-reference's dp `submeshes`, which wait for a device mesh (ROADMAP
-A10b).  Replicas on one device share the model: an engine only reads
-the weights.  The process fleet spawns the port's worker
+port's engines: `submeshes=` gives replica i the dp mesh submeshes[i]
+(parallel/mesh.py `local_dp_submeshes`; None for a one-device replica),
+and `devices=` places single-device replicas (one torch device each;
+default every replica on the model's device).  Replicas on one device
+share the model: an engine only reads the weights.  The process fleet
+spawns the port's worker
 (container_engine_accelerators_tpu_torch.serving.worker), each worker
 an interpreter with its own CUDA context.
 
@@ -96,9 +97,9 @@ log = logging.getLogger(__name__)
 
 def _model_on(model, device):
     """A copy of `model` (same config, same weights) on `device`."""
-    copy = type(model)(**dict(model.config, device=device))
-    copy.load_state_dict(model.state_dict())
-    return copy
+    from ..models.generate import model_copy
+
+    return model_copy(model, device)
 
 
 # Replica lifecycle (mirrors the server drain-state machine, per
@@ -174,8 +175,10 @@ class FleetManager:
     weights).  n_replicas x n_slots: the fleet shape.  devices: one
     torch device per replica (None: every replica on model.device); a
     replica on another device serves a copy of the model made there,
-    one copy a device.  submeshes: the reference's dp submeshes, which
-    need a device mesh (ROADMAP A10b) and raise NotImplementedError.
+    one copy a device.  submeshes: one parallel.mesh.LocalMesh (or None)
+    per replica; replica i then runs a dp-mesh engine on submeshes[i],
+    homed on its first device, and a None entry is a single-device
+    replica placed as `devices` says.
     engine_kw: passed to every engine (paged, page size, prefill chunk,
     max_queue, ... — rng_seed is offset per replica so replicas don't
     sample in lockstep).  affinity=False builds the consistent-hash-only
@@ -213,10 +216,9 @@ class FleetManager:
             raise ValueError(
                 f"n_replicas must be >= 1, got {n_replicas}"
             )
-        if submeshes is not None:
-            raise NotImplementedError(
-                "dp submeshes need a device mesh, not ported yet "
-                "(ROADMAP A10b); pass devices= instead"
+        if submeshes is not None and len(submeshes) != n_replicas:
+            raise ValueError(
+                f"{len(submeshes)} submeshes for {n_replicas} replicas"
             )
         if devices is not None and len(devices) != n_replicas:
             raise ValueError(
@@ -389,7 +391,7 @@ class FleetManager:
         }
         self._closed = False  # guarded-by: _lock
         self._build_replicas(
-            model, n_replicas, n_slots, kw, devices,
+            model, n_replicas, n_slots, kw, devices, submeshes,
             base_seed, max_restarts, restart_window_s,
             restart_backoff_s,
         )
@@ -398,8 +400,8 @@ class FleetManager:
         self.registry.register_collector("fleet", self._collect)
 
     def _build_replicas(self, model, n_replicas, n_slots, kw, devices,
-                        base_seed, max_restarts, restart_window_s,
-                        restart_backoff_s) -> None:
+                        submeshes, base_seed, max_restarts,
+                        restart_window_s, restart_backoff_s) -> None:
         """Construct the replica set (engine + supervisor each) —
         the seam ProcessFleetManager overrides to back each replica
         with an engine-worker PROCESS instead of an in-process
@@ -415,12 +417,15 @@ class FleetManager:
                              "engine_kw['device']")
         models = {model.device: model}
         for i in range(n_replicas):
-            dev = (model.device if devices is None
+            mesh = submeshes[i] if submeshes else None
+            dev = (mesh.devices[0] if mesh is not None
+                   else model.device if devices is None
                    else torch.device(devices[i]))
             if dev not in models:
                 models[dev] = _model_on(model, dev)
             eng = ContinuousBatchingEngine(
                 models[dev], n_slots,
+                mesh=mesh,
                 rng_seed=base_seed + i,
                 device=dev,
                 **kw,
@@ -1542,7 +1547,8 @@ class ProcessFleetManager(FleetManager):
 
     The model is named by a FACTORY SPEC + kwargs (worker.py module
     docstring) so each worker rebuilds weights itself, on the device
-    the factory's kwargs name.  The
+    the factory's kwargs name (`submeshes` raises ValueError: each
+    worker owns its own device view).  The
     in-process FleetManager stays the default-off parity control:
     everything above `_build_replicas` is shared code."""
 
@@ -1586,7 +1592,13 @@ class ProcessFleetManager(FleetManager):
         flap_window_s: float = 30.0,
         quarantine_probe_s: float = 0.5,
         quarantine_rejoin_probes: int = 3,
+        submeshes: Optional[Sequence] = None,
     ):
+        if submeshes is not None:
+            raise ValueError(
+                "submeshes do not apply to a process fleet: each "
+                "worker owns its own runtime's device view"
+            )
         # Worker spawn config must exist before super().__init__
         # reaches _build_replicas.
         if transport not in ("unix", "tcp"):
@@ -1662,9 +1674,9 @@ class ProcessFleetManager(FleetManager):
             self._quarantine_thread.start()
 
     def _build_replicas(self, model, n_replicas, n_slots, kw, devices,
-                        base_seed, max_restarts, restart_window_s,
-                        restart_backoff_s) -> None:
-        del model, devices  # workers rebuild from the factory spec
+                        submeshes, base_seed, max_restarts,
+                        restart_window_s, restart_backoff_s) -> None:
+        del model, devices, submeshes  # workers rebuild from the spec
         if "device" in kw:
             # --engine-json is JSON: a torch.device travels as its name.
             kw = dict(kw, device=str(kw["device"]))

@@ -27,6 +27,7 @@ from container_engine_accelerators_tpu_torch.models import (
 from container_engine_accelerators_tpu_torch.models import (
     quant_generate as TQG,
 )
+from container_engine_accelerators_tpu_torch.parallel.mesh import LocalMesh
 from container_engine_accelerators_tpu_torch.serving import (
     ContinuousBatchingEngine,
     EngineSupervisor,
@@ -357,11 +358,21 @@ class TestEntryPoints:
         (dict(kv_host_bytes=1 << 20), "A5f"), (dict(mesh=object()), "A10"),
     ])
     def test_later_slices_raise_not_implemented(self, setup, option, item):
-        # An option of a later slice raises, naming its ROADMAP item.
-        # Speculative decoding (A5e), the KV tiers (A5f) and
-        # observability (A5g) are ported now: those options build an
-        # engine (a negative spec_k raises); a mesh (A10) still raises.
+        # Every option of these items is ported now, each builds an
+        # engine: speculative decoding (A5e; a negative spec_k raises),
+        # the KV tiers (A5f), observability (A5g) and a dp mesh (A10,
+        # a parallel.mesh.LocalMesh; slots that do not divide raise).
         _, pm = setup
+        if item == "A10":
+            mesh = LocalMesh(["cpu", "cpu"])
+            eng = _engine(pm, 2, mesh=mesh)
+            try:
+                assert eng._mesh is mesh and len(eng._cache) == 2
+            finally:
+                eng.close()
+            with pytest.raises(ValueError, match="divide"):
+                _engine(pm, 3, mesh=mesh)
+            return
         if item == "A5e":
             _engine(pm, 2, **option).close()
             with pytest.raises(ValueError, match="spec_k"):
@@ -375,8 +386,7 @@ class TestEntryPoints:
             finally:
                 eng.close()
             return
-        with pytest.raises(NotImplementedError, match=item):
-            _engine(pm, 2, **option)
+        raise AssertionError(f"no case for {item}")
 
     def test_negative_decode_steps_raises(self, setup):
         _, pm = setup

@@ -523,8 +523,8 @@ class TestFleetMigration:
                       ["prefill", "verify"]):
             with pytest.raises(ValueError):
                 _fleet(pm, roles=roles)
-        with pytest.raises(NotImplementedError, match="A10"):
-            _fleet(pm, submeshes=[None, None])
+        with pytest.raises(ValueError, match="submeshes for"):
+            _fleet(pm, submeshes=[None])
         with pytest.raises(ValueError):
             _fleet(pm, devices=["cpu"])
         with pytest.raises(ValueError, match="devices="):

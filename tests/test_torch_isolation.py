@@ -4,7 +4,9 @@ interpreter) leaves `jax` and `container_engine_accelerators_tpu` out of
 sys.modules, no port file (nor chip_smoke.py) names either in an
 import statement, and none names a module of the JAX package in a
 string (a `-m` target or a factory spec would run the reference in a
-spawned process).  A spawned port worker's own sys.modules is held in
+spawned process).  The server's health path (--health-source over
+plugin/health.py and native/nvml.py) loads neither grpc nor protobuf.
+A spawned port worker's own sys.modules is held in
 tests/test_torch_worker_rpc.py.  The rank helper of the parallel tests
 (tests/torch_ranks.py, which spawned ranks import by name) names
 neither in an import, imports neither in a fresh interpreter, and each
@@ -46,7 +48,8 @@ def test_every_module_imports_without_jax():
     assert {f"{PORT.__name__}.{m}" for m in (
         "ops.chunked_xent", "models.inception", "utils.checkpoint",
         "server", "serving.router", "serving.faults", "serving.fleet",
-        "serving.rpc", "serving.worker")} <= set(mods)
+        "serving.rpc", "serving.worker", "native.nvml", "plugin.util",
+        "plugin.health", "plugin.api.deviceplugin_pb2")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -104,6 +107,33 @@ def test_a_spawned_worker_runs_the_port_and_imports_no_jax(tmp_path):
         assert len(fleet.submit([[1, 2, 3]], 3, 0.0, timeout=120)[0]) == 3
     finally:
         fleet.close()
+
+
+def test_server_health_path_imports_no_grpc_nor_protobuf():
+    # The server with --health-source up to a live watch (over a fake
+    # NVML table), in a fresh interpreter: neither grpc nor protobuf is
+    # loaded, as the card's machine need not have them.
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'tests')!r})\n"
+        "from torch_fake_nvml import FakeNvml\n"
+        "from container_engine_accelerators_tpu_torch import server as S\n"
+        "from container_engine_accelerators_tpu_torch.native import nvml\n"
+        "app = S.ServingApp(S.parse_args(['--health-source', 'auto', "
+        "'--device', 'cpu']), nvml=nvml.Nvml(lib=FakeNvml()))\n"
+        "app._attach_configured_health_source()\n"
+        "assert app._health_watch is not None\n"
+        "app.close()\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] == 'grpc' "
+        "or k.startswith('google.protobuf')))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, cwd=ROOT, timeout=300, check=True,
+    )
+    assert out.stdout.strip().splitlines()[-1] == "[]", (
+        out.stdout + out.stderr)
 
 
 RANKS_HELPER = os.path.join(ROOT, "tests", "torch_ranks.py")

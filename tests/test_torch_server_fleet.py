@@ -187,7 +187,7 @@ def test_fleet_flags_and_their_rules():
                                "--fleet-hb-s", "2.5"])
     assert (cfg.fleet, cfg.fleet_affinity, cfg.fleet_migrate,
             cfg.fleet_tcp, cfg.fleet_hb_s) == (2, False, True, True, 2.5)
-    assert cfg.unported() is None
+    assert cfg.mesh == "" and cfg.health_source == ""
     assert S._parse_fleet_roles(cfg.fleet_roles, 2) == ["prefill",
                                                          "decode"]
     assert S._parse_fleet_roles("", 2) is None

@@ -177,3 +177,51 @@ def test_greedy_tokens_over_http_match_reference(engine, quant, tmp_path,
             httpd.shutdown()
         if app is not None:
             app.close()
+
+
+@pytest.mark.parametrize("engine", ["wave", "continuous"])
+def test_mesh_dp_tokens_over_http_match_reference(engine, tmp_path,
+                                                  monkeypatch):
+    # --mesh dp on both servers: the reference over its 8 virtual CPU
+    # devices (SERVE_LM_MESH=dp), the port over 8 CPU shards; both round
+    # the 4 slots up to 8 and turn the int8 path off.
+    params = draw_params(0, CFG)
+    RC.save_checkpoint(str(tmp_path),
+                       {"params": jax.tree_util.tree_map(jnp.asarray,
+                                                         params)}, 1)
+    mod, ref_httpd, mp = _serve_reference(
+        f"mesh_{engine}", {"SERVE_LM_ENGINE": engine, "SERVE_LM_MESH": "dp"},
+        tmp_path, monkeypatch)
+    app = httpd = None
+    try:
+        served = jax.tree_util.tree_map(np.asarray, _served_params(mod))
+        app = S.ServingApp(S.parse_args([
+            "--model", "transformer_lm", "--dim", "32", "--depth", "1",
+            "--vocab", "64", "--max-seq", "32", "--slots", "4",
+            "--engine", engine, "--device", "cpu", "--mesh", "dp",
+            "--cpu-mesh-shards", "8"]))
+        app.load_model(model=port_model(served, CFG))
+        assert app.cfg.quant == mod.LM_QUANT_MODE == "off"
+        assert app.mesh.size == 8
+        if engine == "continuous":
+            assert app.engine.n_slots == mod._engine.n_slots == 8
+            assert len(app.engine._cache) == 8
+        httpd = app.make_server("127.0.0.1", 0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        for body in REQUESTS:
+            want = _post(ref_httpd.server_address[1], body)
+            assert len({t for row in want for t in row}) > 1, want
+            assert _post(httpd.server_address[1], body) == want, body
+    finally:
+        ref_httpd.shutdown()
+        if mod._supervisor is not None:
+            mod._supervisor.stop()
+        if mod._engine is not None:
+            mod._engine.close()
+        if mod._batcher is not None:
+            mod._batcher.close()
+        mp.undo()
+        if httpd is not None:
+            httpd.shutdown()
+        if app is not None:
+            app.close()
