@@ -11,6 +11,7 @@ PyTorch version.
     python3 chip_smoke.py
     python3 chip_smoke.py --only mesh_serve   # phase 4e alone, over
                                               # every visible card
+    python3 chip_smoke.py --only device_plugin  # phase 4f alone
 
 Phases, one JSON line each (stdout):
   1. device   — torch's view of the card; requires compute capability 9.0;
@@ -168,6 +169,20 @@ Phases, one JSON line each (stdout):
                 server with --health-source auto ready and answering
                 (where NVML refuses event registration, the refusal is
                 held instead and that server must fail to load);
+  4f. device_plugin — the device-plugin daemon (device_plugin.py, as its
+                entry point starts it) over the machine's /dev and NVML,
+                its sockets under a short directory, with a fake kubelet
+                and a fake pod-resources service giving one pod the card:
+                discovery exactly NVML's cards by minor number, the
+                registration, ListAndWatch all Healthy, Allocate the
+                card's node with nvidiactl and nvidia-uvm, a synthetic
+                Unhealthy on the manager's health queue reaching the
+                stream, and /metrics scraped over HTTP while a bf16
+                matmul loop runs: duty cycle above 0 on the node and the
+                container gauge, used memory up by a 1 GiB allocation;
+                registration, Allocate round trip, health-to-stream and
+                scrape times.  Every kernel wrapper's count is 0 over the
+                phase (the kernels record's launches_device_plugin);
   5. train_kernels — flash attention forward and backward at (8, 2048,
                 h, 1024 / h) bf16 for h 8, 16, 32 and 4 (head dims 128,
                 64, 32 on the d-64 instance, 256) and at the ragged
@@ -3497,6 +3512,259 @@ def run_health_nvml(torch):
     return rec
 
 
+# -- phase 4f: the device-plugin daemon --------------------------------------
+DP_ALLOCATES = 20  # Allocate round trips timed
+DP_SCRAPES = 10    # /metrics GETs timed
+DP_INTERVAL_MS = 250  # the metrics server's collection interval
+DP_WAIT_S = 30.0
+
+
+def kernel_wrappers(PA, QM, FA, FX, FL, FC):
+    """Every kernel wrapper, by the prefix of its kernels-record names."""
+    return {"paged_attention": PA.paged_attention,
+            "int8_weight_matmul": QM.int8_weight_matmul,
+            "flash_attention_fwd": FA.flash_attention_fwd,
+            "flash_attention_bwd": FA.flash_attention_bwd,
+            "fused_xent_fwd": FX.xent_fwd, "fused_xent_bwd": FX.xent_bwd,
+            "fused_matmul_stats": FL.fused_matmul,
+            "affine_relu_matmul_stats": FL.fused_affine_matmul,
+            "conv3x3": FC.conv3x3}
+
+
+def short_socket_root():
+    """A fresh directory for unix sockets whose paths stay well inside
+    the 107 bytes a socket path may hold: under the temporary directory
+    where that is short enough, else under /tmp."""
+    import tempfile
+
+    base = tempfile.gettempdir()
+    if len(base) > 40:
+        base = "/tmp"
+    return tempfile.mkdtemp(prefix="dp", dir=base)
+
+
+def gauge(samples, name, **labels):
+    """The value of `name` whose labels include `labels`, or None."""
+    for rendered, value in samples.get(name, {}).items():
+        if all(f'{k}="{v}"' in rendered for k, v in labels.items()):
+            return value
+    return None
+
+
+def run_device_plugin(torch, wrappers):
+    """device_plugin: the port's daemon (device_plugin.start, what `python
+    -m ...device_plugin` runs) over the machine's real /dev and NVML, on
+    sockets under a short directory, with a fake kubelet and a fake
+    pod-resources service that gives one pod the card: discovery finds
+    exactly NVML's cards by minor number, the daemon registers, the
+    first ListAndWatch lists them Healthy, Allocate returns the card's
+    node with nvidiactl and nvidia-uvm, a synthetic Unhealthy event put
+    on the manager's health queue reaches the stream, and /metrics,
+    scraped while a bf16 matmul loop runs on the card, shows a duty cycle
+    above 0 (node and container gauges) and used memory up by a 1 GiB
+    allocation.  Times registration, the Allocate round trip, health to
+    stream and a scrape.  Every kernel wrapper's count is set to 0 before
+    and read after: the daemon launches none."""
+    from concurrent import futures
+
+    import grpc
+
+    from container_engine_accelerators_tpu_torch import device_plugin as DP
+    from container_engine_accelerators_tpu_torch.native import nvml as N
+    from container_engine_accelerators_tpu_torch.plugin import health as H
+    from container_engine_accelerators_tpu_torch.plugin import manager as M
+    from container_engine_accelerators_tpu_torch.plugin.api import (
+        HEALTHY, UNHEALTHY, deviceplugin_pb2 as dp_pb2, grpc_api,
+        podresources_pb2 as pr_pb2,
+    )
+    from container_engine_accelerators_tpu_torch.serving import observe
+
+    t_phase = time.monotonic()
+    saved = {k: w.launches for k, w in wrappers.items()}
+    for w in wrappers.values():
+        w.launches = 0
+    nv = N.Nvml()
+    names = nv.device_names()
+    uuids = [nv.uuid(i) for i in range(nv.device_count)]
+    mine = "GPU-" + str(torch.cuda.get_device_properties(0).uuid)
+    card = names[uuids.index(mine)] if mine in uuids else names[0]
+    es = nv.event_set_create()
+    try:
+        nv.register_event(es, names.index(card))
+        health_on = True
+    except N.NvmlError as e:
+        if e.code != N.NVML_ERROR_NOT_SUPPORTED:
+            raise
+        health_on = False
+    nv.event_set_free(es)
+    dev = DP.DEV_DIRECTORY
+    M.GPUManager(dev, nvml=nv).check_device_paths()  # raises, never waits
+    root = short_socket_root()
+    kubelet_sock = os.path.join(root, "kubelet.sock")
+    pr_sock = os.path.join(root, "pr.sock")
+    registered = []
+
+    class Kubelet(grpc_api.RegistrationServicer):
+        def Register(self, request, context):
+            registered.append((time.monotonic(), request))
+            return dp_pb2.Empty()
+
+    class Pods(grpc_api.PodResourcesListerServicer):
+        def List(self, request, context):
+            return pr_pb2.ListPodResourcesResponse(pod_resources=[
+                pr_pb2.PodResources(name="smoke-0", namespace="default",
+                                    containers=[pr_pb2.ContainerResources(
+                                        name="main", devices=[
+                                            pr_pb2.ContainerDevices(
+                                                resource_name=M.RESOURCE_NAME,
+                                                device_ids=[card])])])])
+
+    fakes = []
+    for add, servicer, sock in (
+            (grpc_api.add_registration_servicer, Kubelet(), kubelet_sock),
+            (grpc_api.add_pod_resources_servicer, Pods(), pr_sock)):
+        server = grpc.server(futures.ThreadPoolExecutor(max_workers=2))
+        add(server, servicer)
+        server.add_insecure_port(f"unix:{sock}")
+        server.start()
+        fakes.append(server)
+    flags = ["--plugin-directory", root,
+             "--gpu-config", os.path.join(root, "gpu_config.json"),
+             "--enable-container-gpu-metrics", "--gpu-metrics-port", "0",
+             "--gpu-metrics-collection-interval", str(DP_INTERVAL_MS),
+             "--pod-resources-socket", pr_sock]
+    if health_on:
+        flags.append("--enable-health-monitoring")
+    stop_loop = threading.Event()
+    daemon = serve = loop = None
+    try:
+        t0 = time.monotonic()
+        daemon = DP.start(DP.parse_args(flags), nv)
+        start_s = time.monotonic() - t0
+        ngm = daemon.manager
+        assert sorted(ngm.devices) == sorted(names), (ngm.devices, names)
+        assert all(os.path.exists(os.path.join(dev, n)) for n in names)
+        t0 = time.monotonic()
+        serve = threading.Thread(target=daemon.serve, daemon=True)
+        serve.start()
+        wait_for(lambda: registered, "the daemon's registration", DP_WAIT_S)
+        registration_ms = (registered[0][0] - t0) * 1e3
+        request = registered[0][1]
+        assert (request.resource_name, request.version) == (
+            "nvidia.com/gpu", grpc_api.DEVICE_PLUGIN_VERSION), request
+        assert len(ngm.socket) < 108 and request.endpoint == os.path.basename(
+            ngm.socket), (ngm.socket, request.endpoint)
+        with grpc.insecure_channel(f"unix:{ngm.socket}") as ch:
+            stub = grpc_api.DevicePluginStub(ch)
+            stream = stub.ListAndWatch(dp_pb2.Empty())
+            first = {d.ID: d.health for d in next(stream).devices}
+            assert first == {n: HEALTHY for n in names}, first
+            req = dp_pb2.AllocateRequest(container_requests=[
+                dp_pb2.ContainerAllocateRequest(devicesIDs=[card])])
+            alloc_ms = []
+            for _ in range(DP_ALLOCATES):
+                t0 = time.monotonic()
+                resp = stub.Allocate(req)
+                alloc_ms.append((time.monotonic() - t0) * 1e3)
+            paths = [d.host_path for d in resp.container_responses[0].devices]
+            assert paths[0] == os.path.join(dev, card), paths
+            assert {os.path.join(dev, n) for n in ("nvidiactl", "nvidia-uvm")
+                    } <= set(paths), paths
+            envs = dict(resp.container_responses[0].envs)
+            assert envs["TPU_CHIPS_PER_PROCESS_BOUNDS"] == "1,1,1", envs
+            t0 = time.monotonic()
+            ngm.health.put(dp_pb2.Device(ID=card, health=UNHEALTHY))
+            second = {d.ID: d.health for d in next(stream).devices}
+            health_ms = (time.monotonic() - t0) * 1e3
+            assert second[card] == UNHEALTHY, second
+            stream.cancel()
+        url_port = daemon.metrics.port
+
+        def scraped():
+            code, body, _, secs = http(url_port, "/metrics", timeout=30)
+            assert code == 200, code
+            return observe.parse_text(body.decode()), secs
+
+        node = dict(make="nvidia", accelerator_id=card)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+
+        def matmuls():
+            while not stop_loop.is_set():
+                for _ in range(8):
+                    a @ a
+                torch.cuda.synchronize()
+
+        loop = threading.Thread(target=matmuls, daemon=True)
+        loop.start()
+        # The loop's own memory is taken before the baseline read.
+        time.sleep(4 * DP_INTERVAL_MS / 1e3)
+        used0 = gauge(scraped()[0], "memory_used_node_gpu", **node)
+        block = torch.ones(1 << 30, dtype=torch.uint8, device="cuda")
+        torch.cuda.synchronize()
+        deadline = time.monotonic() + DP_WAIT_S
+        while True:
+            samples, _ = scraped()
+            duty = gauge(samples, "duty_cycle_node_gpu", **node)
+            used1 = gauge(samples, "memory_used_node_gpu", **node)
+            pod_duty = gauge(samples, "duty_cycle", pod="smoke-0", **node)
+            if (duty and pod_duty and used1 is not None
+                    and used1 - used0 >= 1 << 30):
+                break
+            assert time.monotonic() < deadline, (duty, pod_duty, used0, used1)
+            time.sleep(DP_INTERVAL_MS / 1e3)
+        scrape_ms = [scraped()[1] * 1e3 for _ in range(DP_SCRAPES)]
+        # The checker's vendor layer first polls after its first wait.
+        deadline = time.monotonic() + 2 * H.WAIT_TIMEOUT_MS / 1e3
+        while (daemon.health is not None and time.monotonic() < deadline
+               and daemon.health.sdk_state() == "absent"):
+            time.sleep(0.1)
+        time.sleep(2 * DP_INTERVAL_MS / 1e3)  # a collection pass after it
+        samples, _ = scraped()
+        stop_loop.set()
+        loop.join(timeout=30)
+        del block, a
+        torch.cuda.empty_cache()
+        states = {layer: state for layer in ("metrics", "health")
+                  for state in ("active", "unparseable", "empty", "absent")
+                  if gauge(samples, "gpu_sdk_source_state", layer=layer,
+                           state=state) == 1.0}
+    finally:
+        stop_loop.set()
+        if loop is not None:
+            loop.join(timeout=30)
+        if daemon is not None:
+            daemon.stop()
+        if serve is not None:
+            serve.join(timeout=10)
+        for server in fakes:
+            server.stop(grace=0)
+        shutil.rmtree(root, ignore_errors=True)
+    assert serve is not None and not serve.is_alive()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    for k, w in wrappers.items():
+        w.launches = saved[k]
+    assert not any(launches.values()), launches
+    nv.shutdown()
+    return {
+        "phase": "device_plugin", "cards": names, "device": card,
+        "dev_nodes": sorted(n for n in os.listdir(dev)
+                            if n.startswith("nvidia")),
+        "health_monitoring": health_on, "start_s": start_s,
+        "registration_ms": registration_ms,
+        "allocate_ms_p50": quantiles(alloc_ms)["p50"],
+        "allocate_ms_max": max(alloc_ms),
+        "health_to_stream_ms": health_ms,
+        "scrape_ms_p50": quantiles(scrape_ms)["p50"],
+        "scrape_ms_max": max(scrape_ms),
+        "duty_cycle_pct": duty, "container_duty_cycle_pct": pod_duty,
+        "memory_used_rise_bytes": used1 - used0,
+        "sdk_source_state": states, "allocate_paths": paths,
+        "launches": launches, "seconds": time.monotonic() - t_phase,
+    }
+
+
 # -- phases 5-6: LM training -----------------------------------------------
 TRAIN = dict(vocab=32000, dim=1024, depth=8, heads=8, seq_len=2048,
              batch=8, learning_rate=3e-4)
@@ -5229,7 +5497,7 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=("mesh_serve",),
+    parser.add_argument("--only", choices=("mesh_serve", "device_plugin"),
                         help="run this phase alone (the device line first)")
     only = parser.parse_args(argv).only
     try:
@@ -5273,6 +5541,14 @@ def main(argv=None) -> int:
     })
     if (props.major, props.minor) != (9, 0):
         raise RuntimeError(f"needs compute capability 9.0, got {props}")
+    wrappers = kernel_wrappers(PA, QM, FA, FX, FL, FC)
+    if only == "device_plugin":
+        emit({**run_device_plugin(torch, wrappers), "card": smi})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return 0
     if only == "mesh_serve":
         model = G.make_decoder(device="cuda", **CFG)
         model.init_random(torch.Generator().manual_seed(SEED))
@@ -5378,6 +5654,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     emit({**run_health_nvml(torch), "card": smi})
     torch.cuda.empty_cache()
+    dp_rec = run_device_plugin(torch, wrappers)
+    emit({**dp_rec, "card": smi})
 
     tgen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     k_flash = check_flash(torch, FA, timer, tgen)
@@ -5496,6 +5774,10 @@ def main(argv=None) -> int:
             k[f"launches_mesh_{mode}"] = counts[k["name"]]
         if k["name"].startswith("flash") and k["launches_moe_train"] < 1:
             raise AssertionError(f"{k['name']} never ran in moe_train")
+    # The device-plugin daemon (phase 4f) runs no kernel.
+    for k in kernels:
+        op = next(p for p in wrappers if k["name"].startswith(p))
+        k["launches_device_plugin"] = dp_rec["launches"][op]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

@@ -17,6 +17,8 @@ core is NVML itself, so nothing is built: `Nvml` binds
     EVENT_DEVICE_REMOVED, as tpuinfo.py :30-33 defines it);
   - nvmlDeviceGetUtilizationRates (the duty cycle, averaged by NVML
     over its own sample period);
+  - nvmlDeviceGetPciInfo_v3 (the card's PCI address: the device
+    plugin's slices order the cards by it);
   - for the health layer's vendor reads (plugin/health.py
     `NvmlFieldsEventSource`): nvmlDeviceGetCurrentClocksEventReasons
     (nvmlDeviceGetCurrentClocksThrottleReasons on older NVIDIA drivers) and
@@ -128,6 +130,14 @@ class _Utilization(ctypes.Structure):  # nvmlUtilization_t
     _fields_ = [("gpu", ctypes.c_uint), ("memory", ctypes.c_uint)]
 
 
+class _PciInfo(ctypes.Structure):  # nvmlPciInfo_t
+    _fields_ = [("busIdLegacy", ctypes.c_char * 16),
+                ("domain", ctypes.c_uint), ("bus", ctypes.c_uint),
+                ("device", ctypes.c_uint), ("pciDeviceId", ctypes.c_uint),
+                ("pciSubSystemId", ctypes.c_uint),
+                ("busId", ctypes.c_char * 32)]
+
+
 class _EventData(ctypes.Structure):  # nvmlEventData_t
     _fields_ = [("device", ctypes.c_void_p),
                 ("eventType", ctypes.c_ulonglong),
@@ -164,6 +174,7 @@ _SIGNATURES = {
     "nvmlDeviceRegisterEvents": [_H, ctypes.c_ulonglong, _H],
     "nvmlEventSetWait_v2": [_H, _P(_EventData), ctypes.c_uint],
     "nvmlDeviceGetUtilizationRates": [_H, _P(_Utilization)],
+    "nvmlDeviceGetPciInfo_v3": [_H, _P(_PciInfo)],
     "nvmlDeviceGetCurrentClocksEventReasons": [_H, _P(ctypes.c_ulonglong)],
     "nvmlDeviceGetCurrentClocksThrottleReasons": [
         _H, _P(ctypes.c_ulonglong)],
@@ -262,16 +273,29 @@ class Nvml:
     def memory_used_bytes(self, index: int) -> int:
         return int(self._memory(index).used)
 
-    def memory_reserved_bytes(self, index: int) -> int:
-        """What the NVIDIA driver reserves of the device memory (CUDA's total
-        is NVML's total less this)."""
-        if not hasattr(self._lib, "nvmlDeviceGetMemoryInfo_v2"):
+    @property
+    def serves_memory_v2(self) -> bool:
+        """Whether the library exports nvmlDeviceGetMemoryInfo_v2."""
+        return hasattr(self._lib, "nvmlDeviceGetMemoryInfo_v2")
+
+    def _memory_v2(self, index: int) -> _MemoryV2:
+        if not self.serves_memory_v2:
             raise NvmlError("this NVML serves no memory reservation",
                             NVML_ERROR_NOT_SUPPORTED)
         mem = _MemoryV2(version=_MEMORY_V2)
         self._call("nvmlDeviceGetMemoryInfo_v2", self._handle(index),
                    ctypes.byref(mem))
-        return int(mem.reserved)
+        return mem
+
+    def memory_reserved_bytes(self, index: int) -> int:
+        """What the NVIDIA driver reserves of the device memory (CUDA's total
+        is NVML's total less this)."""
+        return int(self._memory_v2(index).reserved)
+
+    def memory_allocated_bytes(self, index: int) -> int:
+        """The device memory processes hold: NVML's used bytes less the
+        driver's reservation, which memory_used_bytes counts in."""
+        return int(self._memory_v2(index).used)
 
     def event_set_create(self) -> _H:
         es = _H()
@@ -327,6 +351,14 @@ class Nvml:
                 f"nvmlDeviceGetUtilizationRates failed: {error_name(rc)}",
                 rc)
         return float(util.gpu)
+
+    def pci_address(self, index: int) -> tuple:
+        """The card's PCI (domain, bus, device).  NvmlError where NVML
+        serves none (NVML_ERROR_NOT_SUPPORTED on some virtual machines)."""
+        pci = _PciInfo()
+        self._call("nvmlDeviceGetPciInfo_v3", self._handle(index),
+                   ctypes.byref(pci))
+        return (int(pci.domain), int(pci.bus), int(pci.device))
 
     @property
     def serves_vendor_reads(self) -> bool:

@@ -345,8 +345,13 @@ def make_event_source(nvml=None, source: str = "auto") -> EventSource:
 
 class GPUHealthChecker:
     """Watches the cards' error events and feeds Unhealthy device
-    updates into the manager's health queue (consumed by ListAndWatch):
-    the reference's TPUHealthChecker."""
+    updates into the manager's health queue: the reference's
+    TPUHealthChecker.  The daemon passes GPUManager's physical devices
+    and its queue; ListAndWatch applies each update to the manager's
+    registry (GPUManager.set_device_health), the one registry of the
+    devices.  The checker's copy only tells a physical device from a
+    card of a slice, whose name it sends for the manager to carry to
+    its slice."""
 
     def __init__(
         self,
@@ -359,8 +364,9 @@ class GPUHealthChecker:
         from .api import deviceplugin_pb2 as dp_pb2
 
         self._device_type = dp_pb2.Device
-        # A clone, so the manager's registry is not touched; the listen
-        # thread and direct catch_error callers share it under a lock.
+        # A copy, so the manager's registry is written by the manager
+        # alone; the listen thread and direct catch_error callers share
+        # it under a lock.
         self._devices_lock = threading.Lock()
         self.devices: Dict = {  # guarded-by: _devices_lock
             k: dp_pb2.Device(ID=v.ID, health=v.health)

@@ -14,11 +14,11 @@ SUCCESS, INVALID_ARGUMENT, NOT_SUPPORTED, TIMEOUT, GPU_IS_LOST = (
 class FakeNvml:
     """`n` cards with /dev minors `minors`; `links[i]` is card i's
     {link: state} (missing links answer NOT_SUPPORTED), `clocks[i]` its
-    clocks-event reason mask.  `events` feeds nvmlEventSetWait_v2: an
-    int is returned as the call's code, a (card or None, xid) pair is
-    delivered as an Xid event.  `rc[name]` makes a function return that
-    code; `calls` counts the calls by name; vendor=False drops the
-    vendor reads' functions."""
+    clocks-event reason mask, `pci[i]` its PCI (domain, bus, device).
+    `events` feeds nvmlEventSetWait_v2: an int is returned as the call's
+    code, a (card or None, xid) pair is delivered as an Xid event.
+    `rc[name]` makes a function return that code; `calls` counts the
+    calls by name; vendor=False drops the vendor reads' functions."""
 
     def __init__(self, n=2, minors=None, links=None, clocks=None,
                  vendor=True):
@@ -32,6 +32,7 @@ class FakeNvml:
         self.links = links if links is not None else [{} for _ in range(n)]
         self.clocks = clocks if clocks is not None else [0] * n
         self.util = [37] * n
+        self.pci = [(0, 0x18 + 0x10 * i, 0) for i in range(n)]
         self.events: "queue.Queue" = queue.Queue()
         self.rc = {}
         self.calls = {}
@@ -137,4 +138,10 @@ class FakeNvml:
         if link not in states:
             return NOT_SUPPORTED
         out._obj.value = states[link]
+        return SUCCESS
+
+    def nvmlDeviceGetPciInfo_v3(self, h, out):
+        domain, bus, device = self.pci[self._card(h)]
+        out._obj.domain, out._obj.bus, out._obj.device = domain, bus, device
+        out._obj.busId = f"{domain:08x}:{bus:02x}:{device:02x}.0".encode()
         return SUCCESS
