@@ -12,6 +12,7 @@ PyTorch version.
     python3 chip_smoke.py --only mesh_serve   # phase 4e alone, over
                                               # every visible card
     python3 chip_smoke.py --only device_plugin  # phase 4f alone
+    python3 chip_smoke.py --only mesh_modes   # phase 11 alone
 
 Phases, one JSON line each (stdout):
   1. device   — torch's view of the card; requires compute capability 9.0;
@@ -268,8 +269,24 @@ Phases, one JSON line each (stdout):
                 one step from the seed's weights with its first loss
                 within 2**-9 of build_lm_training's without a mesh and
                 its flash and xent launches counted; a ResNet-50 dp step
-                at batch 32 against its no-mesh step (2**-9); lm_main
-                --mode ep on the one card exits 2 naming ">1 chip".
+                at batch 32 against its no-mesh step (2**-9); then, at
+                full width with cuDNN's deterministic algorithms, each
+                vision configuration the reference trains under a mesh
+                one step over the mesh against its no-mesh step from
+                the same weights and batch, the loss, every gradient and
+                every running statistic within 2**-9 and the launches
+                equal: ResNet-50 with the s2d stem, the fused block (B6:
+                16 + 16 launches a step) and the fused loss (B4) at
+                batch 128, ResNet-50 with flax's BatchNorm at batch 128,
+                Inception v3 at 299 x 299, batch 64, then 3 more steps
+                of each timed (`mesh_over_plain`) and one profiled;
+                lm_main --mode ep
+                on the one card exits 2 naming ">1 chip"; then
+                resnet_main's spawned job path: `rank_main` through
+                launch.spawn_ranks on one rank (a process of its own,
+                NCCL, the mesh) with --model inception_v3 at 299, batch
+                64, a warm-up step and 2 logged steps and a checkpoint
+                from rank 0, its log lines read back.
 Then the card's name and power limit (nvidia-smi), the kernels record,
 and last the contract line {"ok": true, "device": {...}}.  Each JSON line
 is also written to smoke_out/chip_smoke.jsonl beside this script.  Any failed
@@ -875,6 +892,8 @@ def kernel_kind(name: str) -> str:
     low = name.lower()
     if any(k in name for k in PORT_KERNELS):
         return "port kernels"
+    if "nccl" in low:
+        return "collectives"
     if any(k in low for k in ("gemm", "xmma", "cutlass", "conv", "cudnn",
                               "fprop", "dgrad", "wgrad", "cublas", "nvjet")):
         return "library gemm / conv"
@@ -887,14 +906,47 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def device_profile(torch, fn, top=6):
+def launch_records(prof):
+    """(runtime kernel launches, of them those with no device record) in
+    the profile's active step, matched by correlation id.  A launch
+    whose kernel record is missing was dropped by the tracer (its
+    activity buffer) or placed outside the step by the clock mapping
+    (`launch_to_start_ms` below zero); a graph replay is one launch of
+    many kernels, so it counts once."""
+    launches, device = set(), set()
+    for e in prof.profiler.kineto_results.events():
+        if "LaunchKernel" in e.name():
+            launches.add(e.correlation_id())
+        elif "CUDA" in str(e.device_type()):
+            device.add(e.correlation_id())
+    return len(launches), len(launches - device)
+
+
+def window_line(tag, rec):
+    """One line on stderr for a profiled window: its length, the device
+    events and their rate, the runtime launches the tracer lost, and per
+    kernel the wrappers' calls beside the port's device events."""
+    print(f"profile window {tag}: {rec.get('window_s', 0):.3f} s, "
+          f"{rec.get('device_kernel_events')} device events "
+          f"({rec.get('launch_rate_per_s', 0):.0f}/s), runtime launches "
+          f"{rec.get('runtime_launches')} of which without a device record "
+          f"{rec.get('launches_without_device_event')}; wrapper calls "
+          f"{rec.get('wrapper_calls')}; port kernel events "
+          f"{rec.get('port_kernel_calls')}", file=sys.stderr, flush=True)
+
+
+def device_profile(torch, fn, top=6, counts=None, tag=""):
     """Run fn() under torch.profiler and return the device busy share
     (device kernel time over the window's wall time) and the top
     kernels.  fn runs in the profiler's active step, after a warm-up
     step of one small kernel, and PROFILE_PAD_S from the step's ends;
     the window's wall time is fn's alone.  Only starting the profiler
     is guarded: where it cannot start, or records no device activity,
-    the share reads "not measured".  fn itself runs unguarded."""
+    the share reads "not measured".  fn itself runs unguarded.  Every
+    window also reports its device events and their rate, the runtime
+    launches left without a device record (`launch_records`), and with
+    `counts` (the wrappers' launch counts) the wrappers' calls over fn,
+    beside the port's device events by kernel (`window_line`)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -909,12 +961,18 @@ def device_profile(torch, fn, top=6):
         time.sleep(PROFILE_PAD_S)
         prof.step()
         time.sleep(PROFILE_PAD_S)
+    c0 = counts() if counts else None
     t0 = time.monotonic()
     fn()
     torch.cuda.synchronize()
     wall_us = (time.monotonic() - t0) * 1e6
+    wrapper_calls = None
+    if counts:
+        c1 = counts()
+        wrapper_calls = {k: c1[k] - c0[k] for k in c0}
     if prof is None:
-        return {"device_busy_share": "not measured", "error": why}
+        return {"device_busy_share": "not measured", "error": why,
+                "wrapper_calls": wrapper_calls}
     time.sleep(PROFILE_PAD_S)
     prof.step()
     prof.stop()
@@ -933,7 +991,8 @@ def device_profile(torch, fn, top=6):
             reach = end
     if busy == 0:
         return {"device_busy_share": "not measured",
-                "error": "no device events recorded"}
+                "error": "no device events recorded",
+                "wrapper_calls": wrapper_calls}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     # The host's side of the window: torch ops by their own CPU time
     # (every thread's, the engine's scheduler included).
@@ -949,8 +1008,14 @@ def device_profile(torch, fn, top=6):
             short = name.split("(anonymous namespace)::")[-1].split("(")[0]
             port[short] = port.get(short, 0.0) + us / 1e3
             port_calls[short] = port_calls.get(short, 0) + calls[name]
-    return {
+    runtime, lost = launch_records(prof)
+    rec = {
         "window_s": wall_us / 1e6,
+        "device_kernel_events": len(spans),
+        "launch_rate_per_s": len(spans) / (wall_us / 1e6),
+        "runtime_launches": runtime,
+        "launches_without_device_event": lost,
+        "wrapper_calls": wrapper_calls,
         "device_busy_share": busy / wall_us,
         "device_ms": busy / 1e3,
         "top_kernels_ms": [[name[:100], us / 1e3] for name, us in ranked],
@@ -961,6 +1026,8 @@ def device_profile(torch, fn, top=6):
         "port_kernel_calls": port_calls,
         "launch_to_start_ms": launch_lags_ms(prof),
     }
+    window_line(tag, rec)
+    return rec
 
 
 def wait_idle(eng, timeout=60.0):
@@ -989,18 +1056,18 @@ def profile_window(torch, eng, gen, counts):
 
     def window():
         wait_idle(eng)
-        ends.append((eng._dispatch_count, counts()))
+        ends.append(eng._dispatch_count)
         hs = [eng.submit_nowait(p, 32) for p in prompts.numpy()]
         outs.extend(h.wait(timeout=900)[0] for h in hs)
         wait_idle(eng)
-        ends.append((eng._dispatch_count, counts()))
+        ends.append(eng._dispatch_count)
 
     wait_idle(eng)  # no step of the last run lands in the profile
-    rec = device_profile(torch, window)
+    # The engine idles at fn's ends, so the counts read around fn are
+    # the window's.
+    rec = device_profile(torch, window, counts=counts, tag="engine")
     assert all(len(o) == 32 for o in outs), [len(o) for o in outs]
-    (d0, c0), (d1, c1) = ends
-    rec["dispatches"] = d1 - d0
-    rec["wrapper_calls"] = {k: c1[k] - c0[k] for k in c0}
+    rec["dispatches"] = ends[1] - ends[0]
     return rec
 
 
@@ -1975,10 +2042,13 @@ def run_engine_observe(torch, model, gen_reqs):
             on.submit(reqs[0][0], 16, timeout=900)
         except RuntimeError:
             pass
+        # The revival counts its restart before it records the event
+        # (engine.py `revive`), so wait for the event itself.
         t0 = time.monotonic()
-        while on.snapshot()["restarts"] < 1:
+        while "restart" not in [e["kind"] for e in obs.recorder.events()]:
             assert time.monotonic() - t0 < 60, "the engine never revived"
             time.sleep(0.01)
+        assert on.snapshot()["restarts"] >= 1
         kinds = [e["kind"] for e in obs.recorder.events()]
         for k in ("step_retry", "step_fail", "crash", "restart"):
             assert k in kinds, (k, kinds[-12:])
@@ -2686,19 +2756,14 @@ def fleet_window(torch, fleet, gen, counts):
     idle replicas to idle replicas: the port's device events must equal
     the wrappers' calls over both replicas' threads."""
     prompts = torch_randint(gen, (N_SLOTS, 64))
-    ends = []
 
     def window():
         idle_fleet(fleet)
-        ends.append(counts())
         fleet_run(fleet, [(p, 32) for p in prompts])
         idle_fleet(fleet)
-        ends.append(counts())
 
     idle_fleet(fleet)
-    rec = device_profile(torch, window)
-    c0, c1 = ends
-    rec["wrapper_calls"] = {k: c1[k] - c0[k] for k in c0}
+    rec = device_profile(torch, window, counts=counts, tag="fleet")
     rec["device_events"] = port_events(rec, "fleet")
     assert rec["device_events"] == rec["wrapper_calls"], rec
     return rec
@@ -4697,7 +4762,7 @@ def run_vision_train(torch, gen):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     profile = device_profile(
         torch, lambda: [k_step(k_state, images, labels) for _ in range(3)],
-        top=12)
+        top=12, counts=lambda: _vision_counts(FL), tag="vision_train")
     del k_step, k_state, model, blocks
     torch.cuda.empty_cache()
 
@@ -4844,7 +4909,7 @@ def run_train(torch, timer, gen):
 
     profile = device_profile(
         torch, lambda: [k_step(k_state, tokens, targets) for _ in range(3)],
-        top=12)
+        top=12, counts=lambda: _train_counts(FA, FX), tag="train")
 
     # The command-line entry point at its defaults (lm_main's single-card
     # dp path, the same width): a warm-up step and 3 logged steps.
@@ -5023,7 +5088,7 @@ def run_lm_large(torch, gen):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     profile = device_profile(
         torch, lambda: [step(state, tokens, targets) for _ in range(2)],
-        top=12)
+        top=12, counts=lambda: _train_counts(FA, FX), tag="lm_large")
     b, s_, dim, depth = cfg["batch"], cfg["seq_len"], cfg["dim"], cfg["depth"]
     tok, dh = b * s_, dim // cfg["heads"]
     bf16_flops = 3 * (2 * tok * 12 * dim * dim * depth
@@ -5070,6 +5135,7 @@ def run_inception_train(torch, gen):
     warm-up step and 3 logged steps (fresh batches each step)."""
     from container_engine_accelerators_tpu_torch import resnet_main
     from container_engine_accelerators_tpu_torch.models import train as TT
+    from container_engine_accelerators_tpu_torch.ops import fused_linear as FL
 
     step, batch_fn, state = TT.build_training(**INCEPTION, seed=SEED,
                                               device="cuda")
@@ -5092,7 +5158,7 @@ def run_inception_train(torch, gen):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     profile = device_profile(
         torch, lambda: [step(state, images, labels) for _ in range(2)],
-        top=12)
+        top=12, counts=lambda: _vision_counts(FL), tag="inception_train")
     del step, state, images, labels
     torch.cuda.empty_cache()
 
@@ -5219,6 +5285,33 @@ MOE = dict(vocab=32000, dim=1024, depth=8, heads=8, seq_len=2048, batch=8,
 MOE_STEPS = 10
 MESH_DEPTH = 2  # lm_main's width, cut to 2 layers to save time
 RESNET_DP_BATCH = 32
+# The vision configurations the reference trains under a mesh, each one
+# step over the one-rank mesh against its step without one, at full
+# width: (key, model, model kwargs, image size, batch, loss_impl).  The
+# batches are the largest that keep the phase within ~1 min: the card
+# has room for 4x more.
+MESH_VISION_BATCH, MESH_INCEPTION_BATCH = 128, 64
+MESH_VISION = (
+    ("resnet50_fused_block", "resnet50",
+     dict(stem="s2d", block_impl="fused_pallas"), 224, MESH_VISION_BATCH,
+     "pallas"),
+    ("resnet50_flax_norm", "resnet50", dict(norm_impl="flax"), 224,
+     MESH_VISION_BATCH, "xla"),
+    ("inception_v3", "inception_v3", None, 299, MESH_INCEPTION_BATCH, "xla"),
+)
+# Loss, every gradient and every running statistic (each tensor's
+# ||difference|| over its norm, as the other gradient checks here), mesh
+# against no mesh: half a bf16 ulp.  On one rank the mesh path's
+# arithmetic is the no-mesh path's (models/norm.py), so the two agree
+# bitwise; a rounding step of its own, such as dividing by a count held
+# on the card where the no-mesh path multiplies by a reciprocal, moves
+# the bf16 step's early gradients by ~3e-3 and fails the check.
+MESH_VISION_REL = 2.0 ** -9
+# Steady steps timed after the compared one, mesh and no mesh alike.
+MESH_TIMED_STEPS = 3
+# The fused block's kernels a ResNet-50 step: one matmul_stats (conv1)
+# and one affine_relu_matmul_stats (conv3) a bottleneck block.
+RESNET50_BLOCKS = 16
 # Tokens of the 16384 a MoE layer whose routing the dense path's own
 # router would flip against the flash path's: sound runs read 421 / 791
 # / 972 / 933 (NVIDIA H100 80GB HBM3, 700.00 W); a bound at about twice
@@ -5356,7 +5449,8 @@ def run_moe_train(torch, gen):
         peak = torch.cuda.max_memory_allocated()
         profile = device_profile(
             torch, lambda: [k_step(k_state, tokens, targets)
-                            for _ in range(2)], top=6)
+                            for _ in range(2)], top=6,
+            counts=lambda: _train_counts(FA, FX), tag="moe_train")
         b, s, dim = cfg["batch"], cfg["seq_len"], cfg["dim"]
         depth, vocab = cfg["depth"], cfg["vocab"]
         tok = b * s
@@ -5383,6 +5477,141 @@ def run_moe_train(torch, gen):
         dist.destroy_process_group()
 
 
+def _max_rel(a, b):
+    """max |a - b| over max |b|, in f32 (reported beside _norm_rel)."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def mesh_vision_case(torch, FL, FA, FX, name, kw, size, batch, loss_impl):
+    """One step of build_training(model_name=name) without a mesh and
+    over the one-rank mesh, from the seed's weights and one batch: the
+    losses, the worst gradient and running statistic (MESH_VISION_REL),
+    and each step's launches of the kernels; then MESH_TIMED_STEPS more
+    steps each, timed (host clock, synchronized), and one profiled."""
+    from container_engine_accelerators_tpu_torch.models import train as TT
+    from container_engine_accelerators_tpu_torch.parallel import mesh as M
+
+    got = {}
+    for key, mesh in (("plain", None), ("dp", M.make_mesh())):
+        step, bfn, state = TT.build_training(
+            mesh=mesh, model_name=name, image_size=size, seed=SEED,
+            loss_impl=loss_impl, model_kwargs=kw, device="cuda")
+        images, labels = bfn(
+            torch.Generator(device="cuda").manual_seed(SEED), batch)
+        _vision_counts(FL, reset=True)
+        _train_counts(FA, FX, reset=True)
+        t0 = time.monotonic()
+        state, loss = step(state, images, labels)
+        loss = float(loss)
+        ms = (time.monotonic() - t0) * 1e3
+        model = state["model"]
+        got[key] = {
+            "loss": loss, "first_step_ms": ms,
+            "launches": {**_vision_counts(FL), **_train_counts(FA, FX)},
+            "grads": {n: p.grad.detach().clone()
+                      for n, p in model.named_parameters()},
+            "stats": {n: b.detach().clone()
+                      for n, b in model.named_buffers()},
+        }
+        t0 = time.monotonic()
+        for _ in range(MESH_TIMED_STEPS):
+            state, loss = step(state, images, labels)
+        float(loss)
+        torch.cuda.synchronize()
+        got[key]["step_ms"] = (time.monotonic() - t0) * 1e3 / MESH_TIMED_STEPS
+        got[key]["profile"] = device_profile(
+            torch, lambda: step(state, images, labels),
+            counts=lambda: {**_vision_counts(FL), **_train_counts(FA, FX)},
+            tag=f"mesh_{name}_{key}")
+        del step, state, model, images, labels
+        torch.cuda.empty_cache()
+    plain, dp = got["plain"], got["dp"]
+    grad_rel = {n: _norm_rel(dp["grads"][n], g)
+                for n, g in plain["grads"].items()}
+    grad_max_rel = {n: _max_rel(dp["grads"][n], g)
+                    for n, g in plain["grads"].items()}
+    stats_rel = {n: _norm_rel(dp["stats"][n], b)
+                 for n, b in plain["stats"].items()}
+    if not all(math.isfinite(v) for v in grad_rel.values()):
+        raise AssertionError(f"mesh {name} {kw}: a non-finite gradient")
+    worst_grad = max(grad_rel.items(), key=lambda kv: kv[1])
+    worst_stat = max(stats_rel.items(), key=lambda kv: kv[1])
+    loss_rel = abs(dp["loss"] - plain["loss"]) / abs(plain["loss"])
+    rec = {"model": name, "model_kwargs": kw, "image_size": size,
+           "batch": batch, "loss_impl": loss_impl,
+           "loss": {"plain": plain["loss"], "dp": dp["loss"]},
+           "loss_rel": loss_rel, "worst_grad_rel": list(worst_grad),
+           "worst_grad_max_rel": list(max(grad_max_rel.items(),
+                                          key=lambda kv: kv[1])),
+           "worst_stats_rel": list(worst_stat),
+           "grads_bitwise": sum(v == 0 for v in grad_rel.values()),
+           "grads": len(grad_rel),
+           "first_step_ms": {"plain": plain["first_step_ms"],
+                             "dp": dp["first_step_ms"]},
+           "step_ms": {"plain": plain["step_ms"], "dp": dp["step_ms"]},
+           "mesh_over_plain": dp["step_ms"] / plain["step_ms"],
+           "profile": {"plain": plain["profile"], "dp": dp["profile"]},
+           "launches": {"plain": plain["launches"], "dp": dp["launches"]},
+           "tolerance_rel": MESH_VISION_REL}
+    if not math.isfinite(dp["loss"]) or max(
+        loss_rel, worst_grad[1], worst_stat[1]
+    ) > MESH_VISION_REL:
+        raise AssertionError(f"mesh {name} {kw}: {rec}")
+    if dp["launches"] != plain["launches"]:
+        raise AssertionError(f"mesh {name} {kw}: launches {rec['launches']}")
+    return rec, dp["launches"]
+
+
+def run_resnet_main_ranks(torch):
+    """resnet_main's spawned job path on the card: `rank_main` through
+    launch.spawn_ranks on one rank (its own process, NCCL, the mesh over
+    the group) with --model inception_v3 at 299 x 299 for a warm-up step
+    and 2 logged steps, saving a checkpoint from rank 0.  The child's
+    stderr goes to smoke_out/ and is read back: its reference log lines
+    and the checkpoint of step 3."""
+    from container_engine_accelerators_tpu_torch.parallel import launch
+
+    model_dir = os.path.join(LOG_DIR, "rank_main_ckpt")
+    log_path = os.path.join(LOG_DIR, "rank_main_inception.log")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    argv = ["--model", "inception_v3", "--image-size", "299",
+            "--batch-per-chip", str(MESH_INCEPTION_BATCH), "--train-steps",
+            "2", "--log-every", "1", "--model-dir", model_dir]
+    sys.stderr.flush()
+    saved = os.dup(2)
+    t0 = time.monotonic()
+    with open(log_path, "w") as f:
+        os.dup2(f.fileno(), 2)
+        try:
+            rc = launch.spawn_ranks(
+                "container_engine_accelerators_tpu_torch.resnet_main"
+                ":rank_main", 1, (argv, "cuda"), device="cuda")
+        finally:
+            os.dup2(saved, 2)
+            os.close(saved)
+    seconds = time.monotonic() - t0
+    with open(log_path) as f:
+        text = f.read()
+    steps = re.findall(r"step (\d+) loss ([0-9.naif]+) images/sec (\d+) "
+                       r"\((\d+)/chip\)", text)
+    head = re.search(r"training inception_v3 on 1 devices \(([^)]*)\), "
+                     r"global batch (\d+)", text)
+    saved_ckpt = sorted(os.listdir(model_dir)) if os.path.isdir(
+        model_dir) else []
+    rec = {"rc": rc, "argv": argv, "seconds": seconds,
+           "device": head and head.group(1),
+           "global_batch": head and int(head.group(2)),
+           "steps": [[int(n), float(v), int(ips)] for n, v, ips, _ in steps],
+           "done": "done: 2 steps" in text, "checkpoints": saved_ckpt}
+    if rc != 0 or head is None or [r[0] for r in rec["steps"]] != [1, 2] or (
+        not all(math.isfinite(r[1]) for r in rec["steps"])
+    ) or not rec["done"] or saved_ckpt != ["checkpoint_3"]:
+        raise AssertionError(f"resnet_main rank_main: {rec}\n{text[-2000:]}")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    return rec
+
+
 def run_mesh_modes(torch):
     """dp, sp (both layouts), tp and pp on a one-rank NCCL group at
     lm_main's widths cut to depth 2, each against the trainer without a
@@ -5397,6 +5626,7 @@ def run_mesh_modes(torch):
     )
     from container_engine_accelerators_tpu_torch.ops import (
         flash_attention as FA,
+        fused_linear as FL,
         fused_xent as FX,
     )
     from container_engine_accelerators_tpu_torch.parallel import mesh as M
@@ -5467,8 +5697,28 @@ def run_mesh_modes(torch):
         rn_rel = abs(rn["dp"] - rn["plain"]) / abs(rn["plain"])
         if rn_rel > TRAIN_LOSS_REL:
             raise AssertionError(f"resnet dp: {rn} (rel {rn_rel})")
+
+        # Every model and norm the reference trains under a mesh, with
+        # cuDNN's deterministic algorithms, so that the two steps differ
+        # only by the mesh path's arithmetic.
+        vision = {}
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for key, name, kw, size, batch, loss_impl in MESH_VISION:
+                vision[key], launches[key] = mesh_vision_case(
+                    torch, FL, FA, FX, name, kw, size, batch, loss_impl)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        fused = launches["resnet50_fused_block"]
+        if (fused["fused_matmul_stats"], fused["affine_relu_matmul_stats"],
+                fused["fused_xent_fwd"], fused["fused_xent_bwd"]) != (
+                    RESNET50_BLOCKS, RESNET50_BLOCKS, 1, 1):
+            raise AssertionError(f"mesh fused block launches {fused}")
     finally:
         dist.destroy_process_group()
+    # resnet_main's spawned job path; its rank joins a group of its own.
+    ranks_rec = run_resnet_main_ranks(torch)
 
     class _Errors(logging.Handler):
         lines = []
@@ -5489,6 +5739,7 @@ def run_mesh_modes(torch):
             **cfg, "loss_no_mesh": base, "loss_tolerance_rel": TRAIN_LOSS_REL,
             "modes": modes, "resnet50_dp_batch": RESNET_DP_BATCH,
             "resnet50_loss": rn, "resnet50_loss_rel": rn_rel,
+            "vision": vision, "resnet_main_rank_main": ranks_rec,
             "lm_main_ep_rc": rc, "lm_main_ep_error": seen.lines[-1],
             "seconds": time.monotonic() - t_phase}, launches
 
@@ -5497,7 +5748,8 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=("mesh_serve", "device_plugin"),
+    parser.add_argument("--only", choices=("mesh_serve", "device_plugin",
+                                           "mesh_modes"),
                         help="run this phase alone (the device line first)")
     only = parser.parse_args(argv).only
     try:
@@ -5544,6 +5796,13 @@ def main(argv=None) -> int:
     wrappers = kernel_wrappers(PA, QM, FA, FX, FL, FC)
     if only == "device_plugin":
         emit({**run_device_plugin(torch, wrappers), "card": smi})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return 0
+    if only == "mesh_modes":
+        emit({**run_mesh_modes(torch)[0], "card": smi})
         print(smi, flush=True)
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5774,6 +6033,10 @@ def main(argv=None) -> int:
             k[f"launches_mesh_{mode}"] = counts[k["name"]]
         if k["name"].startswith("flash") and k["launches_moe_train"] < 1:
             raise AssertionError(f"{k['name']} never ran in moe_train")
+    # The fused block under the mesh (phase 11): B6 a step.
+    for k in kernels[13:15]:
+        for key, *_ in MESH_VISION:
+            k[f"launches_mesh_{key}"] = l_mesh[key][k["name"]]
     # The device-plugin daemon (phase 4f) runs no kernel.
     for k in kernels:
         op = next(p for p in wrappers if k["name"].startswith(p))

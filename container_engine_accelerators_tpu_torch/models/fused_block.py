@@ -14,6 +14,13 @@ eval mode the block is plain torch ops with the running statistics.
 
 Activations are NHWC; the matmuls see (rows, channels) views of them.
 The train / eval flag is an explicit argument of `forward`.
+
+Under a data-parallel mesh (models/train.py) `groups` are the mesh's
+axes: the kernels still compute this rank's columns, and their moments
+are averaged over the ranks outside them (models/norm.py
+`global_moments`, a differentiable psum), so every statistic is the
+global batch's, as GSPMD gives the reference's; bn2 and the
+projection's norm take the same groups.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ import torch
 from torch import nn
 
 from ..ops.fused_linear import affine_relu_matmul_stats, dot_f32, matmul_stats
-from .norm import batch_stats, ema_update
+from .norm import batch_stats, ema_update, global_moments
 
 MOMENTUM, EPSILON = 0.9, 1e-5
 
@@ -88,6 +95,7 @@ class FusedBottleneckBlock(nn.Module):
                 self.conv_proj = conv(c_in, c_out, (1, 1), strides,
                                       name="conv_proj")
             self.norm_proj = norm(c_out, name="norm_proj")
+        self.groups = ()  # a data-parallel mesh's axes: global statistics
 
     def forward(self, x, train):
         c_in = x.shape[-1]
@@ -104,8 +112,8 @@ class FusedBottleneckBlock(nn.Module):
             z1 = torch.relu(y1 * sc1 + sh1).to(dtype)
         else:
             y1, s1, ss1 = matmul_stats(x.reshape(m, c_in), w1)
-            mean1 = s1 / m
-            var1 = ss1 / m - mean1 * mean1
+            mean1, ex1 = global_moments(s1 / m, ss1 / m, self.groups)
+            var1 = ex1 - mean1 * mean1
             self.bn1.update(mean1, var1)
             sc1, sh1 = self.bn1.fold(mean1, var1)
             z1 = torch.relu(y1.float() * sc1 + sh1).to(dtype)
@@ -118,15 +126,15 @@ class FusedBottleneckBlock(nn.Module):
             y3 = dot_f32(z2.reshape(m2, c4), w3).to(dtype)
             sc3, sh3 = self.bn3.fold_running()
         else:
-            mean2, var2 = batch_stats(y2)
+            mean2, var2 = batch_stats(y2, self.groups)
             self.bn2.update(mean2, var2)
             sc2, sh2 = self.bn2.fold(mean2, var2)
             # z2 = relu(sc2 * y2 + sh2) is applied as the kernel reads
             # its operand: never materialized.
             y3, s3, ss3 = affine_relu_matmul_stats(
                 y2.reshape(m2, c4), sc2, sh2, w3)
-            mean3 = s3 / m2
-            var3 = ss3 / m2 - mean3 * mean3
+            mean3, ex3 = global_moments(s3 / m2, ss3 / m2, self.groups)
+            var3 = ex3 - mean3 * mean3
             self.bn3.update(mean3, var3)
             sc3, sh3 = self.bn3.fold(mean3, var3)
         z3 = (y3.float() * sc3 + sh3).to(dtype).reshape(n2, h2, w2, c_out)

@@ -100,6 +100,7 @@ def _sample(logits, temperature, generator, top_k=None, top_p=None):  # hot-path
         sampled = _gumbel_argmax(scaled, generator)
     else:
         sorted_logits, sorted_idx, keep = keep_mask(scaled, top_k, top_p)
+        # analysis: disable=host-sync -- float("-inf") is a literal, not a device value
         masked = torch.where(keep, sorted_logits, float("-inf"))
         pick = _gumbel_argmax(masked, generator)
         sampled = sorted_idx.gather(1, pick[:, None])[:, 0]

@@ -48,6 +48,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.groups = ()  # a data-parallel mesh's axes: global statistics
 
 
 class ConvBN(nn.Module):

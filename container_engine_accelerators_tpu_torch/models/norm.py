@@ -19,13 +19,22 @@ JAX evaluates the primal outside a derivative.
 
 Under a data-parallel mesh (models/train.py) a norm's `groups` are the
 mesh's axes: the statistics are those of the global batch, as GSPMD has
-flax's BatchNorm take them, from per-channel sums and sums of squares
-all-reduced over the groups, and the backward all-reduces its two
-per-channel sums likewise (the adjoint of that reduction); the scale
-and bias gradients stay this rank's share, which the trainer sums.
+flax's BatchNorm take them.  Every rank holds as many rows (the
+trainer's batch sharding), so the forward's moments E[y] and E[y^2] are
+the ranks' mean of each rank's (`global_moments`), and the backward
+all-reduces its two per-channel sums over a row count of this rank's
+times the ranks; on a group of one rank both are the one-rank
+arithmetic, bit for bit.  The scale and bias gradients stay this rank's
+share, which the trainer sums.  The all-reduces go through
+`psum_groups`, whose backward is the adjoint all-reduce, so the modules
+that differentiate through the moments (the fused block,
+models/fused_block.py, and flax's BatchNorm, resnet.py `BNAct`) get the
+statistics' cross-rank gradient term too.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -39,12 +48,35 @@ def ema_update(ra_mean, ra_var, mean, var, momentum):
         ra_var.mul_(momentum).add_((1.0 - momentum) * var.detach())
 
 
-def _all_reduce(t, groups):
-    import torch.distributed as dist
+def psum_groups(t, groups):
+    """`t` summed over the ranks of each group in turn (all of a mesh's
+    ranks, given world_groups); differentiable: its backward sums the
+    cotangent likewise (parallel/_collectives.py `psum`), which carries
+    the cross-rank term of a statistic's gradient."""
+    from ..parallel._collectives import psum
 
     for g in groups:
-        dist.all_reduce(t, group=g)
+        t = psum(t, g)
     return t
+
+
+def group_size(groups) -> int:
+    """The number of ranks that `groups` (a mesh's axes) span."""
+    import torch.distributed as dist
+
+    return math.prod(dist.get_world_size(g) for g in groups)
+
+
+def global_moments(mean, ex2, groups):
+    """Per-channel moments E[y] and E[y^2] of the global batch from this
+    rank's (`mean`, `ex2`): their mean over the ranks of `groups`, as
+    every rank holds the same number of rows (the trainer's batch
+    sharding splits evenly or raises).  Unchanged without groups, and
+    bitwise so on a group of one rank."""
+    if not groups:
+        return mean, ex2
+    both = psum_groups(torch.cat([mean, ex2]), groups) / group_size(groups)
+    return both[:mean.shape[0]], both[mean.shape[0]:]
 
 
 def batch_stats(y, groups=()):
@@ -53,16 +85,8 @@ def batch_stats(y, groups=()):
     batch of the ranks of `groups` when given."""
     yf = y.float()
     axes = tuple(range(y.ndim - 1))
-    if not groups:
-        mean = yf.mean(axes)
-        var = (yf * yf).mean(axes) - mean * mean
-        return mean, var
-    sums = torch.stack([yf.sum(axes), (yf * yf).sum(axes)])
-    count = torch.tensor([float(yf.numel() // yf.shape[-1])], device=y.device)
-    flat = _all_reduce(torch.cat([sums.reshape(-1), count]), groups)
-    n = flat[-1]
-    mean = flat[:y.shape[-1]] / n
-    return mean, flat[y.shape[-1]:-1] / n - mean * mean
+    mean, ex2 = global_moments(yf.mean(axes), (yf * yf).mean(axes), groups)
+    return mean, ex2 - mean * mean
 
 
 def _bn_act_primal(y, gamma, beta, eps, act, residual, groups=()):
@@ -84,13 +108,12 @@ def _bn_act_backward(xf, dz, gamma, beta, inv, act, groups=()):
     m = xf.numel() // xf.shape[-1]
     dbeta = dp.sum(axes)
     dgamma = (dp * xf).sum(axes)
-    if not groups:
-        dy = (gamma * inv) * (dp - (dbeta + xf * dgamma) * (1.0 / m))
-        return dy, dgamma, dbeta
-    c = xf.shape[-1]
-    flat = _all_reduce(torch.cat([dbeta, dgamma, torch.tensor(
-        [float(m)], device=xf.device)]), groups)
-    dy = (gamma * inv) * (dp - (flat[:c] + xf * flat[c:2 * c]) / flat[-1])
+    sum_b, sum_g = dbeta, dgamma
+    if groups:  # the global batch's sums and rows (as many on every rank)
+        c = xf.shape[-1]
+        both = psum_groups(torch.cat([dbeta, dgamma]), groups)
+        sum_b, sum_g, m = both[:c], both[c:], m * group_size(groups)
+    dy = (gamma * inv) * (dp - (sum_b + xf * sum_g) * (1.0 / m))
     return dy, dgamma, dbeta
 
 

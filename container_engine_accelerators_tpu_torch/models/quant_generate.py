@@ -200,6 +200,7 @@ def quant_decode_step(qparams, cache, tok, pos, t, kv_mask, heads,  # hot-path
     else:
         view_len = page  # contiguous: dim 1 is max_seq
         where = (_row_slots(t, view_len)
+                 # analysis: disable=host-sync -- t is a Python int here: the engine seams pass per-row slots as a 1-d tensor (the other branch), and only generate_prefill_quant's loop passes its host-side slot
                  if torch.is_tensor(t) and t.ndim == 1 else int(t))
     table = qparams["pos_emb"]  # clamped, as the reference's gather is
     pe = table[_as(pos, torch.int64, dev).clamp(max=table.shape[0] - 1)]
@@ -211,6 +212,7 @@ def quant_decode_step(qparams, cache, tok, pos, t, kv_mask, heads,  # hot-path
     if torch.is_tensor(t) and t.ndim == 1:
         visible = slots[None, :] <= t[:, None]
     else:
+        # analysis: disable=host-sync -- t is a Python int here: the engine seams pass per-row slots as a 1-d tensor (the other branch), and only generate_prefill_quant's loop passes its host-side slot
         visible = slots <= int(t)
     if kv_mask is not None:
         visible = visible & kv_mask

@@ -41,7 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..ops.fused_linear import dot_f32
 from .fused_block import FusedBottleneckBlock
-from .norm import FusedBatchNormAct
+from .norm import FusedBatchNormAct, batch_stats
 
 IMAGE_CHANNELS = 3  # RGB: the stem's input channels
 
@@ -110,7 +110,9 @@ class BNAct(nn.Module):
     """resnet.py `_BNAct`: flax's nn.BatchNorm (statistics in f32, the
     variance E[x^2] - E[x]^2 clamped at 0, EMA momentum on the old value)
     then the activation if `act`.  Its parameters sit one level down in
-    flax's tree (BatchNorm_0)."""
+    flax's tree (BatchNorm_0).  Under a data-parallel mesh `groups` are
+    the mesh's axes and the statistics the global batch's, as GSPMD
+    gives flax's (models/norm.py `batch_stats`)."""
 
     flax_class = "_BNAct"
 
@@ -124,13 +126,12 @@ class BNAct(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.groups = ()  # a data-parallel mesh's axes: global statistics
 
     def forward(self, x, train=True):
         if train:
-            xf = x.float()
-            axes = tuple(range(x.ndim - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            mean, var = batch_stats(x, self.groups)
+            var = torch.clamp(var, min=0.0)
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_(
                     (1.0 - self.momentum) * mean)

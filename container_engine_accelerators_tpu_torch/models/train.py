@@ -20,11 +20,12 @@ Under a mesh (a DeviceMesh, parallel/mesh.py; this process one of its
 ranks) the step takes the global batch, trains on this rank's share of
 it (split over every mesh axis, as the reference's batch_sharding), and
 sums the gradients over the mesh (parallel/layout.py `step_on_mesh`).
-BatchNorm takes the global batch's statistics, as GSPMD gives flax's:
-models/norm.py's fused norm all-reduces them, so the mesh path takes the
-ResNets at the reference's defaults (norm_impl "fused" or "fused_y",
-block_impl "flax", the ones its dp tests run) and raises for any other
-model or norm, whose statistics would stay per rank.
+BatchNorm takes the global batch's statistics, as GSPMD gives flax's,
+in every model and norm the reference trains under a mesh: the fused
+norm (models/norm.py), flax's (resnet.py `BNAct`, Inception v3's
+BatchNorm) and the fused block's folded norms (models/fused_block.py,
+from the kernels' column sums) average their moments over the mesh's
+groups (`BATCH_NORMS`), and each all-reduce's backward is its adjoint.
 """
 
 from __future__ import annotations
@@ -38,6 +39,13 @@ from ..ops.fused_xent import fused_cross_entropy_loss
 from ..ops.losses import cross_entropy_loss
 from . import inception, resnet
 from .convert import load_flax_vision
+from .fused_block import FusedBottleneckBlock
+from .norm import FusedBatchNormAct
+
+# Every module whose BatchNorm statistics reduce over the batch: under a
+# mesh each takes the mesh's groups and the global batch's statistics.
+BATCH_NORMS = (FusedBatchNormAct, resnet.BNAct, inception.BatchNorm,
+               FusedBottleneckBlock)
 
 FACTORIES = {
     "resnet18": resnet.ResNet18,
@@ -108,25 +116,10 @@ def train_step(state, images, labels, loss_impl: str = "xla"):
     return state, loss.detach()
 
 
-def _check_mesh_model(model_name, model_kwargs):
-    kw = model_kwargs or {}
-    if model_name == "inception_v3" or kw.get("block_impl", "flax") != (
-        "flax"
-    ) or kw.get("norm_impl", "fused") not in ("fused", "fused_y"):
-        raise NotImplementedError(
-            f"data-parallel training of {model_name} with {kw}: only the "
-            "ResNets with the fused norm (norm_impl 'fused' or 'fused_y', "
-            "block_impl 'flax') take the global batch's BatchNorm "
-            "statistics under a mesh; another norm would keep per-rank "
-            "statistics, unlike the reference")
-
-
 def _setup_training(model_name, num_classes, learning_rate, seed, loss_impl,
                     model_kwargs, mesh, device, params, batch_stats):
     if loss_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown loss_impl {loss_impl!r}")
-    if mesh is not None:
-        _check_mesh_model(model_name, model_kwargs)
     dev = resolve_device(device)
     model = create_model(model_name, num_classes, device=dev,
                          **(model_kwargs or {}))
@@ -140,11 +133,10 @@ def _setup_training(model_name, num_classes, learning_rate, seed, loss_impl,
 
     from ..parallel import layout as LY
     from ..parallel.mesh import batch_sharding, world_groups
-    from .norm import FusedBatchNormAct
 
     groups = world_groups(mesh)
     for m in model.modules():
-        if isinstance(m, FusedBatchNormAct):
+        if isinstance(m, BATCH_NORMS):
             m.groups = tuple(groups)
     state.update(mesh=mesh, layout=LY.identity_layout(model, groups))
     take = batch_sharding(mesh)

@@ -5,15 +5,16 @@
 The same flags and defaults as the reference (ResNet-50, 200 steps,
 batch 256 per chip, 224 x 224 images, lr 0.1, a log line every 20 steps,
 one step per call), plus --device (default cuda; the job exits 2 without
-a card unless given --device cpu).  Like the reference it builds the
-model at its defaults (block_impl "flax", norm_impl "fused", the conv7
-stem), which run no hand-written kernel.  Each step draws a fresh
-synthetic batch on the device; --steps-per-call K > 1 runs K steps per
-call of `build_scan_training`.  Reading the loss is the timing fence.
-The log lines are the reference's: `training ... global batch N`, `step N
-loss L images/sec I (I/chip)` every --log-every steps, then `done: ...`.
---profile-dir writes a torch.profiler trace (Chrome JSON) of one more
-steady-state step (or call) into that directory.
+a card unless given --device cpu) and --ranks (CPU only).  Like the
+reference it builds the model at its defaults (block_impl "flax",
+norm_impl "fused", the conv7 stem), which run no hand-written kernel.
+Each step draws a fresh synthetic batch on the device; --steps-per-call
+K > 1 runs K steps per call of `build_scan_training`.  Reading the loss
+is the timing fence.  The log lines are the reference's: `training ...
+on N devices (kind), global batch N`, `step N loss L images/sec I
+(I/chip)` every --log-every steps, then `done: ...`.  --profile-dir
+writes a torch.profiler trace (Chrome JSON) of one more steady-state
+step (or call) into that directory.
 
 --model inception_v3 trains models/inception.py's Inception v3 (the
 reference's demo job runs it at --image-size 299 --batch-per-chip 128).
@@ -21,20 +22,24 @@ reference's demo job runs it at --image-size 299 --batch-per-chip 128).
 (utils/checkpoint.py, torch-native files); like the reference's job it
 does not restore.
 
---distributed reads the plugin's env contract from the process
-environment (parallel/distributed.py): on one host it initializes
-nothing and trains on this card; across hosts this process is one rank,
-one card a host, and the job trains data parallel over the global mesh
-(global_mesh), the global batch batch-per-chip times the ranks,
-BatchNorm over the global batch.  Where the reference's process drives
-every local chip, this job trains one card a process, so --distributed
-exits 2 when more than one card is visible rather than leave the others
-idle.
+"Chips" are ranks, one process each, as in lm_main: without
+--distributed the job starts one rank per visible card (the reference
+takes every local chip), or --ranks N gloo ranks on the CPU; with
+--distributed across hosts (the plugin's env contract, read by
+parallel/distributed.py) each host starts as many, its local ranks of
+the global group, and on one host it initializes nothing and takes its
+local ranks.  On one rank the job trains in this process without a
+mesh.  On more, each rank (`rank_main`) trains data parallel over the
+group's mesh: the global batch is batch-per-chip times the ranks, every
+rank draws it and trains its share, BatchNorm takes the global batch's
+statistics (models/train.py); rank 0 logs, writes the checkpoint (every
+rank takes part; the one-rank trainer's format) and the trace.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import sys
@@ -64,41 +69,22 @@ def parse_args(argv=None):
                    help="Write a torch.profiler trace of one steady-state "
                    "step into this directory")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--ranks", type=int, default=0,
+                   help="CPU only: start this many ranks a host (gloo); "
+                   "on the card each visible card is a rank")
     return p.parse_args(argv)
 
 
-def main(argv=None) -> int:
-    logging.basicConfig(level=logging.INFO, stream=sys.stderr)
-    log = logging.getLogger("resnet_main")
-    args = parse_args(argv)
-
+def train(args, device, n_chips, rank=0, mesh=None) -> int:
+    """The training loop on this rank (over `mesh` when given); rank 0
+    logs and traces."""
     import torch
 
-    from ._device import resolve_device
     from .models import train as train_mod
 
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        log.error("%s", e)
-        return 2
-    mesh, n_chips = None, 1
-    if args.distributed:
-        from .parallel import distributed
-
-        if device.type == "cuda" and torch.cuda.device_count() > 1:
-            log.error("--distributed trains one card a host, and %d are "
-                      "visible: make one visible to each host's process",
-                      torch.cuda.device_count())
-            return 2
-
-        if distributed.initialize_from_env(os.environ, device=str(device)):
-            mesh = distributed.global_mesh()
-            n_chips = mesh.size()
-            if device.type == "cuda":
-                device = torch.device("cuda", torch.cuda.current_device())
-            if torch.distributed.get_rank():
-                log.setLevel(logging.WARNING)
+    log = logging.getLogger("resnet_main")
+    if rank:
+        log.setLevel(logging.WARNING)
     global_batch = args.batch_per_chip * n_chips
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
@@ -168,16 +154,20 @@ def main(argv=None) -> int:
     if args.profile_dir:
         from torch.profiler import ProfilerActivity, profile
 
-        log.info("capturing profiler trace to %s", args.profile_dir)
-        os.makedirs(args.profile_dir, exist_ok=True)
         acts = [ProfilerActivity.CPU]
         if device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
-        with profile(activities=acts) as prof:
+        # Every rank steps (the collectives); rank 0 traces.
+        prof = None if rank else profile(activities=acts)
+        if prof is not None:
+            log.info("capturing profiler trace to %s", args.profile_dir)
+            os.makedirs(args.profile_dir, exist_ok=True)
+        with prof or contextlib.nullcontext():
             state, loss = profile_step(state)
             float(loss)
-        prof.export_chrome_trace(
-            os.path.join(args.profile_dir, "resnet_main_trace.json"))
+        if prof is not None:
+            prof.export_chrome_trace(
+                os.path.join(args.profile_dir, "resnet_main_trace.json"))
 
     ips = global_batch * args.train_steps / total
     log.info("done: %d steps in %.1fs, %.0f images/sec (%.0f/chip)",
@@ -187,6 +177,55 @@ def main(argv=None) -> int:
 
         ckpt.save_checkpoint(args.model_dir, state, state["step"])
     return 0
+
+
+def rank_main(rank, world, argv, device) -> int:
+    """One spawned rank (parallel/launch.py): logging, the mesh over the
+    group, then train.  CUDA is first touched after init_rank set this
+    rank's card."""
+    import torch
+
+    from .parallel import mesh as M
+
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return train(parse_args(argv), dev, world, rank, M.make_mesh())
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    log = logging.getLogger("resnet_main")
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(argv)
+
+    import torch
+
+    from ._device import resolve_device
+    from .parallel import distributed, launch
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        log.error("%s", e)
+        return 2
+    if args.ranks and device.type == "cuda":
+        log.error("--ranks is for the CPU; on the card each visible card "
+                  "is a rank")
+        return 2
+    local = (torch.cuda.device_count() if device.type == "cuda"
+             else max(1, args.ranks))
+    cluster = (distributed.cluster_from_env(os.environ) if args.distributed
+               else None)
+    if args.distributed and cluster is None:
+        log.info("single-host slice; skipping torch.distributed init")
+    n_chips = local if cluster is None else cluster[1] * local
+    if n_chips == 1:
+        return train(args, device, n_chips)
+    return launch.spawn_ranks(
+        "container_engine_accelerators_tpu_torch.resnet_main:rank_main",
+        local, (argv, device.type), device=device.type, cluster=cluster)
 
 
 if __name__ == "__main__":

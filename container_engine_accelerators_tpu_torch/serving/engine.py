@@ -2172,26 +2172,38 @@ class ContinuousBatchingEngine:
                 self._fail_ticket(seq.ticket, err)
             return None
         seq.page_wait = 0
-        bt = np.zeros((self._pages_per_row,), np.int32)
-        bt[:shared_full] = shared_ids
-        bt[shared_full:last_page + 1] = priv
-        pf = _Prefill(
-            seq, free, padded,
-            self._plan_chunks(p_bucket, seq.plen, resume=resume),
-        )
-        pf.bt_row = bt
-        # Preload reads THROUGH the donor; the finish scatter writes the
-        # fresh private page at the same logical index.
-        pf.bt_pre = bt
-        if donor is not None:
-            pf.bt_pre = bt.copy()
-            pf.bt_pre[shared_full] = donor
-        pf.write_from = write_from
-        pf.resume = resume
-        pf.match_end = match_end
-        pf.donor = donor
-        pf.shared_ids = list(shared_ids)
-        pf.priv = list(priv)
+        try:
+            bt = np.zeros((self._pages_per_row,), np.int32)
+            bt[:shared_full] = shared_ids
+            bt[shared_full:last_page + 1] = priv
+            pf = _Prefill(
+                seq, free, padded,
+                self._plan_chunks(p_bucket, seq.plen, resume=resume),
+            )
+            pf.bt_row = bt
+            # Preload reads THROUGH the donor; the finish scatter writes
+            # the fresh private page at the same logical index.
+            pf.bt_pre = bt
+            if donor is not None:
+                pf.bt_pre = bt.copy()
+                pf.bt_pre[shared_full] = donor
+            pf.write_from = write_from
+            pf.resume = resume
+            pf.match_end = match_end
+            pf.donor = donor
+            pf.shared_ids = list(shared_ids)
+            pf.priv = list(priv)
+        except BaseException:
+            # A raise while wiring the block table would strand every
+            # reference this admission took (its ticket fails upstream
+            # and nothing else releases them): give them back first.
+            for pid in shared_ids:
+                self._pool.unref(pid)
+            if donor is not None:
+                self._pool.unref(donor)
+            for pid in priv:
+                self._pool.unref(pid)
+            raise
         with self._cv:
             if self._prefix is not None:
                 self.stats["prefix_lookup_tokens"] += seq.plen
@@ -2578,6 +2590,7 @@ class ContinuousBatchingEngine:
                     failure.__cause__ = e
                     with self._cv:
                         self.stats["step_failures"] += 1
+                    # analysis: disable=hot-path-instrumentation -- terminal failure path: the step is already lost, the recorder event IS the post-mortem
                     self._obs.event(
                         "step_fail", **where, attempts=attempt,
                         cache_lost=cache_lost, err=repr(e)[:120],
@@ -2591,6 +2604,7 @@ class ContinuousBatchingEngine:
                     raise failure
                 with self._cv:
                     self.stats["step_retries"] += 1
+                # analysis: disable=hot-path-instrumentation -- retry path: the step failed and a backoff sleep follows; recording is not the bottleneck
                 self._obs.event(
                     "step_retry", **where, attempt=attempt,
                     err=repr(e)[:120],
@@ -2616,6 +2630,7 @@ class ContinuousBatchingEngine:
             failure.__cause__ = e
             with self._cv:
                 self.stats["step_failures"] += 1
+            # analysis: disable=hot-path-instrumentation -- readback failure path: active rows are about to fail, the recorder event IS the post-mortem
             self._obs.event("step_fail", at=at, err=repr(e)[:120])
             n = self._fail_active_rows(failure)
             log.error(
@@ -2642,6 +2657,7 @@ class ContinuousBatchingEngine:
             len(pending.rows), now - pending.t_dispatch
         )
         for i, seq in survivors:
+            # analysis: disable=host-sync -- nxt is already host-side (the step-boundary readback above)
             self._commit(i, seq, int(nxt[i]), now=now)
 
     # -- fused multi-step decode (decode_steps > 1) ----------------------
@@ -2771,6 +2787,7 @@ class ContinuousBatchingEngine:
         committed = 0
         for i, seq, w in survivors:
             for j in range(w):
+                # analysis: disable=host-sync -- toks is already host-side (the block readback above)
                 t = int(toks[i, j])
                 self._commit(i, seq, t, now=now)
                 committed += 1
@@ -2962,6 +2979,7 @@ class ContinuousBatchingEngine:
                 "draft chain failed (window drops to 1, outputs "
                 "unaffected): %r", e,
             )
+            # analysis: disable=hot-path-instrumentation -- drafter failure path: a device fault just cost milliseconds, the recorder event is the cheap part
             self._obs.event("spec_draft_fail", err=repr(e)[:120])
             self._reset_draft_state()
             return None
@@ -3011,6 +3029,7 @@ class ContinuousBatchingEngine:
                 self._update_depth(seq, w, m)
             c = 0
             for j in range(m):
+                # analysis: disable=host-sync -- outs is already host-side (the window readback above)
                 tok = int(outs[i, j])
                 self._commit(i, seq, tok, now=now)
                 c += 1

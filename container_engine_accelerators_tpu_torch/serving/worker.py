@@ -128,6 +128,7 @@ def demo_lm_factory(vocab=32000, dim=512, depth=4, heads=0,
     return dec
 
 
+# borrows-pages
 def _device_report(device) -> dict:
     """The hello's account of where the engine lives: its device, and on
     a card the bytes this process's allocator holds there (weights, KV

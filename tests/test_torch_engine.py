@@ -175,6 +175,31 @@ class TestPrefixCache:
         finally:
             eng.close()
 
+    def test_admission_wiring_fault_returns_its_page_references(self, setup):
+        # A raise while the admission wires its block table (after it
+        # referenced the matched prefix pages and took private ones)
+        # gives every reference back before it propagates, as the
+        # reference engine's guard does: the pool's free count returns
+        # to its value before the admission.
+        _, pm = setup
+        eng = _engine(pm, 2)
+        try:
+            p = rand_prompt(43, 24)
+            eng.submit(p, 2, 0.0, timeout=300)  # seeds the trie
+            free = eng._pool.free_count
+
+            def boom(*a, **k):
+                raise RuntimeError("injected wiring fault")
+
+            eng._plan_chunks = boom
+            with pytest.raises(RuntimeError, match="wiring fault"):
+                eng.submit(p, 4, 0.0, timeout=60)
+            assert eng._pool.free_count == free
+            snap = eng.snapshot()
+            assert snap["kv_pages_in_use"] == snap["prefix_cached_pages"]
+        finally:
+            eng.close()
+
     def test_int8_prefix_hit_matches_reference_engine(self, setup):
         # A warm int8 admission re-attends over DEQUANTIZED prefix
         # pages (tolerance-bounded against the cold run in both

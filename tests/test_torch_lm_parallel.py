@@ -14,10 +14,14 @@ gradients, every leaf within 1e-4 of its largest entry.  The reference's
 builders compute in bf16, so its side is their step written out in f32
 (reference_adamw: value_and_grad and optax.adamw, as the builders'
 step_fn).  dp runs the port's fused per-shard loss (its plain version
-on the CPU) and its mean.  ResNet: one step of the reference's
-train_step math on the 2-device mesh (flax BatchNorm over the global
-batch under jit) against the port's, the loss within 1e-5, gradients
-within 1e-4, the running statistics within 1e-5."""
+on the CPU) and its mean.  Vision: one step of the reference's
+train_step math on the 2-device mesh (BatchNorm over the global batch
+under jit) against the port's, for every model and norm the reference
+trains under a mesh (ResNet-18 with the fused norm and with flax's,
+ResNet-50's fused block on the fused-matmul kernels' plain versions,
+Inception v3 at 75 pixels): the loss within 1e-5, gradients within
+1e-4, the running statistics within 1e-5; Inception v3 at the whole-
+model limits of test_torch_inception.py (reason at INCEPTION_LOSS_REL)."""
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +36,7 @@ from _torch_port import (
     rank_pools,
     reference_adamw,
 )
+from container_engine_accelerators_tpu.models import inception as JI
 from container_engine_accelerators_tpu.models import resnet as JRN
 from container_engine_accelerators_tpu.models import transformer as T
 from container_engine_accelerators_tpu.ops.losses import cross_entropy_loss
@@ -119,16 +124,42 @@ def test_seeded_dp_trainer_equals_the_one_rank_trainer(pools):
 
 RESNET = dict(stage_sizes=[1, 1], num_filters=8)
 CLASSES, IMAGE, RBATCH = 4, 16, 8
+INCEPTION_IMAGE = 75  # the smallest image Inception v3 takes
+# The whole Inception v3 step is held at tests/test_torch_inception.py's
+# whole-model limits: its late BatchNorms see 1 x 1 pixels, where the
+# fast variance amplifies f32 rounding, so a reordered sum (the
+# reference's own 2-device mesh against its one-device step) moves a
+# late kernel's gradient by up to 70% of the leaf's largest entry.
+INCEPTION_LOSS_REL, INCEPTION_HEAD_REL, INCEPTION_STATS_REL = (
+    2.0 ** -9, 2.0 ** -9, 2.0 ** -7)
+
+# (port model name, the reference's module, the port's model kwargs,
+# image size): the configurations the reference trains under a mesh.
+DP_CASES = {
+    "resnet18-fused": ("resnet18", lambda: JRN.ResNet18(
+        num_classes=CLASSES, dtype=jnp.float32, **RESNET), RESNET, IMAGE),
+    "resnet18-flax_norm": ("resnet18", lambda: JRN.ResNet18(
+        num_classes=CLASSES, dtype=jnp.float32, norm_impl="flax", **RESNET),
+        dict(RESNET, norm_impl="flax"), IMAGE),
+    "resnet50-fused_pallas": ("resnet50", lambda: JRN.ResNet50(
+        num_classes=CLASSES, dtype=jnp.float32, block_impl="fused_pallas",
+        stem="s2d", **RESNET),
+        dict(RESNET, block_impl="fused_pallas", stem="s2d"), IMAGE),
+    "inception_v3": ("inception_v3", lambda: JI.InceptionV3(
+        num_classes=CLASSES, dtype=jnp.float32), {}, INCEPTION_IMAGE),
+}
 
 
-def test_resnet_dp_takes_global_batch_norm_statistics(pools):
+@pytest.mark.parametrize("case", list(DP_CASES))
+def test_resnet_dp_takes_global_batch_norm_statistics(pools, case):
     import optax  # noqa: F401  (the reference's optimizer module)
 
-    module = JRN.ResNet18(num_classes=CLASSES, dtype=jnp.float32, **RESNET)
-    params, stats = draw_vision_trees(module, (1, IMAGE, IMAGE, 3), 5,
+    name, make, kw, image = DP_CASES[case]
+    module = make()
+    params, stats = draw_vision_trees(module, (1, image, image, 3), 5,
                                       {"train": False})
     rng = np.random.default_rng(6)
-    images = rng.standard_normal((RBATCH, IMAGE, IMAGE, 3)).astype(np.float32)
+    images = rng.standard_normal((RBATCH, image, image, 3)).astype(np.float32)
     labels = rng.integers(0, CLASSES, size=(RBATCH,)).astype(np.int64)
     mesh = Mesh(np.array(jax.devices()[:2]).reshape(2, 1), ("data", "model"))
     data = NamedSharding(mesh, P(("data", "model")))
@@ -145,9 +176,18 @@ def test_resnet_dp_takes_global_batch_norm_statistics(pools):
         in_shardings=(rep, data, data))(params, images, labels)
     got = pools(2).run(
         "resnet", params=params, batch_stats=stats, images=images,
-        labels=labels, num_classes=CLASSES,
-        model_kwargs=dict(RESNET, dtype=__import__("torch").float32))
+        labels=labels, num_classes=CLASSES, model_name=name,
+        model_kwargs=dict(kw, dtype=__import__("torch").float32),
+        timeout_s=300)
     for r in got:
+        if name == "inception_v3":
+            assert r["loss"] == pytest.approx(float(loss),
+                                              rel=INCEPTION_LOSS_REL)
+            assert_trees_close(r["grads"]["head"], grads["head"],
+                               INCEPTION_HEAD_REL, case)
+            assert_trees_close(r["batch_stats"], new_stats,
+                               INCEPTION_STATS_REL, "stats")
+            continue
         assert r["loss"] == pytest.approx(float(loss), rel=1e-5)
-        assert_trees_close(r["grads"], grads, 1e-4, "resnet")
+        assert_trees_close(r["grads"], grads, 1e-4, case)
         assert_trees_close(r["batch_stats"], new_stats, 1e-5, "stats")

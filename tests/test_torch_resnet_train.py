@@ -21,16 +21,17 @@ images, batch 8):
       it step by step;
   (c) the builders' contracts (scan: K steps per call on batches drawn
       on the device; bank: the bank's shape and cycle), the synthetic
-      batch, the Inception-v3 factory, and what a mesh refuses (a
-      model whose BatchNorm would keep per-rank statistics);
+      batch, the Inception-v3 factory, and the models and norms the
+      reference trains under a mesh building there (one gloo rank);
   (d) the job end to end in a subprocess at a tiny size on the CPU: it
       logs the reference's lines; --model-dir writes checkpoint_<step>
       after the last step (the reference's job saves and never
       restores); --model inception_v3 trains at a 75-pixel image;
       --distributed on one host initializes nothing and trains, as the
-      reference's does, and exits 2 when more than one card is visible
-      (it trains one card a process); without --device cpu and no card
-      it exits 2.
+      reference's does; --ranks 2 trains ResNet-18 and Inception v3 on
+      two gloo ranks, rank 0 logging; two visible cards start one rank
+      each (spawn_ranks recorded, with a multi-host env contract's
+      cluster); without --device cpu and no card it exits 2.
 """
 
 import os
@@ -188,16 +189,41 @@ def test_pallas_loss_is_the_xla_loss_on_the_cpu():
 
 def test_unported_paths_raise_naming_their_items():
     # Inception-v3 is ported (models/inception.py), and a mesh (models/
-    # train.py); under a mesh only the fused norm takes the global
-    # batch's statistics, so other models and norms raise saying so.
+    # train.py); every model and norm the reference trains under a mesh
+    # builds there and takes the mesh's groups in each of its
+    # BatchNorms (their global statistics: tests/test_torch_lm_parallel
+    # .py), here on a one-rank group.
+    import torch.distributed as dist
+
+    from container_engine_accelerators_tpu_torch.parallel import (
+        launch,
+        mesh as M,
+    )
+
     assert type(TT.create_model("inception_v3", device="cpu")).__name__ == (
         "InceptionV3")
-    for name, kw in (("inception_v3", None),
-                     ("resnet50", dict(norm_impl="flax")),
-                     ("resnet50", dict(block_impl="fused_pallas"))):
-        with pytest.raises(NotImplementedError, match="BatchNorm"):
-            TT.build_training(mesh=object(), model_name=name,
-                              model_kwargs=kw, device="cpu")
+    assert not dist.is_initialized()
+    launch.one_rank_group("cpu")
+    try:
+        mesh = M.make_mesh()
+        for name, kw, size in (
+            ("inception_v3", None, 75),
+            ("resnet50", dict(TINY, norm_impl="flax"), IMAGE),
+            ("resnet50", dict(TINY, block_impl="fused_pallas", stem="s2d"),
+             IMAGE),
+        ):
+            step, batch_fn, state = TT.build_training(
+                mesh=mesh, model_name=name, image_size=size,
+                num_classes=CLASSES, model_kwargs=kw, device="cpu")
+            norms = [m for m in state["model"].modules()
+                     if isinstance(m, TT.BATCH_NORMS)]
+            assert norms and all(
+                m.groups == tuple(M.world_groups(mesh)) for m in norms)
+            images, labels = batch_fn(torch.Generator().manual_seed(0), 2)
+            _, loss = step(state, images, labels)
+            assert np.isfinite(float(loss)), name
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="loss_impl"):
         _tiny(TT.build_training, loss_impl="bogus")
 
@@ -265,18 +291,82 @@ def test_distributed_on_one_host_trains_without_init():
         out.stderr)
 
 
-def test_distributed_refuses_several_visible_cards(monkeypatch, caplog):
-    import logging
-
+def _spawned(monkeypatch, args, env=None):
+    """resnet_main.main(args) on a host of two visible cards, with
+    spawn_ranks recorded instead of run: (rc, the calls)."""
     from container_engine_accelerators_tpu_torch import _device, resnet_main
+    from container_engine_accelerators_tpu_torch.parallel import launch
 
+    calls = []
     monkeypatch.setattr(_device, "resolve_device",
                         lambda name: torch.device("cuda"))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(launch, "spawn_ranks",
+                        lambda *a, **kw: calls.append((a, kw)) or 0)
+    for key in ("TPU_WORKER_HOSTNAMES", "TPU_WORKER_ID",
+                "MEGASCALE_COORDINATOR_ADDRESS", "MEGASCALE_NUM_SLICES"):
+        monkeypatch.delenv(key, raising=False)
+    for key, value in (env or {}).items():
+        monkeypatch.setenv(key, value)
+    return resnet_main.main(list(args)), calls
+
+
+def _one_host_of_two_cards(monkeypatch, flags):
+    rc, calls = _spawned(monkeypatch, [*JOB, *flags])
+    assert rc == 0
+    assert len(calls) == 1
+    (target, world, payload), kw = calls[0]
+    assert target == ("container_engine_accelerators_tpu_torch.resnet_main"
+                      ":rank_main")
+    assert world == 2 and payload == ([*JOB, *flags], "cuda")
+    assert kw == dict(device="cuda", cluster=None)
+
+
+def test_distributed_refuses_several_visible_cards(monkeypatch):
+    # No longer refused: --distributed on one host starts one rank per
+    # visible card, as lm_main does.
+    _one_host_of_two_cards(monkeypatch, ["--distributed"])
+
+
+def test_two_visible_cards_start_two_ranks(monkeypatch):
+    _one_host_of_two_cards(monkeypatch, [])
+
+
+def test_distributed_across_hosts_passes_the_cluster(monkeypatch):
+    rc, calls = _spawned(
+        monkeypatch, [*JOB, "--distributed"],
+        env={"TPU_WORKER_HOSTNAMES": "host-a,host-b", "TPU_WORKER_ID": "1"})
+    assert rc == 0
+    (_, world, _), kw = calls[0]
+    assert world == 2  # this host's local ranks of 2 x 2
+    assert kw == dict(device="cuda", cluster=("host-a:8476", 2, 1))
+
+
+def test_ranks_flag_is_for_the_cpu(monkeypatch, caplog):
+    import logging
+
     with caplog.at_level(logging.ERROR, logger="resnet_main"):
-        assert resnet_main.main([*JOB, "--distributed"]) == 2
-    assert "--distributed trains one card a host, and 2 are visible" in (
-        caplog.text)
+        rc, calls = _spawned(monkeypatch, [*JOB, "--ranks", "2"])
+    assert rc == 2 and not calls
+    assert "--ranks is for the CPU" in caplog.text
+
+
+@pytest.mark.parametrize("model,image", [("resnet18", "32"),
+                                         ("inception_v3", "75")])
+def test_two_cpu_ranks_train_data_parallel(model, image):
+    out = _run("--ranks", "2", "--device", "cpu", "--model", model,
+               "--image-size", image, "--batch-per-chip", "1",
+               "--train-steps", "2", "--log-every", "1")
+    assert out.returncode == 0, out.stderr
+    # Rank 0 alone logs.
+    assert out.stderr.count(
+        f"training {model} on 2 devices (cpu), global batch 2") == 1, (
+        out.stderr)
+    logged = re.findall(r"step (\d+) loss ([0-9.]+) images/sec \d+ "
+                        r"\(\d+/chip\)", out.stderr)
+    assert [int(s) for s, _ in logged] == [1, 2], out.stderr
+    assert all(np.isfinite(float(v)) for _, v in logged)
+    assert out.stderr.count("done: 2 steps") == 1
 
 
 def test_default_device_needs_a_card():

@@ -333,15 +333,16 @@ def train(rank, world, kind, cfg, tokens, targets, steps=1, params=None,
 
 
 def resnet(rank, world, params, batch_stats, images, labels, model_kwargs,
-           num_classes):
-    """One data-parallel step of the port's ResNet trainer on the global
-    batch: the loss, the gradients, the running statistics after."""
+           num_classes, model_name="resnet18"):
+    """One data-parallel step of the port's vision trainer (`model_name`:
+    a ResNet or inception_v3) on the global batch: the loss, the
+    gradients, the running statistics after."""
     from container_engine_accelerators_tpu_torch.models import convert
     from container_engine_accelerators_tpu_torch.models import train as TT
     from container_engine_accelerators_tpu_torch.parallel import mesh as M
 
     step, _, state = TT.build_training(
-        mesh=M.make_mesh(), model_name="resnet18", image_size=images.shape[1],
+        mesh=M.make_mesh(), model_name=model_name, image_size=images.shape[1],
         num_classes=num_classes, model_kwargs=model_kwargs, device="cpu",
         params=params, batch_stats=batch_stats)
     state, loss = step(state, _t(images), _t(labels))
