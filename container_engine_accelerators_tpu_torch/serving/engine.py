@@ -83,7 +83,13 @@ Observability (observe=True, the default): latency histograms, a trace
 per request and the flight recorder (serving/observe.py, otel.py),
 folded from monotonic stamps staged on the rows and windows at admit,
 commit, retire and failure boundaries, never between staging and
-dispatch.
+dispatch.  Whatever `observe` says, the scheduler thread accounts its
+own time phase by phase (_PhaseClock: waiting, side jobs, admission
+with its prefix lookup, staging, dispatch, host syncs, commits) and
+the time in which it knew the device had nothing queued, as integer
+nanosecond counters in `stats` (snapshot() names them), folded at each
+commit and before each wait.  While a torch profiler runs, the phases
+are also `engine.*` profiler ranges on the profiler's clock.
 
 A dp mesh (mesh=parallel.mesh.LocalMesh, the bf16 contiguous engine
 only, as in the reference): the slot rows split into one contiguous
@@ -113,6 +119,8 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
 
 from .._device import canonical_device, resolve_device
 from ..models import generate as G
@@ -352,6 +360,119 @@ class _SideJob:
         self.done = threading.Event()
         self.result = None
         self.error: Optional[BaseException] = None
+
+
+# The scheduler thread's phases (_PhaseClock): indices of its
+# accumulators.
+_WAIT, _SIDE, _ADMIT, _STAGE, _DISPATCH, _SYNC, _COMMIT = range(7)
+_NO_TIME = (0,) * 7
+# The profiler range a phase opens; waiting and side jobs open none.
+_RANGES = (None, None, "engine.admit", "engine.stage", "engine.dispatch",
+           "engine.sync", "engine.commit")
+
+
+class _PhaseClock:
+    """The scheduler thread's time, phase by phase, and the stretches in
+    which it knew the device had nothing queued (snapshot() names the
+    counters).  Scheduler-thread-private: the thread switches phases
+    with `enter` and brackets device work with `launch` / `launched` and
+    `enter(_SYNC)` / `synced`; each call stages one time.monotonic_ns()
+    stamp into plain integers, and `fold` adds them into the engine's
+    `stats` under the lock a commit or a wait already holds.
+
+    Outstanding device work: unknown, so taken as there, until the
+    first sync; queued by every device call (`launched`); cleared by a
+    sync, which waits for everything queued before it on the engine's
+    one stream.  While a torch profiler runs, each phase but waiting and
+    side jobs is also a profiler range (`_RANGES`) on the profiler's
+    clock, made as torch's own cheap ranges are (`_RecordFunctionFast`,
+    about a microsecond against `record_function`'s ten or more, with
+    the profiler recording or not); with none, no range is made.  Torch
+    tells whether a profiler runs, not whether it records host ranges,
+    so a device-only profiler pays for ranges it drops."""
+
+    __slots__ = ("t", "phase", "busy", "launching", "ns", "starved",
+                 "launch_idle", "rng")
+
+    def __init__(self):
+        self.t = time.monotonic_ns()
+        self.phase = _WAIT
+        self.busy = True
+        self.launching = False
+        self.ns = list(_NO_TIME)       # time in each phase
+        self.starved = list(_NO_TIME)  # of it, with nothing outstanding
+        self.launch_idle = 0  # in device calls entered with nothing queued
+        self.rng = None  # the open profiler range
+
+    def _tick(self):
+        now = time.monotonic_ns()
+        dt = now - self.t
+        self.t = now
+        self.ns[self.phase] += dt
+        if not self.busy:
+            if self.launching:
+                self.launch_idle += dt
+            else:
+                self.starved[self.phase] += dt
+
+    def enter(self, phase: int) -> None:
+        """Switch to `phase`."""
+        self._tick()
+        if phase == self.phase:
+            return
+        self.phase = phase
+        if self.rng is not None:
+            rng, self.rng = self.rng, None
+            rng.__exit__(None, None, None)
+        name = _RANGES[phase]
+        if name is not None and _autograd_profiler._is_profiler_enabled:
+            self.rng = _RecordFunctionFast(name)
+            self.rng.__enter__()
+
+    def launch(self, phase: Optional[int] = None) -> None:
+        """A device call starts (in `phase`, default the current one)."""
+        self.enter(self.phase if phase is None else phase)
+        self.launching = True
+
+    def launched(self) -> None:
+        """A device call returned: its work is outstanding until a
+        sync."""
+        self._tick()
+        self.launching = False
+        self.busy = True
+
+    def synced(self, phase: int) -> None:
+        """A sync returned (entered with `enter(_SYNC)`): nothing is
+        outstanding.  The thread goes on in `phase`."""
+        self.enter(phase)
+        self.busy = False
+
+    def restart(self) -> None:
+        """A scheduler thread starts: the time before it is nobody's,
+        and what the device holds is unknown."""
+        self.t = time.monotonic_ns()
+        self.busy = True
+        self.launching = False
+
+    def fold(self, stats: dict) -> None:
+        """Add the time since the last fold into `stats` (the engine's
+        lock held)."""
+        self._tick()
+        ns, st = self.ns, self.starved
+        stats["phase_wait_ns"] += ns[_WAIT]
+        stats["phase_side_ns"] += ns[_SIDE]
+        stats["phase_admit_ns"] += ns[_ADMIT]
+        stats["phase_stage_ns"] += ns[_STAGE]
+        stats["phase_dispatch_ns"] += ns[_DISPATCH]
+        stats["phase_sync_ns"] += ns[_SYNC]
+        stats["phase_commit_ns"] += ns[_COMMIT]
+        stats["starved_ns"] += sum(st)
+        stats["starved_admit_ns"] += st[_ADMIT]
+        stats["starved_commit_ns"] += st[_COMMIT]
+        stats["launch_idle_ns"] += self.launch_idle
+        ns[:] = _NO_TIME
+        st[:] = _NO_TIME
+        self.launch_idle = 0
 
 
 class _Prefill:
@@ -893,9 +1014,22 @@ class ContinuousBatchingEngine:
             "spec_window_tokens": 0,
             "spec_draft_passes": 0,
             "spec_draft_chains": 0,
+            # The scheduler thread's time by phase and its starved time
+            # (_PhaseClock; snapshot() says what each counts), in ns.
+            "phase_wait_ns": 0,
+            "phase_side_ns": 0,
+            "phase_admit_ns": 0,
+            "phase_stage_ns": 0,
+            "phase_dispatch_ns": 0,
+            "phase_sync_ns": 0,
+            "phase_commit_ns": 0,
+            "starved_ns": 0,
+            "starved_admit_ns": 0,
+            "starved_commit_ns": 0,
+            "launch_idle_ns": 0,
         }
+        self._clock = _PhaseClock()  # scheduler-thread-private
         # Observability (serving/observe.py), or the inert observer.
-        # The dispatch counter numbers the profiler's step annotations.
         self._obs = (
             observe_mod.engine_observability(registry=registry)
             if observe else observe_mod.NullObservability()
@@ -915,6 +1049,7 @@ class ContinuousBatchingEngine:
                 kvtier.TIER_FETCH_BUCKETS,
                 labelnames=("tier",),
             )
+        # Dispatched decode steps, fused blocks and speculative windows.
         self._dispatch_count = 0
         self._start_thread()
 
@@ -1097,7 +1232,38 @@ class ContinuousBatchingEngine:
         """Atomic copy of the counters plus queue/slot occupancy, the
         pool gauges and the tiers' occupancy and flow.  On a dead or
         crashed engine it also carries the flight recorder's retained
-        events ("flight_recorder")."""
+        events ("flight_recorder").
+
+        The scheduler thread's phase counters, cumulative ns, which
+        partition its time: `phase_wait_ns` (the condition wait with
+        nothing to do), `phase_side_ns` (side jobs), `phase_admit_ns`
+        (the admission turn: the prefix lookup, page allocation, the
+        prefill seam calls), `phase_stage_ns` (the turn's gate and the
+        step's staging buffers and their copy), `phase_dispatch_ns`
+        (decode seam calls, fused block replays and speculative
+        windows), `phase_sync_ns` (the host blocked on the device:
+        every readback, the first token's read and the prompt chunk's
+        copy, which waits for the stream) and `phase_commit_ns`
+        (everything after a readback: per-token commits, `on_token`
+        callbacks, retires, the observer's folds).  The final prefill
+        seam copies its block table and temperature from host memory
+        itself; those copies wait for the chunk's forward inside the
+        call, so that wait counts in the admission, not in sync.
+
+        Device work is outstanding from each device call until a sync
+        returns.  `starved_ns`: time from a sync that left nothing
+        outstanding until the next device call is entered, split into
+        `starved_admit_ns` and `starved_commit_ns` by the phase the host
+        was in (the rest is staging, side jobs and waiting).  It is a
+        lower bound on the device's idle time: the engine cannot see a
+        device that finishes its work while the host is still busy, nor
+        the launch latency after a call is entered (the staging copies
+        of a few kilobytes are the one device work it does not mark).
+        `launch_idle_ns`: time inside device calls entered with nothing
+        outstanding: the device waits on the launch until its first
+        kernels arrive, and then runs them while the call launches more.
+        The counters hold the time up to the scheduler thread's last
+        commit, admission or wait."""
         with self._cv:
             snap = dict(self.stats)
             snap["active_rows"] = sum(
@@ -1406,9 +1572,9 @@ class ContinuousBatchingEngine:
         pages = [pid for _, pid in todo]
         self._pool.export_pages(pages)  # pin under the gather
         try:
-            gathered = [
-                t.cpu() for t in self._page_gather_fn(self._cache, pages)
-            ]
+            parts = self._page_gather_fn(self._cache, pages)
+            self._clock.launched()
+            gathered = [t.cpu() for t in parts]
             sig = self._page_layout_sig()
             total = 0
             for j, (path, _) in enumerate(todo):
@@ -1558,6 +1724,7 @@ class ContinuousBatchingEngine:
             try:
                 ticket = kvpool.MigrationTicket(priv, initial="streaming")
                 self._cache = self._page_scatter_fn(self._cache, priv, parts)
+                self._clock.launched()
             except BaseException as e:
                 for pid in priv:
                     self._pool.unref(pid)
@@ -1737,6 +1904,7 @@ class ContinuousBatchingEngine:
             try:
                 ticket.mark_streaming()
                 gathered = self._page_gather_fn(self._cache, full_ids)
+                self._clock.launched()
                 leaves, blob = self._serialize_pages(gathered, n)
             finally:
                 self._pool.release_pages(full_ids)
@@ -1808,6 +1976,7 @@ class ContinuousBatchingEngine:
                 parts = self._deserialize_pages(meta, blob, n)
                 self._cache = self._page_scatter_fn(self._cache, pages,
                                                     parts)
+                self._clock.launched()
             except BaseException as e:
                 for p in pages:
                     self._pool.unref(p)
@@ -1845,6 +2014,9 @@ class ContinuousBatchingEngine:
 
     def _loop(self):
         torch.set_grad_enabled(False)  # thread-local: inference only
+        clk = self._clock
+        clk.restart()
+        crash = None
         try:
             while True:
                 with self._cv:
@@ -1856,6 +2028,8 @@ class ContinuousBatchingEngine:
                     ):
                         if self._closed:
                             return
+                        clk.enter(_WAIT)
+                        clk.fold(self.stats)
                         self._cv.wait()
                     if self._closed:
                         self._fail_all(RuntimeError("engine closed"))
@@ -1864,11 +2038,20 @@ class ContinuousBatchingEngine:
                 # one waiting on adopted pages), then one unit of
                 # admission work (at most one prefill chunk), then one
                 # pipeline turn.
+                clk.enter(_SIDE)
                 self._run_side_jobs()
+                clk.enter(_ADMIT)
                 self._admit()
+                clk.enter(_STAGE)
                 self._step()
         except Exception as e:  # pylint: disable=broad-except
-            self._on_crash(e)
+            crash = e
+        finally:
+            # Close the thread's profiler range before a revival can
+            # start the next thread.
+            clk.enter(_WAIT)
+        if crash is not None:
+            self._on_crash(crash)
 
     def _on_crash(self, err):
         """Unhandled scheduler failure: supervised, preserve the queue
@@ -2265,9 +2448,14 @@ class ContinuousBatchingEngine:
         start, width = pf.plan[pf.pi]
         last = pf.pi == len(pf.plan) - 1
         dev, pmodel = self._admission_target(pf.slot)
+        clk = self._clock
+        # A copy from pageable memory waits for the stream: a sync.
+        clk.enter(_SYNC)
         chunk = torch.from_numpy(pf.padded[:, start: start + width]).to(dev)
+        clk.synced(_ADMIT)
         t_chunk = time.monotonic()
         try:
+            clk.launch()
             if pf.scratch is None:
                 pf.scratch = G.init_decode_cache(pmodel, 1, device=dev)
                 if pf.resume > 0:
@@ -2280,6 +2468,7 @@ class ContinuousBatchingEngine:
                 pf.scratch = self._prefill_chunk_fn(
                     pmodel, pf.scratch, chunk, start
                 )
+                clk.launched()
                 pf.pi += 1
                 with self._cv:
                     self.stats["prefill_chunks"] += 1
@@ -2297,9 +2486,13 @@ class ContinuousBatchingEngine:
                 pf.bt_row if self._paged else pf.slot, start,
                 pf.write_from, seq.plen, seq.temp, self._gen, **kwargs,
             )
+            clk.launched()
             pf.scratch = None
+            clk.enter(_SYNC)
             tok0 = int(tok0[0])
+            clk.synced(_ADMIT)
         except Exception as e:  # pylint: disable=broad-except
+            clk.launched()
             with self._cv:
                 self._prefilling = None
                 if self._slots[pf.slot] is seq:
@@ -2334,6 +2527,7 @@ class ContinuousBatchingEngine:
             self.stats["max_active"] = max(
                 self.stats["max_active"], self.active_rows
             )
+            clk.fold(self.stats)
             alive = self._slots[pf.slot] is seq
             if alive:
                 # The row owns its page references now; publishing the
@@ -2365,12 +2559,15 @@ class ContinuousBatchingEngine:
             # draft quality, so it zeroes the drafter cache instead of
             # failing the admitted ticket.
             try:
+                clk.launch()
                 self._draft_fill_fn(
                     self._draft_cache, self._cache, pf.slot, seq.plen,
                     pf.bt_row if self._paged else None,
                 )
+                clk.launched()
                 seq.draft_upto = seq.plen
             except Exception as e:  # pylint: disable=broad-except
+                clk.launched()
                 log.warning(
                     "drafter-cache fill failed (draft quality degrades, "
                     "outputs unaffected): %r", e,
@@ -2379,6 +2576,7 @@ class ContinuousBatchingEngine:
         self._obs.chunk_done(seq, t_chunk, time.monotonic(), width,
                              last=True)
         if alive:
+            clk.enter(_COMMIT)
             self._commit(pf.slot, seq, tok0, first=True)
 
     def _commit(self, slot: int, seq: _Seq, token: int, first=False,
@@ -2480,6 +2678,7 @@ class ContinuousBatchingEngine:
                     pending = None
             if pending is not None:
                 self._commit_fused(pending)
+        self._clock.enter(_STAGE)
         self._stage_i ^= 1
         st = self._stages[self._stage_i]
         s = st.np
@@ -2570,12 +2769,15 @@ class ContinuousBatchingEngine:
         where = {} if at is None else {"at": at}
         delay = self._retry_backoff_s
         attempt = 0
+        clk = self._clock
         while True:
             try:
-                with self._obs.step_annotation(self._dispatch_count):
-                    self._cache, toks = dispatch()
+                clk.launch(_DISPATCH)
+                self._cache, toks = dispatch()
+                clk.launched()
                 return toks
             except Exception as e:  # pylint: disable=broad-except
+                clk.launched()
                 attempt += 1
                 cache_lost = not self._cache_intact()
                 if cache_lost:
@@ -2620,9 +2822,12 @@ class ContinuousBatchingEngine:
         """A window's one readback (host numpy).  A failure here is a
         device-side failure of the dispatched work: the active rows
         fail and StepFailure raises (`at` names it in the flight
-        recorder)."""
+        recorder).  The thread goes on in the commit phase."""
+        self._clock.enter(_SYNC)
         try:
-            return pending.nxt.cpu().numpy()
+            out = pending.nxt.cpu().numpy()
+            self._clock.synced(_COMMIT)
+            return out
         except Exception as e:  # pylint: disable=broad-except
             failure = StepFailure(
                 f"{what} failed in flight (commit-side readback): {e}"
@@ -2647,6 +2852,7 @@ class ContinuousBatchingEngine:
         with self._cv:
             self.stats["steps"] += 1
             self.stats["step_rows"] += len(pending.rows)
+            self._clock.fold(self.stats)
             # A row failed or retired-and-refilled inside the window
             # must not receive this token.
             survivors = [
@@ -2729,6 +2935,7 @@ class ContinuousBatchingEngine:
         the staged temperatures stay 0 (the gate passed only greedy
         rows).  A failure retries and crashes as a one-token step
         does."""
+        self._clock.enter(_STAGE)
         st = self._fused_stage
         s = st.np
         s["tok"].fill(0)
@@ -2777,6 +2984,7 @@ class ContinuousBatchingEngine:
         with self._cv:
             self.stats["steps"] += 1
             self.stats["step_rows"] += len(pending.rows)
+            self._clock.fold(self.stats)
             survivors = [
                 (i, seq, w) for i, seq, _p, w in pending.rows
                 if self._slots[i] is seq
@@ -2870,6 +3078,7 @@ class ContinuousBatchingEngine:
         the window to width 1 and zeroes the drafter cache; a failed
         verify retries, then fails the active rows and crashes, as a
         one-token step does."""
+        self._clock.enter(_STAGE)
         st = self._spec_stage
         s = st.np
         s["tok"].fill(0)
@@ -2949,8 +3158,10 @@ class ContinuousBatchingEngine:
         drafts the full W, past its own width too: the extra passes write
         its real continuation into slots its next window rewrites.
         Returns the (B, W - 1) proposals on the device, or None when the
-        drafter failed (logged; the drafter cache is zeroed)."""
+        drafter failed (logged; the drafter cache is zeroed).  The fills
+        and the chain count as one dispatch."""
         s = st.np
+        self._clock.launch(_DISPATCH)
         for i, seq, p, _w in live:
             if seq.temp > 0.0 or seq.draft_upto >= p:
                 continue
@@ -2975,6 +3186,7 @@ class ContinuousBatchingEngine:
                 {"tok": t["tok"], "pos": t["pos"], "active": t["draft"]}, W,
             )
         except Exception as e:  # pylint: disable=broad-except
+            self._clock.launched()
             log.warning(
                 "draft chain failed (window drops to 1, outputs "
                 "unaffected): %r", e,
@@ -2983,6 +3195,7 @@ class ContinuousBatchingEngine:
             self._obs.event("spec_draft_fail", err=repr(e)[:120])
             self._reset_draft_state()
             return None
+        self._clock.launched()
         # The chain wrote slots [base, base + W) of every coherent
         # greedy rider.
         for i, seq, p, _w in live:
@@ -3009,6 +3222,7 @@ class ContinuousBatchingEngine:
         with self._cv:
             self.stats["steps"] += 1
             self.stats["step_rows"] += len(pending.rows)
+            self._clock.fold(self.stats)
             survivors = [
                 (i, seq, w) for i, seq, _p, w in pending.rows
                 if self._slots[i] is seq

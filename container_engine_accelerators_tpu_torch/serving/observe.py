@@ -2,9 +2,11 @@
 
 The port's own copy of container_engine_accelerators_tpu/serving/
 observe.py: the same registry, text format, histogram names and buckets,
-flight recorder and engine observer.  Two differences: the profiler
-hooks run on torch.profiler, and `engine_observability` reads its knobs
-from a mapping the caller passes, never from the process environment.
+flight recorder and engine observer.  Two differences: it has no
+profiler hooks (the engine's scheduler phases are torch.profiler ranges
+of their own, serving/engine.py), and `engine_observability` reads its
+knobs from a mapping the caller passes, never from the process
+environment.
 
 The paper's node stack is held together by its observability sidecars —
 the metrics exporter and the health checker feeding the cluster
@@ -37,16 +39,11 @@ stages `time.monotonic()` floats into preallocated slots
 boundary — the decode loop's one designed sync point — or at
 admit/retire/failure boundaries, which are off the dispatch path by
 construction.  Metric mutation itself takes a per-metric lock, which
-is safe exactly because every caller is already off the hot path.
-
-Profiling hooks: a `SERVE_LM_PROFILE_DIR` entry in the mapping given to
-`engine_observability` arms optional torch.profiler capture — the
-engine wraps each dispatched decode step in
-`record_function("serve_decode_step")` and the first
-`SERVE_LM_PROFILE_STEPS` (default 64) committed steps are written as
-one Chrome trace under the given directory.  Unarmed (the default),
-torch.profiler is never imported.  torch allows one profiler at a time,
-so armed hooks must not run inside another profiler's window.
+is safe exactly because every caller is already off the hot path.  The
+engine's scheduler-phase counters follow the same contract: integer
+`time.monotonic_ns()` stamps in plain fields, folded into the engine's
+`stats` under the lock a commit or a wait already holds, and read here
+through `attach_engine`'s collector like every other stats key.
 """
 
 from __future__ import annotations
@@ -645,95 +642,6 @@ class FlightRecorder:
         return text
 
 
-class _NullContext:
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
-
-
-_NULL_CTX = _NullContext()
-
-
-class _ProfilerHooks:
-    """Optional torch.profiler capture, armed by SERVE_LM_PROFILE_DIR.
-
-    The first annotated step starts a `torch.profiler.profile` over the
-    CPU (and the card when there is one); after `max_steps` COMMITTED
-    steps the profile stops, its Chrome trace is written under the
-    directory, and the hooks go inert — an always-on profiler trace
-    grows without bound, which is the opposite of a serving
-    observability layer.  Every profiler call is wrapped: a broken
-    profiler must degrade to no capture, not take the decode loop
-    down."""
-
-    def __init__(self, profile_dir: str, max_steps: int = 64):
-        self._dir = profile_dir
-        self._max_steps = max(1, int(max_steps))
-        self._steps = 0
-        self._state = "armed"  # armed -> tracing -> done
-        self._prof = None
-        self._lock = threading.Lock()
-
-    def annotation(self, step_index: int):
-        with self._lock:
-            if self._state == "done":
-                return _NULL_CTX
-            if self._state == "armed":
-                try:
-                    import torch
-                    from torch.profiler import ProfilerActivity, profile
-
-                    acts = [ProfilerActivity.CPU]
-                    if torch.cuda.is_available():
-                        acts.append(ProfilerActivity.CUDA)
-                    os.makedirs(self._dir, exist_ok=True)
-                    self._prof = profile(activities=acts)
-                    self._prof.start()
-                except Exception as e:  # pylint: disable=broad-except
-                    log.warning(
-                        "torch.profiler start(%s) failed; serving "
-                        "continues unprofiled: %r", self._dir, e,
-                    )
-                    self._prof = None
-                    self._state = "done"
-                    return _NULL_CTX
-                log.info(
-                    "torch.profiler trace started (%s, %d steps)",
-                    self._dir, self._max_steps,
-                )
-                self._state = "tracing"
-        try:
-            from torch.profiler import record_function
-
-            return record_function("serve_decode_step")
-        except Exception:  # pylint: disable=broad-except
-            return _NULL_CTX
-
-    def step_committed(self) -> None:
-        with self._lock:
-            if self._state != "tracing":
-                return
-            self._steps += 1
-            if self._steps < self._max_steps:
-                return
-            self._state = "done"
-            prof, self._prof = self._prof, None
-        try:
-            prof.stop()
-            path = os.path.join(
-                self._dir, f"serve_trace_{os.getpid()}.json"
-            )
-            prof.export_chrome_trace(path)
-            log.info(
-                "torch.profiler trace stopped after %d steps (%s)",
-                self._steps, path,
-            )
-        except Exception as e:  # pylint: disable=broad-except
-            log.warning("torch.profiler stop failed: %r", e)
-
-
 class NullObservability:
     """Inert observer: every seam entry point is a no-op so
     `ContinuousBatchingEngine(..., observe=False)` measures the
@@ -773,9 +681,6 @@ class NullObservability:
     def step_committed(self, n_rows, lag_s):
         pass
 
-    def step_annotation(self, step_index):
-        return _NULL_CTX
-
     def retired(self, seq, now, reason="done"):
         pass
 
@@ -811,8 +716,6 @@ class EngineObservability:
         registry: Optional[Registry] = None,
         flight_capacity: int = 256,
         trace_capacity: int = 64,
-        profile_dir: Optional[str] = None,
-        profile_steps: int = 64,
         process: str = "",
     ):
         self.registry = registry or Registry()
@@ -823,10 +726,6 @@ class EngineObservability:
         # worker entry point overwrites it with its replica identity;
         # the default is still distinct per process.
         self.process = process or f"pid{os.getpid()}"
-        self._profiler = (
-            _ProfilerHooks(profile_dir, profile_steps)
-            if profile_dir else None
-        )
         r = self.registry
         self.ttft = r.histogram(
             "serve_ttft_seconds",
@@ -1041,16 +940,6 @@ class EngineObservability:
         self.recorder.record(
             "step", rows=n_rows, lag_ms=round(lag_s * 1e3, 2)
         )
-        if self._profiler is not None:
-            self._profiler.step_committed()
-
-    def step_annotation(self, step_index: int):
-        """Context manager wrapping ONE dispatched decode step.  Inert
-        (a cached null context, no allocation) unless
-        SERVE_LM_PROFILE_DIR armed the profiler hooks."""
-        if self._profiler is None:
-            return _NULL_CTX
-        return self._profiler.annotation(step_index)
 
     def retired(self, seq, now: float, reason: str = "done") -> None:
         trace = seq.trace
@@ -1097,14 +986,8 @@ def engine_observability(env=None, registry=None,
                          **kw) -> EngineObservability:
     """Factory reading the serving knobs from the mapping `env` (None
     is an empty mapping: the port reads no process environment):
-    SERVE_LM_PROFILE_DIR (torch.profiler hooks, default off),
-    SERVE_LM_PROFILE_STEPS (64), SERVE_LM_FLIGHT_EVENTS (flight-recorder
-    capacity, 256)."""
+    SERVE_LM_FLIGHT_EVENTS (flight-recorder capacity, 256)."""
     env = {} if env is None else env
-    kw.setdefault("profile_dir",
-                  env.get("SERVE_LM_PROFILE_DIR", "").strip() or None)
-    kw.setdefault("profile_steps",
-                  int(env.get("SERVE_LM_PROFILE_STEPS", "64")))
     kw.setdefault("flight_capacity",
                   int(env.get("SERVE_LM_FLIGHT_EVENTS", "256")))
     return EngineObservability(registry=registry, **kw)
