@@ -315,6 +315,22 @@ def init_decode_cache(model: TransformerLM, n_slots: int, device="cuda"):
     return _kv_buffers(model, shape, device)
 
 
+def init_scratch(model: TransformerLM, device="cuda"):
+    """A batch-1 contiguous cache for one admission's chunks, as
+    init_decode_cache(model, 1) lays it out, held in ONE zeroed buffer:
+    returns (buffer, leaves), the leaves views of the buffer, so a
+    single `buffer.zero_()` clears every one in place and their
+    addresses never change."""
+    if not model.decode:
+        raise ValueError("init_scratch needs a decode=True model")
+    buf = torch.zeros(
+        (model.depth, 2, 1, model.max_seq, model.heads,
+         model.dim // model.heads),
+        dtype=model.dtype, device=resolve_device(device),
+    )
+    return buf, [{"k": blk[0], "v": blk[1]} for blk in buf]
+
+
 @torch.no_grad()
 def prefill_chunk(model: TransformerLM, scratch, chunk, start: int):  # hot-path
     """One fixed-width chunk (1, C) of a prompt prefilled into the batch-1
@@ -404,28 +420,32 @@ def init_paged_cache(model: TransformerLM, n_pages: int, page_size: int,
     return _kv_buffers(model, shape, device)
 
 
-def paged_scatter_row(cache, row, block_table, write_from: int):
+def paged_scatter_row(cache, row, block_table, write_from):
     """Scatter one row's contiguous (1, max_seq, ...) scratch into its
     pool pages, in place: position p lands at slot p % page of physical
     page block_table[p // page].  Positions below `write_from` (shared
     prefix pages) and past the mapped view go to the null page 0, so an
-    admission never writes a shared page.  Generic over the leaves
-    (bf16 k/v and the int8 twin's value and scale pools).  Returns
-    `cache`."""
+    admission never writes a shared page.  write_from: a Python int or
+    a 0-dim tensor on the cache's device.  Generic over the leaves
+    (bf16 k/v and the int8 twin's value and scale pools), which share
+    one map of positions to pool slots.  Returns `cache`."""
     dev = cache[0]["k"].device
     bt = _as(block_table, torch.int64, dev)
+    flats = {}  # (page, max_seq) -> the positions' flat pool slots
     for pool_blk, row_blk in zip(cache, row):
         for name, pool in pool_blk.items():
             src = row_blk[name]
             page = pool.shape[1]
             max_seq = src.shape[1]
-            posn = torch.arange(max_seq, device=dev)
-            page_i = torch.clamp(posn // page, 0, bt.shape[0] - 1)
-            flat = torch.where(
-                (posn >= write_from) & (posn < bt.shape[0] * page),
-                bt[page_i] * page + posn % page,
-                0,
-            )
+            flat = flats.get((page, max_seq))
+            if flat is None:
+                posn = torch.arange(max_seq, device=dev)
+                page_i = torch.clamp(posn // page, 0, bt.shape[0] - 1)
+                flat = flats[(page, max_seq)] = torch.where(
+                    (posn >= write_from) & (posn < bt.shape[0] * page),
+                    bt[page_i] * page + posn % page,
+                    0,
+                )
             pool.view((-1,) + tuple(pool.shape[2:]))[flat] = src[0].to(
                 pool.dtype
             )
@@ -516,7 +536,12 @@ def paged_prefill_finish(  # hot-path
     """The final chunk of an admission: run it through the scratch,
     sample tok0 from the last real prompt row (only that row pays the
     vocab matmul), and scatter the scratch into the row's pool pages
-    from `write_from` on.  Returns (cache, tok0 (1,) int32)."""
+    from `write_from` on.  start / write_from / prompt_len /
+    temperature (and top_k / top_p) are Python numbers, or 0-dim
+    tensors and block_table a tensor on the model's device, so that
+    nothing is read back and the call can be captured into a CUDA graph
+    (serving/decode_graph.py); both give the same tokens and pages.
+    Returns (cache, tok0 (1,) int32)."""
     if not model.decode:
         raise ValueError("paged_prefill_finish needs a decode=True model")
     chunk = _as(chunk, torch.int64, model.device)
@@ -530,7 +555,10 @@ def paged_prefill_finish(  # hot-path
         chunk, positions=start + torch.arange(c, device=model.device),
         cache=scratch, write_pos=start, head_impl="chunked",
     )
-    hidden_row = hidden[:, prompt_len - 1 - start]
+    # The last real prompt row, picked on the device for numbers and
+    # operands alike.
+    last = torch.arange(1, device=model.device) + (prompt_len - 1 - start)
+    hidden_row = hidden.index_select(1, last)[:, 0]
     tok0 = _sample(hidden_row @ head_k + head_b, temperature, generator,
                    top_k, top_p)
     paged_scatter_row(cache, scratch, block_table, write_from)

@@ -46,7 +46,8 @@ Decode paths ported (a `cache` argument selects them):
   - the SCALAR `write_pos` contiguous path (:319-354): the s new k/v
     rows land at [write_pos, write_pos + s) of a (b, cache_len, heads,
     d_head) buffer and query i sees slots <= write_pos + i (chunked
-    prefill and the oracle).
+    prefill and the oracle).  `write_pos` is a Python int or a 0-dim
+    tensor on the cache's device, which no step reads back.
 Caches are lists with one {"k", "v"} dict per block, updated IN PLACE
 (the reference returns a new cache; the port mutates to keep one copy
 of the pool resident).
@@ -227,15 +228,16 @@ def _decode_attention(q, k, v, cache, kv_mask, write_pos, block_tables):
         )
     if kv_mask is not None and kv_mask.ndim not in (1, 2):
         raise ValueError("scalar write_pos takes a (cache_len,) kv_mask")
-    t = int(write_pos)
     cache_len = ck.shape[1]
-    ck[:, t:t + s] = k.to(ck.dtype)
-    cv[:, t:t + s] = v.to(cv.dtype)
+    # Written by index, so a 0-dim device operand (a prefill seam
+    # captured in a CUDA graph) is never read back to the host.
+    at = torch.arange(s, device=q.device) + write_pos
+    ck.index_copy_(1, at, k.to(ck.dtype))
+    cv.index_copy_(1, at, v.to(cv.dtype))
     qf = q.float() / (d ** 0.5)
     scores = torch.einsum("bqhd,bkhd->bhqk", qf, ck.float())
     slots = torch.arange(cache_len, device=q.device)
-    rows = torch.arange(s, device=q.device)
-    visible = slots[None, :] <= t + rows[:, None]  # (s, cache_len)
+    visible = slots[None, :] <= at[:, None]  # (s, cache_len)
     if kv_mask is not None and kv_mask.ndim == 2:
         vis = visible[None] & kv_mask[:, None, :]
         scores = torch.where(vis[:, None], scores, -1e30)

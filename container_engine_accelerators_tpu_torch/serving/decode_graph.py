@@ -3,12 +3,14 @@ key: the port's counterpart of the reference's `jax.jit` seams that
 compile one XLA program per static argument
 (container_engine_accelerators_tpu/serving/engine.py): the fused block
 (:1023-1045, one program per width), the speculative draft chain
-(:1087, one per width) and the verify window (:847-990, one per width
+(:1087, one per width), the verify window (:847-990, one per width
 and value of the static `greedy`, with or without top-k / top-p
-operands).
+operands) and the bf16 paged engine's final prefill chunk (one per
+chunk width, with or without top-k / top-p operands).
 
-Each seam is a Python loop of decode passes (models/generate.py,
-models/quant_generate.py), hundreds of kernel launches a call.  On the
+Each seam is a Python loop of decode passes or of a prefill chunk's
+layers (models/generate.py, models/quant_generate.py), hundreds to
+thousands of kernel launches a call.  On the
 card each key is captured once into a `torch.cuda.CUDAGraph`, and every
 later call with that key is one `replay()`: the whole call launches at
 once, with no Python between its kernels.  On the CPU the seam is called
@@ -29,7 +31,8 @@ What capture asks of the seam and of this holder:
     graph's own buffer, which the next replay of that key overwrites
     (the engine reads a call back before it replays the key again);
   - the cache and the weights: the graph holds their addresses, so a
-    replay checks that they are the objects it captured and raises
+    replay checks that they are the objects it captured (each object
+    of a tuple, such as a model and the prefill scratch) and raises
     otherwise; `reset()` drops every graph, and the engine calls it
     before it builds a fresh cache (revive);
   - the generator: the engine's torch.Generator is registered with each
@@ -74,6 +77,15 @@ _CAPTURE_LOCK = threading.RLock()
 COUNTED = (paged_attention, int8_weight_matmul)
 
 
+def _same(held, given) -> bool:
+    """Whether `given` is the object `held`, or a tuple of the objects
+    of the tuple `held`."""
+    if isinstance(held, tuple) and isinstance(given, tuple):
+        return len(held) == len(given) and all(
+            a is b for a, b in zip(held, given))
+    return held is given
+
+
 class _Graph:
     __slots__ = ("graph", "inputs", "out", "launches")
 
@@ -94,7 +106,8 @@ class SeamGraphs:
 
     `captures` records each capture: {"key", "first_call_s",
     "capture_s"} (first_call_s: the eager first call; capture_s: the
-    capture, from the eager call's end)."""
+    capture, from the eager call's end); `replays` counts the calls
+    served by a replay."""
 
     def __init__(self, seam: Callable, generator: Optional[torch.Generator],
                  device: torch.device):
@@ -105,6 +118,7 @@ class SeamGraphs:
         self._pool = None
         self._bound = None  # (weights, cache) the graphs captured
         self.captures: list = []
+        self.replays = 0
 
     @property
     def keys(self):
@@ -124,8 +138,8 @@ class SeamGraphs:
         device."""
         if self.device.type != "cuda":
             return self._seam(weights, cache, inputs, self._gen, key)
-        if self._bound is not None and (
-            self._bound[0] is not weights or self._bound[1] is not cache
+        if self._bound is not None and not (
+            _same(self._bound[0], weights) and self._bound[1] is cache
         ):
             raise RuntimeError(
                 "seam graphs hold other weights or another cache: reset() "
@@ -138,6 +152,7 @@ class SeamGraphs:
             if buf is not None:
                 buf.copy_(inputs[name], non_blocking=True)
         g.graph.replay()
+        self.replays += 1
         for fn, n_calls in g.launches:
             _build.add_launches(fn, n_calls)
         return cache, g.out

@@ -27,6 +27,17 @@ contiguous-slot engine (paged=False) keeps one (max_seq, ...) cache row
 per slot, slot == position, and has no prefix reuse; its attention stays
 torch ops, as the reference leaves it to XLA.
 
+Every admission's chunks run through one engine-owned batch-1 scratch
+(one buffer a device, zeroed once when the admission starts).  On the
+card the bf16 paged engine's FINAL chunk (the chunk's forward through
+the scratch, tok0's sampling and the scatter into the row's pages) is
+one CUDA graph replay per chunk width (serving/decode_graph.py): its
+chunk, block table, start, write_from, prompt length and temperature
+are device operands filled from pinned staging, so the admission queues
+behind the block in flight and reads back only tok0.  Non-final chunks,
+the int8, contiguous and mesh engines and every CPU engine call their
+seams eagerly.
+
 Fused multi-step decode (decode_steps = k > 1, paged engines only): on a
 QUIET turn (nothing queued or prefilling, every live row greedy and
 uncancelled with more than one token of headroom) the engine commits
@@ -491,7 +502,7 @@ class _Prefill:
         self.padded = padded  # np (1, p_bucket) int32
         self.plan = plan      # [(start, width)] covering the prompt
         self.pi = 0           # next plan index
-        self.scratch = None   # allocated lazily on the first chunk
+        self.scratch = None   # the engine's scratch, from the first chunk
         self.bt_row = None    # np (pages_per_row,) int32
         self.bt_pre = None    # preload variant (COW donor mapped in)
         self.write_from = 0   # first position the finish scatter writes
@@ -536,6 +547,56 @@ class _StageSet:
         return {
             k: v.to(device, non_blocking=True) for k, v in self.t.items()
         }
+
+
+class _FinalStage:
+    """Host staging of one final prefill chunk's operands (pinned on the
+    card, so the graph's copies can be non_blocking): the chunk in the
+    first columns of a (1, max_seq) row, the row's block table, and the
+    0-dim start, write_from, prompt_len, temperature, top_k and top_p."""
+
+    def __init__(self, max_seq, pages_per_row, pin):
+        def mk(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, pin_memory=pin)
+
+        self.t = {
+            "chunk": mk((1, max_seq), torch.int64),
+            "bt": mk((pages_per_row,), torch.int32),
+            "start": mk((), torch.int64),
+            "write_from": mk((), torch.int64),
+            "prompt_len": mk((), torch.int64),
+            "temp": mk((), torch.float32),
+            "top_k": mk((), torch.int64),
+            "top_p": mk((), torch.float32),
+        }
+
+    def fill(self, chunk, bt_row, start, write_from, prompt_len, temp,
+             top_k, top_p) -> dict:
+        """Stage one call; returns the seam's inputs (views of the
+        staging; top_k / top_p None when not given)."""
+        t = self.t
+        width = chunk.shape[1]
+        t["chunk"][:, :width].copy_(chunk)
+        t["bt"].copy_(torch.as_tensor(bt_row))
+        inputs = {"chunk": t["chunk"][:, :width], "bt": t["bt"]}
+        for name, val in (("start", start), ("write_from", write_from),
+                          ("prompt_len", prompt_len), ("temp", temp),
+                          ("top_k", top_k), ("top_p", top_p)):
+            inputs[name] = None if val is None else t[name].fill_(val)
+        return inputs
+
+
+def _final_chunk_seam(weights, cache, inp, gen, key):
+    """The bf16 paged engine's final prefill chunk as a SeamGraphs seam:
+    weights (model, scratch), `inp` a _FinalStage's inputs; the key
+    (width, top_k given, top_p given) is all that is static."""
+    del key
+    model, scratch = weights
+    return G.paged_prefill_finish(
+        model, cache, scratch, inp["chunk"], inp["bt"], inp["start"],
+        inp["write_from"], inp["prompt_len"], inp["temp"], gen,
+        top_k=inp["top_k"], top_p=inp["top_p"],
+    )
 
 
 class _Shard:
@@ -788,16 +849,18 @@ class ContinuousBatchingEngine:
             self._preload_fn = QG.quant_paged_preload_scratch
         else:
             def prefill_fn(cache, scratch, chunk, where, start, wfrom, plen,
-                           temp, gen, **kw):
-                if paged_:
-                    return G.paged_prefill_finish(
-                        model, cache, scratch, chunk, where, start, wfrom,
-                        plen, temp, gen, **kw
+                           temp, gen, top_k=None, top_p=None):
+                if not paged_:
+                    return G.prefill_finish_into_slot(
+                        model, cache, scratch, chunk, where, start, plen,
+                        temp, gen, top_k, top_p
                     )
-                return G.prefill_finish_into_slot(
-                    model, cache, scratch, chunk, where, start, plen, temp,
-                    gen, **kw
-                )
+                # The final chunk's graph on staged operands.
+                inputs = self._final_stage.fill(
+                    chunk, where, start, wfrom, plen, temp, top_k, top_p)
+                key = (chunk.shape[1], top_k is not None, top_p is not None)
+                return self._prefill_graphs.run((model, scratch), cache,
+                                                inputs, key)
 
             def decode_fn(cache, prev, tok, use, pos, act, bt, temp, gen,
                           **kw):
@@ -837,6 +900,18 @@ class ContinuousBatchingEngine:
         self._page_scatter_fn = G.scatter_kv_pages
         self._prefill_fn = prefill_fn
         self._decode_fn = decode_fn
+        # The bf16 paged engine's final prefill chunk (module docstring):
+        # one CUDA graph per (width, top_k given, top_p given) on the
+        # card, inside `_prefill_fn`.  ONE staging set is enough: the
+        # admission reads tok0 back, or on a failure synchronizes
+        # (_cache_intact), before the next admission rewrites it.
+        self._prefill_graphs = None
+        if self._paged and not self.quant:
+            self._prefill_graphs = SeamGraphs(_final_chunk_seam, self._gen,
+                                              self.device)
+            self._final_stage = _FinalStage(
+                model.max_seq, self._pages_per_row,
+                pin=self.device.type == "cuda")
         # Fused blocks (decode_steps > 1): widths on the power-of-two
         # ladder from 2, capped at and ending with decode_steps; one
         # CUDA graph per width on the card (serving/decode_graph.py).
@@ -911,6 +986,13 @@ class ContinuousBatchingEngine:
         # The float model the chunk seam runs (dequantized for int8).
         self._prefill_params = self._deq if self.quant else model
         self._cache = self._build_cache()
+        # The admission scratch, {device: (buffer, leaves)}: one a device
+        # an admission prefills on (each shard's under a mesh).
+        targets = {sh.device: sh.model for sh in self._shards} or {
+            self.device: self._prefill_params}
+        self._scratch = {
+            dev: G.init_scratch(m, device=dev) for dev, m in targets.items()
+        }
 
         self._cv = threading.Condition()
         self._queue: "collections.deque[_Seq]" = collections.deque()  # guarded-by: _cv
@@ -964,6 +1046,9 @@ class ContinuousBatchingEngine:
             "admitted": 0,
             "retired": 0,
             "prefill_chunks": 0,
+            # Final chunks served by a CUDA graph replay (bf16 paged
+            # engines on the card).
+            "prefill_replays": 0,
             "steps": 0,
             "step_rows": 0,
             "max_active": 0,
@@ -1242,13 +1327,16 @@ class ContinuousBatchingEngine:
         step's staging buffers and their copy), `phase_dispatch_ns`
         (decode seam calls, fused block replays and speculative
         windows), `phase_sync_ns` (the host blocked on the device:
-        every readback, the first token's read and the prompt chunk's
-        copy, which waits for the stream) and `phase_commit_ns`
-        (everything after a readback: per-token commits, `on_token`
-        callbacks, retires, the observer's folds).  The final prefill
-        seam copies its block table and temperature from host memory
-        itself; those copies wait for the chunk's forward inside the
-        call, so that wait counts in the admission, not in sync.
+        every readback, the first token's read and an eager chunk's
+        copy from pageable memory, which waits for the stream) and
+        `phase_commit_ns` (everything after a readback: per-token
+        commits, `on_token` callbacks, retires, the observer's folds).
+        `prefill_replays` counts the final chunks served by a CUDA
+        graph replay, beside `prefill_chunks` and `admitted`.  An eager final
+        prefill seam (every engine but the bf16 paged one on the card)
+        copies its block table and temperature from host memory itself;
+        those copies wait for the chunk's forward inside the call, so
+        that wait counts in the admission, not in sync.
 
         Device work is outstanding from each device call until a sync
         returns.  `starved_ns`: time from a sync that left nothing
@@ -1394,7 +1482,8 @@ class ContinuousBatchingEngine:
     def _reset_graphs(self):
         """Drop every CUDA graph of the engine's seams (before a cache
         they point at is replaced, and at close)."""
-        for graphs in (self._fused, *self._spec_graphs):
+        for graphs in (self._fused, self._prefill_graphs,
+                       *self._spec_graphs):
             if graphs is not None:
                 graphs.reset()
 
@@ -2449,15 +2538,21 @@ class ContinuousBatchingEngine:
         last = pf.pi == len(pf.plan) - 1
         dev, pmodel = self._admission_target(pf.slot)
         clk = self._clock
-        # A copy from pageable memory waits for the stream: a sync.
-        clk.enter(_SYNC)
-        chunk = torch.from_numpy(pf.padded[:, start: start + width]).to(dev)
-        clk.synced(_ADMIT)
+        graphs = self._prefill_graphs if last else None
+        chunk = torch.from_numpy(pf.padded[:, start: start + width])
+        if graphs is None:
+            # A copy from pageable memory waits for the stream: a sync.
+            # (The final chunk's graph copies from pinned staging.)
+            clk.enter(_SYNC)
+            chunk = chunk.to(dev)
+            clk.synced(_ADMIT)
         t_chunk = time.monotonic()
+        replays = graphs.replays if graphs is not None else 0
         try:
             clk.launch()
             if pf.scratch is None:
-                pf.scratch = G.init_decode_cache(pmodel, 1, device=dev)
+                buf, pf.scratch = self._scratch[dev]
+                buf.zero_()
                 if pf.resume > 0:
                     # Prefix preload: the matched pages' KV into the
                     # scratch, so resumed chunks attend over them.
@@ -2524,6 +2619,8 @@ class ContinuousBatchingEngine:
             self._prefilling = None
             self.stats["admitted"] += 1
             self.stats["prefill_chunks"] += 1
+            if graphs is not None:
+                self.stats["prefill_replays"] += graphs.replays - replays
             self.stats["max_active"] = max(
                 self.stats["max_active"], self.active_rows
             )

@@ -364,15 +364,16 @@ def setup():
 
 ENGINE_KW = dict(prompt_grid=4, prefill_chunk=PAGE, page_size=PAGE)
 # Counters the port's engine keeps beyond the reference's (the fused
-# steps inside blocks, the speculative pass / window figures and the
-# scheduler's phase and starved time).
+# steps inside blocks, the speculative pass / window figures, the
+# scheduler's phase and starved time and the final prefill chunks a
+# CUDA graph replay served).
 PORT_ONLY_STATS = {"fused_steps", "spec_verify_passes", "spec_window_rows",
                    "spec_window_tokens", "spec_draft_passes",
                    "spec_draft_chains", "phase_wait_ns", "phase_side_ns",
                    "phase_admit_ns", "phase_stage_ns", "phase_dispatch_ns",
                    "phase_sync_ns", "phase_commit_ns", "starved_ns",
                    "starved_admit_ns", "starved_commit_ns",
-                   "launch_idle_ns"}
+                   "launch_idle_ns", "prefill_replays"}
 
 
 def _engine(pm, slots=2, **kw):
