@@ -18,6 +18,17 @@ reference's refusals and roundings, exit 2 where it exits 2:
 default heads to divide the ranks; pp rounds the batch to the
 microbatches and picks n_virtual; ep rounds the batch to the ranks.
 
+--arch deepseek_v3 (port-only) trains a DeepSeek-V3-style decoder
+(models/mla_moe_lm.py: latent attention, SwiGLU, the dropless expert
+layer) instead of the reference's transformer, its widths from
+--arch-config, a Hugging Face `deepseek_v3` config.json (e.g.
+port_bench/configs/moonlight-16b-a3b.json, Moonlight-16B-A3B as one
+card's share of an 8-way expert-parallel job; --dim, --depth, --vocab,
+--heads and --experts do not apply).  It trains on one card, --mode dp,
+and refuses more ranks (the expert exchange is not built) and
+--model-dir where the card holds a share of the experts (one share
+cannot be put together into the whole model alone).
+
 Attention and loss resolve as the reference's do on its accelerator:
 flash and the fused loss on the card where the shapes allow, and remat
 only where the resolved attention is the dense one.  One batch is drawn
@@ -80,6 +91,13 @@ def parse_args(argv=None):
                    help="Restore the newest checkpoint here, and save one "
                    "after the last step")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--arch", choices=["transformer", "deepseek_v3"],
+                   default="transformer",
+                   help="deepseek_v3: the DeepSeek-V3-style decoder "
+                   "(latent attention, dropless experts) of --arch-config")
+    p.add_argument("--arch-config", default="",
+                   help="--arch deepseek_v3: a deepseek_v3 config.json "
+                   "giving every width")
     p.add_argument("--ranks", type=int, default=0,
                    help="CPU only: start this many ranks a host (gloo); "
                    "the card takes one rank per visible card")
@@ -98,6 +116,8 @@ def plan(args, n_chips: int, log) -> dict:
             f"--seq-parallel (deprecated alias for --mode sp) conflicts "
             f"with --mode {args.mode}; drop one")
     mode = "sp" if args.seq_parallel else args.mode
+    if args.arch == "deepseek_v3":
+        return _plan_deepseek_v3(args, mode, n_chips)
     if mode != "dp" and n_chips <= 1:
         if args.seq_parallel:
             log.warning(
@@ -155,10 +175,45 @@ def plan(args, n_chips: int, log) -> dict:
     return out
 
 
+def _plan_deepseek_v3(args, mode, n_chips) -> dict:
+    """--arch deepseek_v3's plan: one card, dp, its config read."""
+    import json
+
+    if not args.arch_config:
+        raise Refusal("--arch deepseek_v3 takes its widths from "
+                      "--arch-config (a deepseek_v3 config.json)")
+    if mode != "dp" or n_chips != 1:
+        raise Refusal(
+            f"--arch deepseek_v3 trains one card's share without the "
+            f"expert exchange: --mode dp on 1 chip (got --mode {mode}, "
+            f"{n_chips} chips)")
+    try:
+        with open(args.arch_config) as f:
+            cfg = json.load(f)
+    except (OSError, ValueError) as e:
+        raise Refusal(f"--arch-config {args.arch_config}: {e}") from e
+    held, total = cfg["n_routed_experts"], cfg.get(
+        "experts_total", cfg["n_routed_experts"])
+    if args.model_dir and held < total:
+        raise Refusal(
+            f"--model-dir: this card holds {held} of {total} experts, a "
+            "share that cannot be saved as the whole model alone")
+    return dict(mode=mode, batch=args.batch, arch_cfg=cfg)
+
+
 def _build(args, p, device, n_chips, log):
     """(step_fn returning (state, loss), state, batch_fn) for plan p."""
     from .models import transformer as T
     from .parallel import mesh as M
+
+    if "arch_cfg" in p:
+        from .models import mla_moe_lm
+
+        log.info("deepseek_v3 decoder from %s", args.arch_config)
+        return mla_moe_lm.build_mla_moe_training(
+            p["arch_cfg"], seq_len=args.seq_len, batch=p["batch"],
+            learning_rate=args.learning_rate, attn_impl=args.attn_impl,
+            device=device)
 
     common = dict(vocab=args.vocab, dim=args.dim, depth=args.depth,
                   heads=p["heads"], seq_len=args.seq_len, batch=p["batch"],

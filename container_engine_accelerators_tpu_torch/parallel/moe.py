@@ -29,17 +29,29 @@ The aux loss and the drop fraction are pmean'd over the axis.  The aux
 value returned is that mean, but its gradient is the local term's (see
 parallel/_collectives.py: each rank's objective is its share of the
 global loss, and the mean of the local terms sums to the reference's).
+
+Beside it, port-only, `HeldExperts`: DeepSeek-V3's dropless MoE FFN as
+one expert-parallel rank holds it (sigmoid scores and a correction bias
+choose each token's experts over all of them; the rank computes its
+held experts' part through a grouped matrix product, ops/grouped_mm.py,
+and adds the shared experts).  On one card it runs without the
+exchange; the JAX package has no such layer.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
 import torch
+from torch import nn
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
 
 from . import _collectives as C
 from ..models.transformer import gelu_tanh
+from ..ops.grouped_mm import grouped_mm
 
 
 def _straight_through_pmean(local, group):
@@ -187,3 +199,166 @@ def moe_ffn_sharded(x, router_w, w_in, w_out, mesh, axis_name: str,
         mesh.get_group(axis_name), capacity_factor=capacity_factor,
         top_k=top_k, n_reroute=n_reroute)
     return sh.unshard(out), aux, drop
+
+
+# ---- the dropless expert layer of one expert-parallel rank (port-only) ----
+
+def profiler_range(name):
+    """A profiler range named `name` while a torch profiler runs (made as
+    torch's own cheap ranges are), else nothing."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _RecordFunctionFast(name)
+    return contextlib.nullcontext()
+
+
+def silu_mul(hu):
+    """silu(gate) * up of a [gate | up] row."""
+    gate, up = hu.chunk(2, -1)
+    return torch.nn.functional.silu(gate) * up
+
+
+class SwiGLU(nn.Module):
+    """silu(x W_gate) * (x W_up) W_2 in `dtype`: w13 (dim, 2 * hidden) =
+    [gate | up], w2 (hidden, dim), stored in `param_dtype`."""
+
+    def __init__(self, dim, hidden, dtype, device, param_dtype=None):
+        super().__init__()
+        pd = param_dtype or dtype
+        self.dtype = dtype
+        self.w13 = nn.Parameter(torch.zeros((dim, 2 * hidden), dtype=pd,
+                                            device=device))
+        self.w2 = nn.Parameter(torch.zeros((hidden, dim), dtype=pd,
+                                           device=device))
+
+    def forward(self, x):
+        hu = x.to(self.dtype) @ self.w13.to(self.dtype)
+        return silu_mul(hu) @ self.w2.to(self.dtype)
+
+
+class _Combine(torch.autograd.Function):
+    """out (tokens, dim) f32 = sum over routes r of gate[r] * y[r] into
+    row tok[r]; saves y in its own type, not the f32 products."""
+
+    @staticmethod
+    def forward(ctx, y, gate, tok, tokens):
+        out = y.new_zeros((tokens, y.shape[1]), dtype=torch.float32)
+        out.index_add_(0, tok, y.float() * gate[:, None])
+        ctx.save_for_backward(y, gate, tok)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, gate, tok = ctx.saved_tensors
+        picked = dout[tok]
+        return ((picked * gate[:, None]).to(y.dtype),
+                (picked * y.float()).sum(-1), None, None)
+
+
+class HeldExperts(nn.Module):
+    """DeepSeek-V3's MoE FFN as one expert-parallel rank holds it.
+
+    router (dim, n_experts) f32, scoring every token over all
+    `n_experts`: s = sigmoid(x W_r) in f32; the top `top_k` of s + bias
+    (`bias`, the correction bias, a buffer) chosen, their s normalised
+    (`norm_topk`) and times `scaling`.  This rank holds experts
+    [expert_start, expert_start + n_local): w13 (n_local, dim,
+    2 * hidden) = [gate | up] and w2 (n_local, hidden, dim), SwiGLU
+    each, computed for exactly the routes that chose them (no capacity,
+    nothing dropped) by a grouped matrix product over the held experts;
+    the shared experts (`shared`, one SwiGLU of width `shared_hidden`)
+    take every token.  Routes to experts held elsewhere add nothing
+    here: on one card the layer runs without the exchange.
+
+    Sizing the grouped product needs the number of held routes on the
+    host: one synchronisation a forward.  After each forward `balance`
+    holds the sequence-wise balance loss (DeepSeek-V3 eqs. 17-20) with
+    its gradient, and the step's loads over every expert accumulate
+    until `update_bias`.  `record`, when a list, gets each forward's
+    choices ((tokens, top_k) int16).  `tally` counts on the device,
+    with no synchronisation, the routes to held experts and the busiest
+    held expert's routes, summed over forwards; `forwards` and `routes`
+    count the forwards and all their routes."""
+
+    def __init__(self, dim, hidden, shared_hidden, n_experts, n_local,
+                 expert_start, top_k, scaling, norm_topk, dtype, device,
+                 param_dtype=None):
+        super().__init__()
+        if not 0 <= expert_start <= n_experts - n_local or n_local < 1:
+            raise ValueError(
+                f"HeldExperts: experts [{expert_start}, "
+                f"{expert_start + n_local}) are not among {n_experts}")
+        if not 0 < top_k <= n_experts:
+            raise ValueError(f"top_k {top_k} of {n_experts} experts")
+        pd = param_dtype or dtype
+        self.dtype = dtype
+        self.n_experts, self.n_local = n_experts, n_local
+        self.expert_start, self.top_k = expert_start, top_k
+        self.scaling, self.norm_topk = scaling, norm_topk
+        self.router = nn.Parameter(torch.zeros((dim, n_experts),
+                                               device=device))
+        self.w13 = nn.Parameter(torch.zeros((n_local, dim, 2 * hidden),
+                                            dtype=pd, device=device))
+        self.w2 = nn.Parameter(torch.zeros((n_local, hidden, dim), dtype=pd,
+                                           device=device))
+        self.shared = SwiGLU(dim, shared_hidden, dtype, device, pd)
+        self.register_buffer("bias", torch.zeros(n_experts, device=device))
+        self.load = torch.zeros(n_experts, device=device)
+        self.tally = torch.zeros(2, dtype=torch.int64, device=device)
+        self.balance = None
+        self.record = None
+        self.forwards = self.routes = 0
+
+    def route(self, x, seqs):
+        """(gates (tokens, top_k) f32 with their gradient, choices
+        (tokens, top_k)) of x (tokens, dim); sets `balance` over `seqs`
+        sequences and adds the loads."""
+        E, K = self.n_experts, self.top_k
+        scores = torch.sigmoid(x.float() @ self.router)
+        choice = torch.topk(scores.detach() + self.bias, K, -1).indices
+        w = scores.gather(1, choice)
+        if self.norm_topk:
+            w = w / w.sum(-1, keepdim=True)
+        picks = torch.zeros_like(scores, dtype=torch.float32).scatter_(
+            1, choice, 1.0)
+        s = x.shape[0] // seqs
+        f = picks.view(seqs, s, E).sum(1) * (E / (K * s))
+        P = (scores / scores.sum(-1, keepdim=True)).view(seqs, s, E).mean(1)
+        self.balance = (f * P).sum(-1).mean()
+        self.load += picks.sum(0)
+        return w * self.scaling, choice
+
+    def forward(self, h):
+        """h (seqs, seq, dim) -> (seqs, seq, dim) in h's type."""
+        b, s, d = h.shape
+        x = h.reshape(b * s, d)
+        K, n_local = self.top_k, self.n_local
+        self.forwards += 1
+        self.routes += b * s * K
+        with profiler_range("moe.route"):
+            gates, choice = self.route(x, b)
+            if self.record is not None:
+                self.record.append(choice.to(torch.int16))
+            local = choice - self.expert_start
+            key = torch.where((local >= 0) & (local < n_local), local,
+                              n_local).flatten()
+            counts = torch.bincount(key, minlength=n_local + 1)[:n_local]
+            offs = counts.cumsum(0).to(torch.int32)
+            self.tally += torch.stack((offs[-1].long(), counts.max()))
+            n = int(offs[-1])  # the layer's one host synchronisation
+            order = torch.argsort(key, stable=True)[:n]
+            tok = order // K
+            gate = gates.reshape(-1)[order]
+        with profiler_range("moe.experts"):
+            hu = grouped_mm(x[tok], self.w13.to(self.dtype), offs)
+            y = grouped_mm(silu_mul(hu), self.w2.to(self.dtype), offs)
+        with profiler_range("moe.combine"):
+            routed = _Combine.apply(y, gate, tok, b * s).to(h.dtype)
+            out = routed + self.shared(x)
+        return out.view(b, s, d)
+
+    @torch.no_grad()
+    def update_bias(self, gamma):
+        """b_i += gamma * sign(mean load - load_i) over every expert, the
+        loads since the last update; then the loads restart."""
+        self.bias += gamma * torch.sign(self.load.mean() - self.load)
+        self.load.zero_()
