@@ -13,6 +13,8 @@ PyTorch version.
                                               # every visible card
     python3 chip_smoke.py --only device_plugin  # phase 4f alone
     python3 chip_smoke.py --only mesh_modes   # phase 11 alone
+    python3 chip_smoke.py --only flash_mla    # phase 5's (192, 128) flash
+                                              # check alone
 
 Phases, one JSON line each (stdout):
   1. device   — torch's view of the card; requires compute capability 9.0;
@@ -193,7 +195,13 @@ Phases, one JSON line each (stdout):
                 products or exponentials) and ptxas's registers and
                 spills, and held (not timed) at seq 128, 192 (half a
                 128-row tile) and 8192, and at d 256, 160 and 40 on
-                seq 192; and the fused
+                seq 192; latent attention's (192, 128) instance at
+                moonlight.train8k's (8, 8192, 16), v the strided
+                kv[..., 128:], against the plain version a (batch, 4
+                heads) slice at a time, timed beside it and SDPA with its
+                bound at the true widths, its launches those of one
+                MLAttention layer's forward and backward (one each); and
+                the fused
                 cross-entropy forward and backward at 16384 x 32000 f32
                 (and at 64 rows in f32 and bf16, C 1000 and 32000, timed
                 beside F.cross_entropy); each against its plain version
@@ -3907,23 +3915,60 @@ def _flash_err(got, want, what):
     return r, faults
 
 
-def flash_case(torch, FA, gen, b, s, h, d):
+def _plain_by_slices(torch, FA, q, k, v, dout):
+    """The plain version and its autograd a (batch, FLASH_SLICE_HEADS
+    heads) slice at a time: (out, (dq, dk, dv)) in q's dtype, as the
+    kernels give them.  Each head's attention is independent of the others'."""
+    b, s, h, _ = q.shape
+    out = torch.empty((b, s, h, v.shape[-1]), dtype=q.dtype, device=q.device)
+    grads = [torch.empty(x.shape, dtype=x.dtype, device=q.device)
+             for x in (q, k, v)]
+    for i in range(b):
+        for j in range(0, h, FLASH_SLICE_HEADS):
+            at = (slice(i, i + 1), slice(None), slice(j, j + FLASH_SLICE_HEADS))
+            leaves = [x[at].detach().clone().requires_grad_(True)
+                      for x in (q, k, v)]
+            ref = FA.causal_attention_plain(*leaves)
+            out[at] = ref.detach()
+            for g, got in zip(grads, torch.autograd.grad(ref, leaves,
+                                                         dout[at])):
+                g[at] = got
+            del leaves, ref
+    return out, grads
+
+
+def flash_case(torch, FA, gen, b, s, h, d, dv=None):
     """The kernels at one shape against the plain version and its
     autograd, q / k / v the strided views of one fused qkv projection as
     the main path gives them; the backward run twice and held bitwise
-    equal.  Returns the tensors (for the timings) and the readings;
-    raises on a fault."""
-    qkv = torch.randn((b, s, 3, h, d), device="cuda", generator=gen).to(
-        torch.bfloat16)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    dout = torch.randn((b, s, h, d), device="cuda", generator=gen).to(
-        torch.bfloat16)
+    equal.  dv: v's head dim where it is narrower than d (latent
+    attention): q and k drawn apart and v the strided second half of a
+    (b, s, h, 2 dv) [k_nope | v] projection, as MLAttention passes it.
+    Where the plain version's f32 scores would pass FLASH_DENSE_BYTES it
+    runs a slice at a time.  Returns the tensors (for the timings; `ref`
+    and `leaves` None when sliced) and the readings; raises on a fault."""
+    bf16 = torch.bfloat16
+    if dv is None:
+        qkv = torch.randn((b, s, 3, h, d), device="cuda", generator=gen).to(
+            bf16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q, k = (torch.randn((b, s, h, d), device="cuda", generator=gen).to(
+            bf16) for _ in range(2))
+        v = torch.randn((b, s, h, 2 * dv), device="cuda",
+                        generator=gen).to(bf16)[..., dv:]
+    dout = torch.randn((b, s, h, v.shape[-1]), device="cuda",
+                       generator=gen).to(bf16)
     out, lse = FA.flash_attention_fwd(q, k, v)
     grads = FA.flash_attention_bwd(q, k, v, out, lse, dout)
     again = FA.flash_attention_bwd(q, k, v, out, lse, dout)
-    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
-    ref = FA.causal_attention_plain(*leaves)
-    ref_grads = torch.autograd.grad(ref, leaves, dout, retain_graph=True)
+    if b * h * s * s * 4 > FLASH_DENSE_BYTES:
+        ref, ref_grads = _plain_by_slices(torch, FA, q, k, v, dout)
+        leaves = None
+    else:
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        ref = FA.causal_attention_plain(*leaves)
+        ref_grads = torch.autograd.grad(ref, leaves, dout, retain_graph=True)
     torch.cuda.synchronize()
     fwd, faults = _flash_err(out, ref, "out")
     bwd = {}
@@ -3933,11 +3978,12 @@ def flash_case(torch, FA, gen, b, s, h, d):
     if not all(torch.equal(a, c) for a, c in zip(grads, again)):
         faults.append("two backward runs differ bitwise")
     if faults:
+        shape = (b, s, h, d) if dv is None else (b, s, h, d, dv)
         raise AssertionError(
-            f"flash at {(b, s, h, d)}: {faults} (limit {FLASH_TILE_REL}); "
+            f"flash at {shape}: {faults} (limit {FLASH_TILE_REL}); "
             f"readings {fwd} {bwd}")
-    tensors = dict(q=q, k=k, v=v, dout=dout, out=out, lse=lse, ref=ref,
-                   leaves=leaves)
+    tensors = dict(q=q, k=k, v=v, dout=dout, out=out, lse=lse,
+                   ref=None if leaves is None else ref, leaves=leaves)
     return tensors, fwd, bwd
 
 
@@ -3954,24 +4000,43 @@ FLASH_EXTRA_SHAPES = [  # (b, s, h, d): held, not timed
 # the d-64 instance, 256); and the d-128 instance at a ragged d 96.
 FLASH_HEADS = (8, 16, 32, 4)
 FLASH_RAGGED = (8, 1024, 8, 96)
+# Latent attention's flash instance at moonlight.train8k's shape: b 8,
+# s 8192, Moonlight-16B-A3B's 16 heads, q . k over 128 + 64 = 192
+# columns and v over 128 (port_bench/configs/moonlight-16b-a3b.json);
+# MLA_LAYER is the attention's part of that configuration.
+FLASH_MLA = (8, 8192, 16, 192, 128)
+MLA_LAYER = {"hidden_size": 2048, "num_attention_heads": 16,
+             "kv_lora_rank": 512, "qk_nope_head_dim": 128,
+             "qk_rope_head_dim": 64, "v_head_dim": 128,
+             "rms_norm_eps": 1e-5, "rope_theta": 50000}
+# The plain version's f32 scores (b, h, s, s) past this many bytes run a
+# (batch, FLASH_SLICE_HEADS heads) slice at a time (FLASH_MLA's would
+# take 34 GB, and softmax and autograd as much again).
+FLASH_DENSE_BYTES = 8e9
+FLASH_SLICE_HEADS = 4
 # H100 SXM: 16 MUFU results (ex2) an SM a clock at the 1.83 GHz of the
 # data sheet's tensor peak: the third bound of the flash kernels, which
 # at d 32 outweighs the products (PERF.md).
 EXP2_PER_S = 16 * 132 * 1.83e9
 
 
-def flash_bound(b, s, h, d, backward):
-    """(bound ms, what bounds it) of the forward or backward at one shape:
-    bytes (q / k / v / o in, o / lse out; or q / k / v / o / dO and lse
-    in, dq / dk / dv out), bf16 tensor-core operations (the forward's
-    Q K^T and P V over the pairs the mask keeps; the backward's five
-    products, 2.5x), or the exponentials (one a kept pair: P in the
-    forward, P recomputed once in the backward)."""
-    n = b * s * h * d
+def flash_bound(b, s, h, d, backward, dv=None):
+    """(bound ms, what bounds it) of the forward or backward at one shape,
+    q and k of head dim d and v of dv (d if None): bytes (q / k / v / o
+    in, o / lse out; or q / k / v / o / dO and lse in, dq / dk / dv out),
+    bf16 tensor-core operations over the pairs the mask keeps (the
+    forward's Q K^T at d and P V at dv; the backward's Q K^T, dQ and dK
+    at d and dO V^T and dV at dv), or the exponentials (one a kept pair:
+    P in the forward, P recomputed once in the backward)."""
+    dv = d if dv is None else dv
+    rows = b * s * h
     pairs = b * h * s * (s + 1) / 2
-    fwd_ops = 4.0 * pairs * d
-    nbytes = (8 if backward else 4) * n * 2 + b * h * s * 4
-    ops = 2.5 * fwd_ops if backward else fwd_ops
+    if backward:
+        ops = 2.0 * pairs * (3 * d + 2 * dv)
+        nbytes = 2 * rows * (4 * d + 4 * dv) + b * h * s * 4
+    else:
+        ops = 2.0 * pairs * (d + dv)
+        nbytes = 2 * rows * (2 * d + 2 * dv) + b * h * s * 4
     times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "bf16 products": ops / PEAK_OPS["bf16"] * 1e3,
              "exponentials": pairs / EXP2_PER_S * 1e3}
@@ -4069,6 +4134,153 @@ def check_flash(torch, FA, timer, gen):
             "two_runs_bitwise_equal": True})
     records[0]["other_shapes"] = extra
     return records
+
+
+def check_flash_mla(torch, FA, timer, gen):
+    """The (192, 128) instance at FLASH_MLA, v the strided kv[..., 128:]
+    of a 256-wide kv: held as flash_case holds every shape (per 16-row
+    tile, the planted fault, two backward runs bitwise equal), timed
+    beside the plain version (one slice's time times the slices) and
+    SDPA (any backend but the dense math one), its bound at the true
+    widths.  Launches: one MLAttention layer (models/mla_moe_lm.py, the
+    cell's call site) forward and backward at the same shape, the
+    instance's counters reset to 0 just before; exactly one of each.
+    Returns the forward's and the backward's records."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from container_engine_accelerators_tpu_torch.models import (
+        mla_moe_lm as M,
+    )
+    from container_engine_accelerators_tpu_torch.ops import _build
+
+    b, s, h, d, dv = FLASH_MLA
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t, fwd, bwd = flash_case(torch, FA, gen, b, s, h, d, dv)
+    q, k, v, dout, out, lse = (t[x] for x in (
+        "q", "k", "v", "dout", "out", "lse"))
+    del t
+    torch.cuda.empty_cache()
+    slices = b * h // FLASH_SLICE_HEADS
+    at = (slice(0, 1), slice(None), slice(0, FLASH_SLICE_HEADS))
+    sl = [x[at].detach().clone().requires_grad_(True) for x in (q, k, v)]
+    sdo = dout[at].contiguous()
+    sref = FA.causal_attention_plain(*sl)
+    with torch.no_grad():
+        fwd_t = {"ms": timer.ms(lambda: FA.flash_attention_fwd(q, k, v)),
+                 "plain_ms": slices * timer.ms(
+                     lambda: FA.causal_attention_plain(*sl), iters=10)}
+    bwd_t = {"ms": timer.ms(
+                 lambda: FA.flash_attention_bwd(q, k, v, out, lse, dout)),
+             "plain_ms": slices * timer.ms(lambda: torch.autograd.grad(
+                 sref, sl, sdo, retain_graph=True), iters=10)}
+    del sl, sdo, sref
+    lq, lk, lv = (x.detach().transpose(1, 2).contiguous().requires_grad_(
+        True) for x in (q, k, v))
+    ldo = dout.transpose(1, 2).contiguous()
+    library = {}
+    try:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            lib_out = sdpa(lq, lk, lv, is_causal=True)
+            with torch.no_grad():
+                fwd_t["library_ms"] = timer.ms(
+                    lambda: sdpa(lq, lk, lv, is_causal=True))
+            bwd_t["library_ms"] = timer.ms(lambda: torch.autograd.grad(
+                lib_out, (lq, lk, lv), ldo, retain_graph=True))
+            library["library_fwd_bwd_ms"] = timer.ms(
+                lambda: torch.autograd.grad(
+                    sdpa(lq, lk, lv, is_causal=True), (lq, lk, lv), ldo),
+                iters=20)
+            del lib_out
+    except RuntimeError as e:  # no fused SDPA backend takes the pair
+        fwd_t["library_ms"] = bwd_t["library_ms"] = None
+        library["library_refused"] = str(e)[:300]
+    del lq, lk, lv, ldo, q, k, v, dout, out, lse
+    torch.cuda.empty_cache()
+
+    layer = M.MLAttention(MLA_LAYER, torch.bfloat16, "cuda", torch.float32,
+                          FA.flash_causal_attention)
+    with torch.no_grad():
+        for p in layer.parameters():
+            if p.dim() == 2:
+                p.normal_(0.0, 0.02, generator=gen)
+    x = torch.randn((b, s, MLA_LAYER["hidden_size"]), device="cuda",
+                    generator=gen).to(torch.bfloat16).requires_grad_(True)
+    counters = (FA.flash_attention_fwd.by_instance,
+                FA.flash_attention_bwd.by_instance)
+    for c in counters:
+        c[FA.WIDE_PAIR] = 0
+    y = layer(x)
+    y.backward(torch.randn(y.shape, device="cuda", generator=gen).to(
+        y.dtype))
+    torch.cuda.synchronize()
+    launches = [c[FA.WIDE_PAIR] for c in counters]
+    if launches != [1, 1]:
+        raise AssertionError(
+            f"one MLAttention forward and backward at {FLASH_MLA} launched "
+            f"the (192, 128) instance {launches} times, not once each")
+    del layer, x, y
+    torch.cuda.empty_cache()
+
+    fwd_b, fwd_by, fwd_terms = flash_bound(b, s, h, d, False, dv)
+    bwd_b, bwd_by, bwd_terms = flash_bound(b, s, h, d, True, dv)
+    ptxas = _build.PTXAS.get("flash_attention", {}).get("kernels", {})
+    common = {
+        "shape_bshd": [b, s, h, d], "v_head_dim": dv,
+        "instance": list(FA.flash_instance(d, dv)),
+        "qkv": "q and k (b, s, h, 192) apart, v the strided "
+        "kv[..., 128:] of a (b, s, h, 256) kv",
+        "planted_fault": f"x{FLASH_PLANTED} on rows past 512: the check "
+        "fails",
+        "plain_ms_from": f"one (batch, {FLASH_SLICE_HEADS}-head) slice x "
+        f"{slices}",
+        "launches_from": "one MLAttention layer forward and backward at "
+        "the same shape, by_instance[(192, 128)]",
+        "ptxas_regs_spill_stores_loads": {
+            name: r for name, r in ptxas.items()
+            if "wide_qk" in name or "flash_bwd_deltaILi128E" in name}}
+    return [
+        {"name": "flash_attention_fwd_mla", **fwd,
+         "tolerance_tile_rel": FLASH_TILE_REL, "tile_rows": FLASH_TILE,
+         "tolerance_reason": "the kernel rounds P to bf16 for P V, the "
+         "plain version keeps f32; both round O once",
+         "bound_ms": fwd_b, "bound_by": fwd_by, **fwd_terms, **fwd_t,
+         "launches": launches[0], **common},
+        {"name": "flash_attention_bwd_mla",
+         "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
+         "grads": bwd, "two_runs_bitwise_equal": True,
+         "tolerance_tile_rel": FLASH_TILE_REL, "tile_rows": FLASH_TILE,
+         "tolerance_reason": "the kernel rounds P and dS to bf16 as MMA "
+         "operands and takes D from the bf16 O; the plain autograd keeps "
+         "f32 and rounds each gradient once",
+         "bound_ms": bwd_b, "bound_by": bwd_by, **bwd_terms, **bwd_t,
+         **library, "launches": launches[1], **common},
+    ]
+
+
+# The MLA flash records' source and the JAX kernel they replace.
+FLASH_MLA_SRC = ("flash_attention.cu", "flash_attention.py:112")
+
+
+def kernel_line(rec, launches, source, replaces):
+    """One entry of the `kernels` record: a kernel's check record, its
+    launches on the main path (at least one), its CUDA source and the JAX
+    kernel it replaces (files under the two packages' csrc/ and ops/)."""
+    if launches < 1:
+        raise AssertionError(f"{rec['name']} never ran on the main path")
+    line = {
+        "name": rec["name"], "route": "cuda",
+        "source": "container_engine_accelerators_tpu_torch/csrc/" + source,
+        "replaces": "container_engine_accelerators_tpu/ops/" + replaces,
+        "launches": launches, "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"],
+    }
+    if "launches_from" in rec:
+        line["launches_from"] = rec["launches_from"]
+    return line
 
 
 def check_xent(torch, FX, timer, gen):
@@ -5749,7 +5961,7 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=("mesh_serve", "device_plugin",
-                                           "mesh_modes"),
+                                           "mesh_modes", "flash_mla"),
                         help="run this phase alone (the device line first)")
     only = parser.parse_args(argv).only
     try:
@@ -5827,6 +6039,18 @@ def main(argv=None) -> int:
     serialized = [x for v in _build.PTXAS.values() for x in v["serialized"]]
     if serialized:
         raise AssertionError(f"ptxas serialized wgmma: {serialized}")
+    if only == "flash_mla":
+        tgen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        k_mla = check_flash_mla(torch, FA, Timer(torch), tgen)
+        emit({"phase": "train_kernels", "flash_attention_mla": k_mla,
+              "card": smi})
+        print(smi, flush=True)
+        emit({"kernels": [kernel_line(rec, rec["launches"], *FLASH_MLA_SRC)
+                          for rec in k_mla]})
+        emit({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return 0
 
     gen = torch.Generator().manual_seed(SEED)
     timer = Timer(torch)
@@ -5918,9 +6142,11 @@ def main(argv=None) -> int:
 
     tgen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     k_flash = check_flash(torch, FA, timer, tgen)
+    torch.cuda.empty_cache()
+    k_mla = check_flash_mla(torch, FA, timer, tgen)
     k_xent = check_xent(torch, FX, timer, tgen)
     emit({"phase": "train_kernels", "flash_attention": k_flash,
-          "fused_xent": k_xent, "card": smi})
+          "flash_attention_mla": k_mla, "fused_xent": k_xent, "card": smi})
     torch.cuda.empty_cache()
     train, l_train = run_train(torch, timer, tgen)
     emit({**train, "card": smi})
@@ -5950,8 +6176,6 @@ def main(argv=None) -> int:
     mesh_rec, l_mesh = run_mesh_modes(torch)
     emit({**mesh_rec, "card": smi})
 
-    src = "container_engine_accelerators_tpu_torch/csrc/"
-    ref = "container_engine_accelerators_tpu/ops/"
     kernels = []
     for rec, launches, source, replaces in (
         (k_bf16, l_bf16["paged_attention"], "paged_attention.cu",
@@ -5988,18 +6212,9 @@ def main(argv=None) -> int:
          "fused_conv3x3.py:55"),
         (k_fc[1], k_fc[1]["launches"], "fused_conv3x3.cu",
          "fused_conv3x3.py:55"),
+        *((rec, rec["launches"], *FLASH_MLA_SRC) for rec in k_mla),
     ):
-        if launches < 1:
-            raise AssertionError(f"{rec['name']} never ran on the main path")
-        kernels.append({
-            "name": rec["name"], "route": "cuda", "source": src + source,
-            "replaces": ref + replaces, "launches": launches,
-            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-        })
-        if "launches_from" in rec:
-            kernels[-1]["launches_from"] = rec["launches_from"]
+        kernels.append(kernel_line(rec, launches, source, replaces))
     # The serving kernels' launches on the fused and speculative engines'
     # requests runs (CUDA-graph replays counted call by call), the tier
     # phase's returning rows and the server phases.

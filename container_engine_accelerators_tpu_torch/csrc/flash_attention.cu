@@ -1,6 +1,7 @@
 // Causal flash attention, forward and backward, for Hopper (sm_90a), at
 // every head dim that is a multiple of 8 up to 256: instances at d 64, 128
-// and 256, each running any smaller d down to the next instance's.
+// and 256, each running any smaller d down to the next instance's; and
+// one instance with v narrower than q and k, at (192, 128).
 //
 // Replaces the Pallas TPU kernels that container_engine_accelerators_tpu/
 // ops/flash_attention.py reaches from `flash_causal_attention` (:136): the
@@ -76,11 +77,40 @@
 //     rings of two, the dQ pass one warpgroup of 64 query rows a block (Q,
 //     dO and five stages fill shared memory), and dK / dV its own pass
 //     (flash_bwd_dkdv_split), one warpgroup for each sum.
+//   - q . k wider than p . v: the (DQK, DV) = (192, 128) pair of latent
+//     attention (DeepSeek-V3's MLA, q . k over 128 + 64 rope columns) has
+//     kernels of its own (flash_fwd_wide_qk, flash_bwd_dq_wide_qk,
+//     flash_bwd_dkdv_wide_qk; D by flash_bwd_delta<128>), so no product
+//     runs at a padded width: on the d-256 instance, v zero-padded, the
+//     forward did 1.6x and the backward 1.54x the true work, on d 256's
+//     tiles.  v, O, dO and dV are DV wide; q, k, dQ and dK DQK.  The
+//     forward keeps d 128's shape (O and S at 128 keys, 64 x 128 f32 each
+//     a warpgroup) with 128-key stages in rings of two (Q 48 KB, a K stage
+//     48, a V stage 32).  The dQ pass keeps two warpgroups of 64 query rows
+//     with 64-key stages (dQ 96 registers a thread, S and dP 32 each; K in
+//     a ring of four, V of three, both copied two steps ahead; 226 KB).  The
+//     dK / dV pass holds dK (96) and dV (64) a thread, which leaves
+//     registers for one 64-query step's S^T and dP^T (32 each) but not for
+//     a second in flight: a warpgroup's step is serial, and the two
+//     warpgroups run half a step apart, so one's exponentials run under the
+//     other's products.  ptxas: 186 / 203 / 254 registers, no spills (the
+//     dK / dV pass is at the edge: its first wait hoisted out of the
+//     warpgroups' branches spilled 104 bytes and ran slower).
+//     Measured at (8, 8192, 16) (NVIDIA H100 80GB HBM3, 700 W; CUDA events,
+//     10 calls): forward 4.53-4.76 ms, backward 16.61-17.63 ms (dK / dV
+//     8.61-9.15, dQ 6.71-7.08, D 0.18), against 8.07 / 29.18 ms on the
+//     d-256 instance with v padded and true-width bounds of 2.78 / 7.23 ms.
+//     Other dK / dV shapes measured so: 32-query stages, the next step's
+//     products in flight (wgmma N 32; 237 registers), 11.35-11.91 ms;
+//     64-query stages that way, 255 registers, 348 bytes spilled and wgmma
+//     serialized (C7512), backward 24.57 ms; 64-query steps serial in both
+//     warpgroups at once, 9.58-9.60 ms.
 //
 // q, k and v are read through their (batch, seq, head) strides with the
 // head dim contiguous, so the strided q / k / v views of the fused qkv
-// projection are read in place.  O, dO, dQ, dK and dV are contiguous
-// (b, s, h, d); L and D are (b, h, s) f32.
+// projection (and latent attention's v, a view of its kv projection) are
+// read in place.  O, dO, dQ, dK and dV are contiguous (b, s, h, d, or
+// v's width for O, dO and dV); L and D are (b, h, s) f32.
 //
 // Plain C interface, bound with ctypes.  Each entry point returns
 // cudaGetLastError() after its launches (or the code of a tensor map that
@@ -899,6 +929,514 @@ __global__ void __launch_bounds__(Tiles<D>::DQ_WGS * WG_THREADS, 1)
                 t, d);
 }
 
+// -- q . k wider than v: the (DQK, DV) = (192, 128) instance -----------------
+// Latent attention (DeepSeek-V3's MLA) takes q . k over 192 columns and
+// p . v over 128.  Its kernels are their own, beside the d-64 / 128 / 256
+// ones: q, k, dQ and dK are DQK wide; v, O, dO and dV DV wide.
+constexpr int WIDE_FWD_STAGES = 2;   // K and V stages of 128 keys (forward)
+constexpr int WIDE_DQ_KN = 64;       // keys a stage in the dQ pass
+constexpr int WIDE_DQ_K_STAGES = 4;  // its K ring: read for two steps,
+constexpr int WIDE_DQ_V_STAGES = 3;  // its V ring: one; both copied 2 ahead
+constexpr int WIDE_BQ = 64;          // queries a stage in the dK / dV pass,
+constexpr int WIDE_DKDV_STAGES = 3;  // in a ring of three, copied 1 ahead
+
+template <int DQK, int DV>
+__host__ __device__ constexpr int wide_fwd_smem() {
+  return 2048 + 2 * (BM * DQK + WIDE_FWD_STAGES * BN * (DQK + DV));
+}
+
+// Forward at (DQK, DV): grid (ceil(s / BM) query tiles, b * heads), as
+// flash_fwd with 128-key stages in rings of two (K_{j+1} and V_j are
+// copied in step j): Q (48 KB) and two K and two V stages (96 + 64 KB)
+// fill shared memory; O is 64 x DV and S 64 x 128 f32 a warpgroup.
+template <int DQK, int DV>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_wide_qk(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      bf16* __restrict__ o, float* __restrict__ lse, int s,
+                      int heads, float scale_log2) {
+  extern __shared__ unsigned char smem[];
+  constexpr int KN = BN;  // keys a stage, as many as the query tile's rows
+  constexpr int RING = WIDE_FWD_STAGES;
+  constexpr uint32_t K_BYTES = KN * DQK * 2, V_BYTES = KN * DV * 2;
+  const uint32_t bars = align_1k(smem);  // K's stages, then V's
+  const uint32_t q_s = bars + 1024;
+  const uint32_t k_ring = q_s + BM * DQK * 2;
+  const uint32_t v_ring = k_ring + RING * K_BYTES;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest rows first
+  const int bi = blockIdx.y / heads, hi = blockIdx.y % heads;
+  const int wg = threadIdx.x / WG_THREADS;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = qt * BM;
+  const int row_l = wg * 64 + warp * 16 + g;  // in the tile; and row_l + 8
+  // Tile j of K (or V) lives in stage j % 2, whose barrier it completes for
+  // the (j / 2)-th time; key tile qt is the diagonal one, and the last.
+  auto copy_k = [&](int j, uint32_t extra) {
+    const uint32_t bar = bars + 8 * (j % RING);
+    mbar_expect(bar, K_BYTES + extra);
+    tma_tile<DQK, KN>(k_ring + (j % RING) * K_BYTES, &map_k, bar, hi,
+                      j * KN, bi);
+  };
+  auto copy_v = [&](int j) {
+    const uint32_t bar = bars + 8 * (RING + j % RING);
+    mbar_expect(bar, V_BYTES);
+    tma_tile<DV, KN>(v_ring + (j % RING) * V_BYTES, &map_v, bar, hi, j * KN,
+                     bi);
+  };
+  auto wait_k = [&](int j) {
+    mbar_wait(bars + 8 * (j % RING), (j / RING) & 1);
+  };
+  auto wait_v = [&](int j) {
+    mbar_wait(bars + 8 * (RING + j % RING), (j / RING) & 1);
+  };
+  init_barriers(bars, 2 * RING);
+  if (threadIdx.x == 0) {
+    copy_k(0, BM * DQK * 2);  // Q rides on K_0's barrier
+    tma_tile<DQK, BM>(q_s, &map_q, bars, hi, q0, bi);
+  }
+
+  float acc[DV / 2], sc[KN / 2];
+  uint32_t p[KN / 4];
+  zero(acc);
+  float m[2] = {-INFINITY, -INFINITY};  // running row max of the raw scores
+  float l[2] = {0.f, 0.f};
+  float alpha[2] = {1.f, 1.f};  // what the last softmax owes the old O
+
+  // K_j and V_{j-1} are in, and every thread is past step j - 1; then
+  // K_{j+1} and V_j start.
+  auto arrive = [&](int j) {
+    wait_k(j);
+    if (j > 0) wait_v(j - 1);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      if (j < qt) copy_k(j + 1, 0);
+      copy_v(j);
+    }
+  };
+  auto scores = [&](int j) {
+    dot_rows<DQK, KN, BM, KN>(sc, q_s, wg * 64 * 128,
+                              k_ring + (j % RING) * K_BYTES);
+    wgmma_commit();
+  };
+  auto times_v = [&](int j) {
+    if (__any_sync(FULL, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    }
+    pin(p);
+    wgmma_fence();
+    acc_times<DV, KN, KN>(acc, p, v_ring + (j % RING) * V_BYTES);
+    wgmma_commit();
+  };
+  // As flash_fwd's softmax.
+  auto softmax = [&](int j) {
+    if (j == qt) {  // the diagonal tile: compare in the tile
+#pragma unroll
+      for (int i = 0; i < KN / 2; ++i) {
+        const int col = (i >> 2) * 8 + 2 * t + (i & 1);
+        if (col > row_l + ((i >> 1) & 1) * 8) sc[i] = -INFINITY;
+      }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < KN / 2; ++i) {
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    }
+    float ms[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+      alpha[r] = fast_exp2((m[r] - mx[r]) * scale_log2);
+      m[r] = mx[r];
+      ms[r] = mx[r] * scale_log2;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < KN / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      sc[i] = fast_exp2(fmaf(sc[i], scale_log2, -ms[r]));
+      l[r] += sc[i];
+    }
+    wgmma_wait<0>();
+    pin(acc);
+    pin(p);
+    pack_a<KN>(p, sc);
+  };
+
+  // The warpgroups take turns at the tensor cores, as in flash_fwd.
+  arrive(0);
+  wgmma_fence();
+  scores(0);
+  wgmma_wait<0>();
+  pin(sc);
+  if (wg == 0) {
+    softmax(0);
+    for (int j = 1; j <= qt; ++j) {
+      arrive(j);
+      wgmma_fence();
+      scores(j);
+      times_v(j - 1);
+      wgmma_wait<1>();  // S_j is there; P V may still run
+      pin(sc);
+      softmax(j);
+    }
+  } else {
+    for (int j = 1; j <= qt; ++j) {
+      arrive(j);
+      softmax(j - 1);
+      times_v(j - 1);
+      scores(j);
+      wgmma_wait<0>();
+      pin(acc);
+      pin(p);
+      pin(sc);
+    }
+    softmax(qt);
+  }
+  wait_v(qt);
+  times_v(qt);
+  wgmma_wait<0>();
+  pin(acc);
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+    inv[r] = 1.f / l[r];
+    const int row = q0 + row_l + 8 * r;
+    if (t == 0 && row < s) {
+      lse[(i64)blockIdx.y * s + row] =
+          (m[r] * scale_log2 + log2f(l[r])) * LN2;
+    }
+  }
+  store_rows<DV>(o, acc, (i64)bi * s * heads * DV + (i64)hi * DV,
+                 (i64)heads * DV, q0 + row_l, s, inv[0], inv[1], t, DV);
+}
+
+template <int DQK, int DV>
+__host__ __device__ constexpr int wide_dq_smem() {
+  return 2048 + 2 * (BM * (DQK + DV) +
+                     WIDE_DQ_KN * (WIDE_DQ_K_STAGES * DQK +
+                                   WIDE_DQ_V_STAGES * DV));
+}
+
+// dQ at (DQK, DV): grid (ceil(s / BM) query tiles, b * heads), two
+// warpgroups of 64 query rows, 64-key stages (dQ is 64 x DQK f32, 96
+// registers a thread, beside S and dP at 64 keys, 32 each).  Step j
+// starts S_j = Q K_j^T and dP_j = dO V_j^T and then dQ += dS_{j-1}
+// K_{j-1}, waits for the first two only, and does its exponentials while
+// the third runs; the tiles of step j + 2 are copied in step j.  Key
+// tiles 2 qt and 2 qt + 1 cross the block's diagonal (the second lies
+// wholly above warpgroup 0's rows, which mask it).
+template <int DQK, int DV>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dq_wide_qk(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_do,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int s, int heads,
+                         float scale) {
+  extern __shared__ unsigned char smem[];
+  constexpr int QM = BM, KN = WIDE_DQ_KN;
+  constexpr int KR = WIDE_DQ_K_STAGES, VR = WIDE_DQ_V_STAGES;
+  constexpr uint32_t K_BYTES = KN * DQK * 2, V_BYTES = KN * DV * 2;
+  const uint32_t bars = align_1k(smem);  // K's stages, then V's
+  const uint32_t q_s = bars + 1024;
+  const uint32_t do_s = q_s + QM * DQK * 2;
+  const uint32_t k_ring = do_s + QM * DV * 2;
+  const uint32_t v_ring = k_ring + KR * K_BYTES;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest rows first
+  const int bi = blockIdx.y / heads, hi = blockIdx.y % heads;
+  const int wg = threadIdx.x / WG_THREADS;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = qt * QM;
+  const int row_l = wg * 64 + warp * 16 + g;
+  const i64 row_stride = (i64)heads * DQK;
+  const i64 base = (i64)bi * s * row_stride + (i64)hi * DQK;
+  const float scale_log2 = scale * LOG2E;
+  const int last = min(q0 + QM, s) / KN - 1;  // the block's last key tile
+  // Tile j of K lives in stage j % 4 and of V in stage j % 3; each
+  // completes its stage's barrier for the (j / 4)-th or (j / 3)-th time.
+  // One thread.
+  auto copy_tile = [&](int j, uint32_t extra) {
+    const uint32_t k_bar = bars + 8 * (j % KR);
+    const uint32_t v_bar = bars + 8 * (KR + j % VR);
+    mbar_expect(k_bar, K_BYTES + extra);
+    tma_tile<DQK, KN>(k_ring + (j % KR) * K_BYTES, &map_k, k_bar, hi, j * KN,
+                      bi);
+    mbar_expect(v_bar, V_BYTES);
+    tma_tile<DV, KN>(v_ring + (j % VR) * V_BYTES, &map_v, v_bar, hi, j * KN,
+                     bi);
+  };
+  init_barriers(bars, KR + VR);
+  if (threadIdx.x == 0) {
+    copy_tile(0, QM * (DQK + DV) * 2);  // Q and dO ride on K_0's barrier
+    tma_tile<DQK, QM>(q_s, &map_q, bars, hi, q0, bi);
+    tma_tile<DV, QM>(do_s, &map_do, bars, hi, q0, bi);
+    if (last > 0) copy_tile(1, 0);
+  }
+  const float* lp = lse + (i64)blockIdx.y * s;
+  const float* dp = delta + (i64)blockIdx.y * s;
+  float lr[2], dr[2];  // L in base 2, and D, of this thread's two rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + row_l + 8 * r;
+    lr[r] = row < s ? lp[row] * LOG2E : 0.f;
+    dr[r] = row < s ? dp[row] : 0.f;
+  }
+
+  float dq_acc[DQK / 2], sc[KN / 2], dpr[KN / 2];
+  uint32_t ds[KN / 4];
+  zero(dq_acc);
+
+  // Tile j is in and every thread is past step j - 1; then the copies of
+  // tile j + 2 start.
+  auto advance = [&](int j) {
+    mbar_wait(bars + 8 * (j % KR), (j / KR) & 1);
+    mbar_wait(bars + 8 * (KR + j % VR), (j / VR) & 1);
+    __syncthreads();
+    if (threadIdx.x == 0 && j + 2 <= last) copy_tile(j + 2, 0);
+  };
+  // sc = S = Q K_j^T and dpr = dP = dO V_j^T, in flight.
+  auto scores = [&](int j) {
+    dot_rows<DQK, KN, QM, KN>(sc, q_s, wg * 64 * 128,
+                              k_ring + (j % KR) * K_BYTES);
+    dot_rows<DV, KN, QM, KN>(dpr, do_s, wg * 64 * 128,
+                             v_ring + (j % VR) * V_BYTES);
+    wgmma_commit();
+  };
+  // dQ += dS K_j, in flight.
+  auto sums = [&](int j) {
+    acc_times<DQK, KN, KN>(dq_acc, ds, k_ring + (j % KR) * K_BYTES);
+    wgmma_commit();
+  };
+  // dpr becomes dS.
+  auto pointwise = [&](int j) {
+    const int kb = j * KN - q0;  // the tile's first key, from row q0
+    const bool diagonal = kb + KN > 0;
+#pragma unroll
+    for (int i = 0; i < KN / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      const int col = kb + (i >> 2) * 8 + 2 * t + (i & 1);
+      float p = fast_exp2(fmaf(sc[i], scale_log2, -lr[r]));
+      if (diagonal && col > row_l + 8 * r) p = 0.f;
+      dpr[i] = p * (dpr[i] - dr[r]);
+    }
+  };
+
+  advance(0);
+  wgmma_fence();
+  scores(0);
+  wgmma_wait<0>();
+  pin(sc);
+  pin(dpr);
+  pointwise(0);
+  pack_a<KN>(ds, dpr);
+  for (int j = 1; j <= last; ++j) {
+    advance(j);
+    pin(ds);
+    wgmma_fence();
+    scores(j);
+    sums(j - 1);
+    wgmma_wait<1>();  // S and dP are there; dS K may still run
+    pin(sc);
+    pin(dpr);
+    pointwise(j);
+    wgmma_wait<0>();  // dS of step j - 1 is free again
+    pin(dq_acc);
+    pin(ds);
+    pack_a<KN>(ds, dpr);
+  }
+  pin(ds);
+  wgmma_fence();
+  sums(last);
+  wgmma_wait<0>();
+  pin(dq_acc);
+  store_rows<DQK>(dq, dq_acc, base, row_stride, q0 + row_l, s, scale, scale,
+                  t, DQK);
+}
+
+template <int DQK, int DV>
+__host__ __device__ constexpr int wide_dkdv_stage() {
+  // Q, dO, then L and D (WIDE_BQ floats each) in the next 1024 bytes.
+  return WIDE_BQ * (DQK + DV) * 2 + 1024;
+}
+
+template <int DQK, int DV>
+__host__ __device__ constexpr int wide_dkdv_smem() {
+  return 2048 + BM * (DQK + DV) * 2 +
+         WIDE_DKDV_STAGES * wide_dkdv_stage<DQK, DV>();
+}
+
+static_assert(wide_fwd_smem<192, 128>() <= 232448 &&
+                  wide_dq_smem<192, 128>() <= 232448 &&
+                  wide_dkdv_smem<192, 128>() <= 232448,
+              "the (192, 128) kernels fit a block's shared memory");
+
+// dK and dV at (DQK, DV): grid (ceil(s / BM) key tiles, b * heads).
+// Warpgroup w owns keys [k0 + 64 w, k0 + 64 w + 64) and holds dK (64 x DQK)
+// and dV (64 x DV) in f32, 160 registers a thread, and walks the queries
+// from k0 + 64 w to the end in steps of 64.  That leaves registers for one
+// step's S^T and dP^T (64 x 64, 32 each) but not for a second step's in
+// flight, so a warpgroup's step is serial: S^T = K Q^T and dP^T = V dO^T,
+// wait, the exponentials, then dV += P^T dO and dK += dS^T Q, wait; the
+// two warpgroups run half a step apart instead.  A stage is read for two
+// steps (warpgroup 1 sums the one before) and copied one step ahead.
+template <int DQK, int DV>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkdv_wide_qk(const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_do,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int s, int heads, float scale) {
+  extern __shared__ unsigned char smem[];
+  constexpr int BQW = WIDE_BQ, RING = WIDE_DKDV_STAGES;
+  constexpr uint32_t STAGE = wide_dkdv_stage<DQK, DV>();
+  constexpr uint32_t Q_BYTES = BQW * DQK * 2, DO_BYTES = BQW * DV * 2;
+  const uint32_t bars = align_1k(smem);  // one a stage of the ring
+  const uint32_t k_s = bars + 1024;
+  const uint32_t v_s = k_s + BM * DQK * 2;
+  const uint32_t ring = v_s + BM * DV * 2;
+  unsigned char* ring_p = smem + (ring - smem_u32(smem));
+  const int kt = blockIdx.x;  // the first key tiles see the most queries
+  const int bi = blockIdx.y / heads, hi = blockIdx.y % heads;
+  const int wg = threadIdx.x / WG_THREADS;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = kt * BM;
+  const int key = k0 + wg * 64 + warp * 16 + g;  // and key + 8
+  const float* lp = lse + (i64)blockIdx.y * s;
+  const float* dp = delta + (i64)blockIdx.y * s;
+  const float scale_log2 = scale * LOG2E;
+  const int steps = (s - k0) / BQW;
+
+  // Step `it` (queries from k0 + it BQW, all below s) lives in stage
+  // it % RING, whose barrier it completes for the (it / RING)-th time: Q,
+  // dO, L and D.  One thread.
+  auto copy_step = [&](int it, uint32_t extra) {
+    const int i0 = k0 + it * BQW;
+    const uint32_t at = ring + (it % RING) * STAGE;
+    const uint32_t bar = bars + 8 * (it % RING);
+    mbar_expect(bar, Q_BYTES + DO_BYTES + 2 * BQW * 4 + extra);
+    tma_tile<DQK, BQW>(at, &map_q, bar, hi, i0, bi);
+    tma_tile<DV, BQW>(at + Q_BYTES, &map_do, bar, hi, i0, bi);
+    bulk_load(at + Q_BYTES + DO_BYTES, lp + i0, BQW * 4, bar);
+    bulk_load(at + Q_BYTES + DO_BYTES + BQW * 4, dp + i0, BQW * 4, bar);
+  };
+  init_barriers(bars, RING);
+  if (threadIdx.x == 0) {
+    copy_step(0, BM * (DQK + DV) * 2);  // K and V ride on step 0's barrier
+    tma_tile<DQK, BM>(k_s, &map_k, bars, hi, k0, bi);
+    tma_tile<DV, BM>(v_s, &map_v, bars, hi, k0, bi);
+  }
+
+  float dk_acc[DQK / 2], dv_acc[DV / 2], st[BQW / 2], dpt[BQW / 2];
+  uint32_t pp[BQW / 4], ds[BQW / 4];
+  zero(dk_acc);
+  zero(dv_acc);
+
+  // Step it is in and every thread is past step it - 1 (warpgroup 1 past
+  // its sums of step it - 2); then the copies of step it + 1 start, into
+  // the stage of step it - 2.
+  auto advance = [&](int it) {
+    mbar_wait(bars + 8 * (it % RING), (it / RING) & 1);
+    __syncthreads();
+    if (threadIdx.x == 0 && it + 1 < steps) copy_step(it + 1, 0);
+  };
+  // st becomes P^T and dpt dS^T, from step it's L and D.
+  auto pointwise = [&](int it) {
+    const int i0 = k0 + it * BQW;
+    const float* l_s = reinterpret_cast<const float*>(
+        ring_p + (it % RING) * STAGE + Q_BYTES + DO_BYTES);
+    const float* d_s = l_s + BQW;
+    const bool diagonal = i0 < k0 + BM;
+#pragma unroll
+    for (int n = 0; n < BQW / 8; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(l_s + n * 8 + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(d_s + n * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = i0 + n * 8 + 2 * t + (e & 1);
+        const float lq = (e & 1) ? l2.y : l2.x;
+        const float dq = (e & 1) ? d2.y : d2.x;
+        float p = fast_exp2(fmaf(st[4 * n + e], scale_log2, -lq * LOG2E));
+        if (diagonal && qi < key + (e >> 1) * 8) p = 0.f;
+        st[4 * n + e] = p;
+        dpt[4 * n + e] = p * (dpt[4 * n + e] - dq);
+      }
+    }
+  };
+
+  // The queries before a warpgroup's first key are skipped: warpgroup 1
+  // only waits out step 0.
+  // S^T and dP^T of step it, then P^T and dS^T as A operands.
+  auto scores = [&](int it) {
+    const uint32_t q_s = ring + (it % RING) * STAGE;
+    wgmma_fence();
+    dot_rows<DQK, BQW, BM, BQW>(st, k_s, wg * 64 * 128, q_s);
+    dot_rows<DV, BQW, BM, BQW>(dpt, v_s, wg * 64 * 128, q_s + Q_BYTES);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(st);
+    pin(dpt);
+    pointwise(it);
+    pack_a<BQW>(pp, st);
+    pack_a<BQW>(ds, dpt);
+  };
+  // dV += P^T dO and dK += dS^T Q of step it.
+  auto sums = [&](int it) {
+    const uint32_t q_s = ring + (it % RING) * STAGE;
+    pin(pp);
+    pin(ds);
+    wgmma_fence();
+    acc_times<DV, BQW, BQW>(dv_acc, pp, q_s + Q_BYTES);
+    acc_times<DQK, BQW, BQW>(dk_acc, ds, q_s);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(dv_acc);
+    pin(dk_acc);
+  };
+
+  // The warpgroups take turns at the tensor cores: warpgroup 0 does step
+  // it's scores and sums, warpgroup 1 the sums of step it - 1 and then the
+  // scores of step it, so each one's exponentials run under the other's
+  // products.  Each branches once (a wgmma under a per-warpgroup branch
+  // inside the loop makes ptxas serialize).  Warpgroup 1's keys start
+  // after step 0's queries: it only waits that step out.
+  if (wg == 0) {
+    for (int it = 0; it < steps; ++it) {
+      advance(it);
+      scores(it);
+      sums(it);
+    }
+  } else {
+    advance(0);
+    if (steps > 1) {
+      advance(1);
+      scores(1);
+      for (int it = 2; it < steps; ++it) {
+        advance(it);
+        sums(it - 1);
+        scores(it);
+      }
+      sums(steps - 1);
+    }
+  }
+  store_rows<DQK>(dk, dk_acc, (i64)bi * s * heads * DQK + (i64)hi * DQK,
+                  (i64)heads * DQK, key, s, scale, scale, t, DQK);
+  store_rows<DV>(dv, dv_acc, (i64)bi * s * heads * DV + (i64)hi * DV,
+                 (i64)heads * DV, key, s, 1.f, 1.f, t, DV);
+}
+
 struct Shape {
   int b, s, heads, d;
 };
@@ -998,6 +1536,76 @@ int launch_bwd(const View& q, const View& k, const View& v, const void* out,
   return (int)cudaGetLastError();
 }
 
+// The (DQK, DV) instance's forward; n.d is DQK.
+template <int DQK, int DV>
+int launch_fwd_wide(const View& q, const View& k, const View& v, void* out,
+                    void* lse, const Shape& n, cudaStream_t st) {
+  const Shape nv{n.b, n.s, n.heads, DV};
+  CUtensorMap map_q, map_k, map_v;
+  int err = tile_map(&map_q, q, n, BM);
+  if (!err) err = tile_map(&map_k, k, n, BN);
+  if (!err) err = tile_map(&map_v, v, nv, BN);
+  if (!err) {
+    err = allow_smem(flash_fwd_wide_qk<DQK, DV>, wide_fwd_smem<DQK, DV>());
+  }
+  if (err) return err;
+  flash_fwd_wide_qk<DQK, DV><<<dim3((n.s + BM - 1) / BM, n.b * n.heads),
+                               THREADS, wide_fwd_smem<DQK, DV>(), st>>>(
+      map_q, map_k, map_v, (bf16*)out, (float*)lse, n.s, n.heads,
+      LOG2E / sqrtf((float)DQK));
+  return (int)cudaGetLastError();
+}
+
+// The (DQK, DV) instance's backward: D over DV columns (flash_bwd_delta),
+// then the dK / dV pass and the dQ pass; n.d is DQK.
+template <int DQK, int DV>
+int launch_bwd_wide(const View& q, const View& k, const View& v,
+                    const void* out, const void* lse, const void* dout,
+                    void* delta, void* dq, void* dk, void* dv, const Shape& n,
+                    cudaStream_t st) {
+  const float scale = 1.0f / sqrtf((float)DQK);
+  const Shape nv{n.b, n.s, n.heads, DV};
+  const int rows = n.b * n.s * n.heads;
+  const View d_out = contiguous(dout, nv);
+  // Resident tiles (BM rows: Q and dO in the dQ pass, K and V in the
+  // dK / dV pass) and the streamed ones (K and V stages of the dQ pass, Q
+  // and dO stages of the dK / dV pass).
+  CUtensorMap q_bm, do_bm, k_bm, v_bm, k_kn, v_kn, q_bq, do_bq;
+  int err = tile_map(&q_bm, q, n, BM);
+  if (!err) err = tile_map(&do_bm, d_out, nv, BM);
+  if (!err) err = tile_map(&k_bm, k, n, BM);
+  if (!err) err = tile_map(&v_bm, v, nv, BM);
+  if (!err) err = tile_map(&k_kn, k, n, WIDE_DQ_KN);
+  if (!err) err = tile_map(&v_kn, v, nv, WIDE_DQ_KN);
+  if (!err) err = tile_map(&q_bq, q, n, WIDE_BQ);
+  if (!err) err = tile_map(&do_bq, d_out, nv, WIDE_BQ);
+  if (!err) {
+    err = allow_smem(flash_bwd_dkdv_wide_qk<DQK, DV>,
+                     wide_dkdv_smem<DQK, DV>());
+  }
+  if (!err) {
+    err = allow_smem(flash_bwd_dq_wide_qk<DQK, DV>, wide_dq_smem<DQK, DV>());
+  }
+  if (err) return err;
+  flash_bwd_delta<DV><<<(rows * (DV / 8) + THREADS - 1) / THREADS, THREADS,
+                        0, st>>>((const bf16*)out, (const bf16*)dout,
+                                 (float*)delta, n.s, n.heads, rows, DV);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  const dim3 grid((n.s + BM - 1) / BM, n.b * n.heads);
+  flash_bwd_dkdv_wide_qk<DQK, DV><<<grid, THREADS, wide_dkdv_smem<DQK, DV>(),
+                                    st>>>(
+      k_bm, v_bm, q_bq, do_bq, (const float*)lse, (const float*)delta,
+      (bf16*)dk, (bf16*)dv, n.s, n.heads, scale);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  flash_bwd_dq_wide_qk<DQK, DV><<<grid, THREADS, wide_dq_smem<DQK, DV>(),
+                                  st>>>(
+      q_bm, do_bm, k_kn, v_kn, (const float*)lse, (const float*)delta,
+      (bf16*)dq, n.s, n.heads, scale);
+  return (int)cudaGetLastError();
+}
+
 // The instance a head dim runs: the smallest of 64, 128 and 256 at or
 // above it (its columns past d zero-filled on load and not stored); 0 for
 // a head dim the kernels do not take (not a multiple of 8, or above 256).
@@ -1008,21 +1616,28 @@ int instance(int d) {
 
 }  // namespace
 
-// q, k, v (b, s, heads, d) bf16 at the given element strides (head dim
-// contiguous, every stride a multiple of 8, pointers 16-byte aligned);
-// d a multiple of 8 up to 256 (any other returns cudaErrorInvalidValue);
-// s a multiple of 64.  out (b, s, heads, d) bf16 and lse (b, heads, s)
-// f32, both contiguous.  Returns 0, a cudaError_t, or 100000 + the
-// CUresult of a tensor map that could not be encoded.
+// q, k (b, s, heads, d) and v (b, s, heads, dv) bf16 at the given element
+// strides (head dim contiguous, every stride a multiple of 8, pointers
+// 16-byte aligned); dv == d a multiple of 8 up to 256, or (d, dv) = (192,
+// 128) (any other pair returns cudaErrorInvalidValue); s a multiple of
+// 64.  out (b, s, heads, dv) bf16 and lse (b, heads, s) f32, both
+// contiguous.  Returns 0, a cudaError_t, or 100000 + the CUresult of a
+// tensor map that could not be encoded.
 extern "C" int cea_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, long long qb,
                              long long qs, long long qh, long long kb,
                              long long ks, long long kh, long long vb,
                              long long vs, long long vh, int b, int s,
-                             int heads, int d, void* stream) {
+                             int heads, int d, int dv, void* stream) {
   const Shape n{b, s, heads, d};
   const View qv{q, qb, qs, qh}, kv{k, kb, ks, kh}, vv{v, vb, vs, vh};
   cudaStream_t st = (cudaStream_t)stream;
+  if (dv != d) {
+    if (d == 192 && dv == 128) {
+      return launch_fwd_wide<192, 128>(qv, kv, vv, out, lse, n, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (instance(d)) {
     case 64: return launch_fwd<64>(qv, kv, vv, out, lse, n, st);
     case 128: return launch_fwd<128>(qv, kv, vv, out, lse, n, st);
@@ -1031,30 +1646,37 @@ extern "C" int cea_flash_fwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The same q, k, v; out and lse from cea_flash_fwd; dout (b, s, heads, d)
-// bf16 contiguous; delta (b, heads, s) f32 scratch; dq, dk, dv (b, s,
-// heads, d) bf16 contiguous.
+// The same q, k, v; out and lse from cea_flash_fwd; dout (b, s, heads, dv)
+// bf16 contiguous; delta (b, heads, s) f32 scratch; dq, dk (b, s, heads,
+// d) and dv_out (b, s, heads, dv) bf16 contiguous.
 extern "C" int cea_flash_bwd(const void* q, const void* k, const void* v,
                              const void* out, const void* lse,
                              const void* dout, void* delta, void* dq,
-                             void* dk, void* dv, long long qb, long long qs,
-                             long long qh, long long kb, long long ks,
-                             long long kh, long long vb, long long vs,
-                             long long vh, int b, int s, int heads, int d,
-                             void* stream) {
+                             void* dk, void* dv_out, long long qb,
+                             long long qs, long long qh, long long kb,
+                             long long ks, long long kh, long long vb,
+                             long long vs, long long vh, int b, int s,
+                             int heads, int d, int dv, void* stream) {
   const Shape n{b, s, heads, d};
   const View qv{q, qb, qs, qh}, kv{k, kb, ks, kh}, vv{v, vb, vs, vh};
   cudaStream_t st = (cudaStream_t)stream;
+  if (dv != d) {
+    if (d == 192 && dv == 128) {
+      return launch_bwd_wide<192, 128>(qv, kv, vv, out, lse, dout, delta, dq,
+                                       dk, dv_out, n, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (instance(d)) {
     case 64:
-      return launch_bwd<64>(qv, kv, vv, out, lse, dout, delta, dq, dk, dv, n,
-                            st);
+      return launch_bwd<64>(qv, kv, vv, out, lse, dout, delta, dq, dk,
+                            dv_out, n, st);
     case 128:
-      return launch_bwd<128>(qv, kv, vv, out, lse, dout, delta, dq, dk, dv,
-                             n, st);
+      return launch_bwd<128>(qv, kv, vv, out, lse, dout, delta, dq, dk,
+                             dv_out, n, st);
     case 256:
-      return launch_bwd<256>(qv, kv, vv, out, lse, dout, delta, dq, dk, dv,
-                             n, st);
+      return launch_bwd<256>(qv, kv, vv, out, lse, dout, delta, dq, dk,
+                             dv_out, n, st);
   }
   return (int)cudaErrorInvalidValue;
 }

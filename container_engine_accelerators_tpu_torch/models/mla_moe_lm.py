@@ -9,11 +9,11 @@ a Hugging Face `deepseek_v3` config.json as a dict):
     [k_nope | v] = c_kv W_kvb per head; RoPE (no scaling) on q_pe and
     k_pe over interleaved pairs, in f32; k_pe shared by every head;
     causal softmax(q . k / sqrt(d_nope + d_rope)) v, then W_o.  On the
-    card through the flash kernels (ops/flash_attention.py), which take
-    one width for q, k and v: v is zero-padded to q's width, which adds
-    nothing to the output's first v_head_dim columns (kept) nor to their
-    gradients, and the scale stays 1/sqrt(q's width); on the CPU the
-    plain version takes v as it is;
+    card through the flash kernels (ops/flash_attention.py), whose
+    (192, 128) instance takes q and k at 192 and v at 128: v is the
+    strided view of the kv projection, read in place, and the output is
+    (b, s, h, v_head_dim) contiguous; on the CPU the plain version takes
+    the same operands;
   - the first `first_k_dense_replace` layers a SwiGLU FFN, the others
     the expert layer of parallel/moe.py (`HeldExperts`: this rank's
     share of the routed experts, the router over all of them, the shared
@@ -133,15 +133,6 @@ class MLAttention(nn.Module):
         self.wkvb = mat(self.r, H * (self.dn + self.dv))
         self.wo = mat(H * self.dv, D)
 
-    def attend(self, q, k, v):
-        """Causal attention of q, k (b, s, h, dn + dr) over v (b, s, h,
-        dv): the flash kernels with v zero-padded to q's width, or the
-        plain version."""
-        if self.attn_fn is causal_attention_plain:
-            return causal_attention_plain(q, k, v)
-        pad = torch.nn.functional.pad(v, (0, q.shape[-1] - v.shape[-1]))
-        return self.attn_fn(q, k, pad)[..., :v.shape[-1]]
-
     def forward(self, x):
         b, s, _ = x.shape
         H, dn, dr, dv, r = self.heads, self.dn, self.dr, self.dv, self.r
@@ -156,7 +147,7 @@ class MLAttention(nn.Module):
             q = torch.cat((q[..., :dn], apply_rope(q[..., dn:], cos, sin)),
                           -1)
             k = torch.cat((kv[..., :dn], k_pe.expand(b, s, H, dr)), -1)
-            o = self.attend(q, k, kv[..., dn:])
+            o = self.attn_fn(q, k, kv[..., dn:])  # v read in place
             return o.reshape(b, s, H * dv) @ self.wo.to(dt)
 
 

@@ -48,10 +48,10 @@ ENTRY_POINTS = {
     "cea_paged_attention": ("paged_attention", [_P] * 8 + [_I] * 8 + [_P]),
     "cea_int8_matmul": ("quant_matmul", [_P] * 4 + [_I] * 6 + [_P]),
     "cea_flash_fwd": (
-        "flash_attention", [_P] * 5 + [_L] * 9 + [_I] * 4 + [_P],
+        "flash_attention", [_P] * 5 + [_L] * 9 + [_I] * 5 + [_P],
     ),
     "cea_flash_bwd": (
-        "flash_attention", [_P] * 10 + [_L] * 9 + [_I] * 4 + [_P],
+        "flash_attention", [_P] * 10 + [_L] * 9 + [_I] * 5 + [_P],
     ),
     "cea_xent_fwd": ("fused_xent", [_P] * 4 + [_I] * 4 + [_P]),
     "cea_xent_bwd": ("fused_xent", [_P] * 5 + [_I] * 4 + [_P]),

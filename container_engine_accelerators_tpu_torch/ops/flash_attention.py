@@ -15,6 +15,10 @@ multiple of 8 up to 256 (`head_dim_instance`): instances at d 64, 128
 and 256, a smaller d running the next instance up with its columns past
 d zero-filled on load and never stored (d 32 on the d-64 instance, d 96
 on the d-128 one); HEAD_DIMS names the widths they are sized for.
+v may be narrower than q and k for one pair, (192, 128): latent
+attention's q . k over 192 columns and p . v over 128 (`WIDE_PAIR`),
+which runs kernels of its own sized for it (v, O, dO and dV 128 wide; q,
+k, dQ and dK 192), v read through its strides where it lies.
 Every product is a wgmma, a block of two warpgroups owns 128 query (or
 key) rows (at d 256 the tiles shrink to fit: see the source), shared
 tiles lie in wgmma's 128-byte swizzle, and the
@@ -63,6 +67,9 @@ _BLOCK_Q, _BLOCK_K = 256, 512
 HEAD_DIMS = (32, 64, 128, 256)
 MAX_HEAD_DIM = 256
 _INSTANCES = (64, 128, 256)
+# The (q . k width, v width) pair with v narrower that has an instance of
+# its own.
+WIDE_PAIR = (192, 128)
 _TILE = 64  # a warpgroup's rows: s must be a multiple of it
 
 
@@ -129,7 +136,23 @@ def check_head_dim_and_seq(d: int, s: int) -> None:
         )
 
 
+def flash_instance(d: int, dv: int) -> tuple:
+    """The kernel instance, as (q . k width, v width), that q and k of
+    head dim d and v of head dim dv run: (n, n) for dv == d, n the
+    instance `head_dim_instance` names; WIDE_PAIR as itself.  Raises
+    ValueError for any other pair."""
+    if dv == d:
+        return (head_dim_instance(d),) * 2
+    if (d, dv) == WIDE_PAIR:
+        return WIDE_PAIR
+    raise ValueError(
+        f"flash attention: v's head dim must equal q's, or the pair be "
+        f"{WIDE_PAIR}; got d {d}, v's {dv}"
+    )
+
+
 def _check_qkv(q, k, v):
+    """The instance (flash_instance) q, k and v run, after the checks."""
     b, s, h, d = q.shape
     for t in (q, k, v):
         if not t.is_cuda or t.device != q.device:
@@ -137,11 +160,14 @@ def _check_qkv(q, k, v):
                 "flash attention: the CUDA kernels take CUDA tensors on one "
                 "device"
             )
-        if t.dtype != torch.bfloat16 or t.shape != q.shape:
+        if t.dtype != torch.bfloat16 or k.shape != q.shape or (
+            v.shape[:-1] != q.shape[:-1]
+        ):
             raise ValueError(
-                f"flash attention: the kernels take bf16 q, k, v of one "
-                f"shape; got {q.dtype} {tuple(q.shape)}, {k.dtype} "
-                f"{tuple(k.shape)}, {v.dtype} {tuple(v.shape)}"
+                f"flash attention: the kernels take bf16 q and k of one "
+                f"shape and v of their (batch, seq, heads); got {q.dtype} "
+                f"{tuple(q.shape)}, {k.dtype} {tuple(k.shape)}, {v.dtype} "
+                f"{tuple(v.shape)}"
             )
         if t.stride(3) != 1 or any(x % 8 for x in _strides(t)) or (
             t.data_ptr() % 16
@@ -152,57 +178,70 @@ def _check_qkv(q, k, v):
                 "and the data 16-byte aligned"
             )
     check_head_dim_and_seq(d, s)
+    return flash_instance(d, v.shape[-1])
+
+
+def _count(wrapper, instance):
+    wrapper.launches += 1
+    wrapper.by_instance[instance] = wrapper.by_instance.get(instance, 0) + 1
 
 
 def flash_attention_fwd(q, k, v):
-    """(out, lse): out (b, s, h, d) bf16 contiguous and lse (b, h, s) f32
-    from the forward kernel."""
-    _check_qkv(q, k, v)
+    """(out, lse): out (b, s, h, v's head dim) bf16 contiguous and lse
+    (b, h, s) f32 from the forward kernel."""
+    instance = _check_qkv(q, k, v)
     b, s, h, d = q.shape
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    d_v = v.shape[-1]
+    out = torch.empty((b, s, h, d_v), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     rc = _build.load("cea_flash_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *_strides(q), *_strides(k), *_strides(v), b, s, h,
-        d, torch.cuda.current_stream(q.device).cuda_stream,
+        d, d_v, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "flash attention forward")
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, instance)
     return out, lse
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout):
-    """(dq, dk, dv), each (b, s, h, d) bf16 contiguous, from the backward
-    kernels; out and lse from flash_attention_fwd."""
-    _check_qkv(q, k, v)
+    """(dq, dk, dv) bf16 contiguous, dq and dk of q's shape and dv of v's,
+    from the backward kernels; out and lse from flash_attention_fwd."""
+    instance = _check_qkv(q, k, v)
     b, s, h, d = q.shape
+    d_v = v.shape[-1]
     dout = dout.contiguous()
-    if dout.dtype != q.dtype or dout.shape != q.shape or (
-        not out.is_contiguous() or not lse.is_contiguous()
+    if dout.dtype != q.dtype or dout.shape != out.shape or (
+        out.shape != (b, s, h, d_v) or not out.is_contiguous()
+        or not lse.is_contiguous()
     ):
         raise ValueError(
-            "flash attention backward: dout must match q, and out / lse "
+            "flash attention backward: dout must match out, and out / lse "
             "come from flash_attention_fwd"
         )
     delta = torch.empty_like(lse)
-    dq, dk, dv = (
+    dq, dk = (
         torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-        for _ in range(3)
+        for _ in range(2)
     )
+    dv = torch.empty((b, s, h, d_v), dtype=q.dtype, device=q.device)
     rc = _build.load("cea_flash_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), *_strides(q), *_strides(k),
-        *_strides(v), b, s, h, d,
+        *_strides(v), b, s, h, d, d_v,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "flash attention backward")
-    flash_attention_bwd.launches += 1
+    _count(flash_attention_bwd, instance)
     return dq, dk, dv
 
 
+# Launch counts: in all, and by instance (flash_instance's pair).
 flash_attention_fwd.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_fwd.by_instance = {}
+flash_attention_bwd.by_instance = {}
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -8,7 +8,8 @@ output and the q / k / v gradients of a numpy-drawn cotangent, at seq
 instances are 64, 128 and 256; 32 and 96 run the next one up with
 zero-filled columns), in f32 and bf16.  Also the `flash_supports_seq`
 truth table over 1..4096 and the length errors, against the
-reference's, and the kernels' head-dim rule by name.
+reference's, and the kernels' head-dim rule by name and their rule for
+v's width (equal to q's, or the (192, 128) pair of latent attention).
 
 Tolerances: f32, 1e-5 absolute (scores and softmax in f32 in both, sums
 in another order); bf16, one bf16 ulp of max|out| (both compute in f32
@@ -126,3 +127,30 @@ def test_kernel_shape_rule_rejects_other_head_dims_by_name(d):
         TF.check_head_dim_and_seq(d, 128)
     assert "a head dim that is a multiple of 8 up to 256" in str(err.value)
     assert f"got d {d}" in str(err.value)
+
+
+@pytest.mark.parametrize("d, dv, want", [
+    (192, 128, (192, 128)),  # latent attention's own instance
+    (128, 192, None),  # v wider than q
+    (64, 256, None),
+    (128, 64, None),  # other narrower pairs
+    (192, 96, None),
+    (256, 128, None),
+    (32, 32, (64, 64)),  # equal widths: head_dim_instance's
+    (64, 64, (64, 64)),
+    (96, 96, (128, 128)),
+    (128, 128, (128, 128)),
+    (192, 192, (256, 256)),
+    (256, 256, (256, 256)),
+])
+def test_kernel_width_pair_rule(d, dv, want):
+    if want is None:
+        with pytest.raises(ValueError) as err:
+            TF.flash_instance(d, dv)
+        assert f"got d {d}, v's {dv}" in str(err.value)
+        return
+    assert TF.flash_instance(d, dv) == want
+    if dv == d:
+        assert want == (TF.head_dim_instance(d),) * 2
+    else:
+        assert (d, dv) == TF.WIDE_PAIR

@@ -96,10 +96,11 @@ def test_mla_attention_plain_path_matches_reference():
 
 
 def test_mla_pads_v_for_the_flash_route():
-    """The flash route's zero-padded v gives the plain path's output and
-    gradients (the padded columns add nothing, the scale stays
-    1/sqrt(q's width)); on the CPU the route runs the plain version on
-    the padded operands."""
+    """The flash route gets v NOT padded (the name is kept from when the
+    route zero-padded v to q's width): the v_head_dim-wide strided view
+    of the kv projection, which the kernels' (192, 128) instance reads in
+    place; through it the plain version gives the plain path's output
+    and gradients."""
     model = _model()
     g = torch.Generator().manual_seed(4)
     x = torch.randn(1, 16, SMALL["hidden_size"], generator=g)
@@ -111,16 +112,16 @@ def test_mla_pads_v_for_the_flash_route():
     attn.zero_grad()
     seen = []
 
-    def padded(q, k, v):
-        seen.append(tuple(v.shape))
-        assert torch.all(v[..., SMALL["v_head_dim"]:] == 0)
+    def route(q, k, v):
+        seen.append((tuple(q.shape), tuple(v.shape), v.stride(2)))
         return causal_attention_plain(q, k, v)
 
-    attn.attn_fn = padded
+    attn.attn_fn = route
     out = attn(x)
     out.sum().backward()
-    qw = SMALL["qk_nope_head_dim"] + SMALL["qk_rope_head_dim"]
-    assert seen == [(1, 16, SMALL["num_attention_heads"], qw)]
+    h, dn = SMALL["num_attention_heads"], SMALL["qk_nope_head_dim"]
+    qw, dv = dn + SMALL["qk_rope_head_dim"], SMALL["v_head_dim"]
+    assert seen == [((1, 16, h, qw), (1, 16, h, dv), dn + dv)]
     assert _rel(out, plain) < VAL
     for n, p in attn.named_parameters():
         assert _rel(p.grad, want[n]) < GRAD, n

@@ -1,7 +1,10 @@
 """The DeepSeek-V3-style decoder's parts on the card (marker `card`,
 skipped without CUDA): the flash kernels at MLA's widths (q and k 192
-wide, v 128 zero-padded to 192) forward and backward against the plain
-path; the grouped expert product (ops/grouped_mm.py) against per-expert
+wide, v 128, on the (192, 128) instance) forward and backward against
+the plain path, through autograd and alone with v the strided view of
+a (b, s, h, 256) kv tensor, at seq 1024, 1088 (a
+multiple of 64, not of 128) and 8192, the backward twice for bitwise
+equality; the grouped expert product (ops/grouped_mm.py) against per-expert
 matmuls; and one training step of 2 layers (the dense one and a MoE
 one) at the published widths against the float32 reference
 (port_bench/reference/moonlight.py) through the benchmark's driver.  Run
@@ -18,13 +21,13 @@ rounds its output and inputs to bf16 as the kernel does), and a fault
 import pytest
 import torch
 
-from container_engine_accelerators_tpu_torch.models import mla_moe_lm as M
 from container_engine_accelerators_tpu_torch.ops import flash_attention as FA
 from container_engine_accelerators_tpu_torch.ops import grouped_mm as GM
 from port_bench import spec
 from port_bench.drivers import train_moe
 
 TOL = 2e-2
+WIDE = (192, 128)  # the flash instance latent attention runs
 
 
 def _need_card():
@@ -48,11 +51,9 @@ def test_flash_at_mla_widths_against_the_plain_path():
                            generator=g).bfloat16().requires_grad_(True)
 
     q, k, v = draw(192), draw(192), draw(128)
-    bench = spec.Bench()
-    cfg = bench.config(bench.cell("moonlight.train8k"))
-    attn = M.MLAttention(cfg, torch.bfloat16, "cuda", torch.float32,
-                         FA.flash_causal_attention)
-    out = attn.attend(q, k, v)
+    native = (FA.flash_attention_fwd.by_instance.get(WIDE, 0),
+              FA.flash_attention_bwd.by_instance.get(WIDE, 0))
+    out = FA.flash_causal_attention(q, k, v)
     assert out.shape == (b, s, h, 128)
     dout = torch.randn(out.shape, device="cuda", generator=g).bfloat16()
     out.backward(dout)
@@ -64,6 +65,47 @@ def test_flash_at_mla_widths_against_the_plain_path():
                           (want, q2.grad, k2.grad, v2.grad)):
         assert _rel(x, y) < TOL, name
     assert FA.flash_attention_fwd.launches > 0
+    assert FA.flash_attention_fwd.by_instance[WIDE] == native[0] + 1
+    assert FA.flash_attention_bwd.by_instance[WIDE] == native[1] + 1
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("s", [1024, 1088, 8192])
+def test_native_mla_instance_against_the_plain_path(s):
+    """The (192, 128) kernels alone at b 1, h 16: v read in place as
+    kv[..., 128:] of a (b, s, h, 256) tensor, out / dq / dk / dv against
+    the plain path, two backward runs bitwise equal, and the launches
+    counted under the instance."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(s)
+    b, h = 1, 16
+
+    def draw(d):
+        return torch.randn(b, s, h, d, device="cuda", generator=g).bfloat16()
+
+    q, k, kv = draw(192), draw(192), draw(256)
+    v = kv[..., 128:]
+    assert v.stride() == (s * h * 256, h * 256, 256, 1)
+    dout = draw(128)
+    before = (FA.flash_attention_fwd.by_instance.get(WIDE, 0),
+              FA.flash_attention_bwd.by_instance.get(WIDE, 0))
+    out, lse = FA.flash_attention_fwd(q, k, v)
+    grads = FA.flash_attention_bwd(q, k, v, out, lse, dout)
+    again = FA.flash_attention_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert out.shape == (b, s, h, 128) and out.is_contiguous()
+    assert [tuple(x.shape) for x in grads] == [
+        (b, s, h, 192), (b, s, h, 192), (b, s, h, 128)]
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    assert (FA.flash_attention_fwd.by_instance[WIDE],
+            FA.flash_attention_bwd.by_instance[WIDE]) == (
+                before[0] + 1, before[1] + 2)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    want = FA.causal_attention_plain(*leaves)
+    want_grads = torch.autograd.grad(want, leaves, dout)
+    for name, x, y in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                          (want, *want_grads)):
+        assert _rel(x, y) < TOL, name
 
 
 @pytest.mark.card
