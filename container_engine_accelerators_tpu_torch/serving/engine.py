@@ -13,8 +13,12 @@ one prefill chunk and runs one pipeline turn: DISPATCH decode step N+1
 while step N's sampled tokens are still on the device (the in-flight
 device token array feeds straight back in through the `over` merge, so
 dispatch never reads anything back), then COMMIT step N at the one
-designed readback, `_commit_pending`.  Rows retire at commit
+designed readback, `_commit_window`.  Rows retire at commit
 (max_new, stop token, cancel) and free their slot and pages at once.
+The one-token step, the fused block and the speculative window are
+three kinds of one turn (`_step`): one window record, one row-staging
+routine and one commit path, each kind keeping only its gate, its
+dispatch and (the window) its drafting and accept rule.
 
 The paged pool (serving/kvpool.py) maps each row's logical positions to
 physical pages through a per-row block table; the radix prefix cache
@@ -320,41 +324,34 @@ class _Seq:
 
 
 class _Pending:
-    """One dispatched-but-uncommitted decode step (the lag window): the
-    rows that rode it as (slot, seq, dispatched position) and the
-    still-in-flight device token array."""
+    """One dispatched-but-uncommitted decode window (the lag window) of
+    one turn kind: "step" (the one-token step), "fused" (a fused block)
+    or "spec" (a speculative window).  It holds the rows that rode it as
+    (slot, seq, base position, width), the still-in-flight device tokens
+    `nxt` ((B,) for a step, (B, width) for a block, the (B, W) verify
+    outputs for a window) and, for a window only, the (B, W) verify
+    inputs `draft` (column 0 each row's last committed token, the rest
+    the drafter's proposals).  _commit_window reads it back once;
+    _drain_pending waits for `nxt` and drops it uncommitted on every
+    failure path."""
 
-    __slots__ = ("rows", "nxt", "t_dispatch")
+    __slots__ = ("kind", "rows", "nxt", "t_dispatch", "draft")
 
-    def __init__(self, rows, nxt, t_dispatch=0.0):
+    def __init__(self, kind, rows, nxt, t_dispatch, draft=None):
+        self.kind = kind
         self.rows = rows
         self.nxt = nxt
         self.t_dispatch = t_dispatch
-
-
-class _FusedPending(_Pending):
-    """One dispatched-but-uncommitted FUSED BLOCK: the rows that rode it
-    as (slot, seq, base position, block width) and the (B, width)
-    device token array, read back once at _commit_fused.  Shares
-    _Pending's drain contract: _drain_pending waits for `nxt` and drops
-    the block uncommitted on every failure path."""
-
-    __slots__ = ()
-
-
-class _SpecPending(_Pending):
-    """One dispatched-but-uncommitted SPECULATIVE WINDOW: the rows that
-    rode it as (slot, seq, base position, window width), the (B, W)
-    verify outputs `nxt` and the (B, W) verify inputs `draft` (column 0
-    each row's last committed token, the rest the drafter's proposals),
-    both on the device until _commit_spec reads them back.  Shares
-    _Pending's drain contract."""
-
-    __slots__ = ("draft",)
-
-    def __init__(self, rows, nxt, draft, t_dispatch=0.0):
-        super().__init__(rows, nxt, t_dispatch)
         self.draft = draft
+
+
+# Each window kind's name in the logs and its readback's flight-recorder
+# `at`.
+_READBACK = {
+    "step": ("decode step", "commit_readback"),
+    "fused": ("fused decode block", "fused_commit_readback"),
+    "spec": ("verify window", "spec_commit_readback"),
+}
 
 
 class _SideJob:
@@ -513,66 +510,41 @@ class _Prefill:
         self.priv: list = []  # freshly allocated private pages
 
 
-class _StageSet:
-    """One set of host staging buffers for a dispatch: torch tensors
-    (pinned on the card, so the copy can be non_blocking) and numpy
-    views of the same memory for the scheduler to fill.  `bt` (the
-    block tables) only for a paged engine (pages_per_row > 0).  `kind`:
-    "step" (the one-token step, with the `over` merge mask), "fused"
-    (only what a block reads) or "spec" (the window, with the drafter's
-    row mask `draft`)."""
+class _Staging:
+    """One set of host staging buffers for a dispatch, built from a
+    table of fields {name: (shape, dtype, fill)}: torch tensors (pinned
+    on the card, so the copy can be non_blocking) and numpy views of the
+    same memory for the scheduler to fill.  `reset` writes each field's
+    fill back; a field whose fill is None starts zeroed and is written
+    whole by its user (the block tables, the drafter's row mask, the
+    final prefill chunk's operands)."""
 
-    def __init__(self, n_slots, pages_per_row, vocab, pin, kind="step"):
-        def mk(shape, dtype, fill):
-            return torch.full(shape, fill, dtype=dtype, pin_memory=pin)
-
+    def __init__(self, fields, pin):
         self.t = {
-            "tok": mk((n_slots,), torch.int32, 0),
-            "pos": mk((n_slots,), torch.int32, 0),
-            "active": mk((n_slots,), torch.bool, False),
-            "temps": mk((n_slots,), torch.float32, 0.0),
+            name: torch.full(shape, 0 if fill is None else fill,
+                             dtype=dtype, pin_memory=pin)
+            for name, (shape, dtype, fill) in fields.items()
         }
-        if kind != "fused":
-            self.t["top_k"] = mk((n_slots,), torch.int32, vocab)
-            self.t["top_p"] = mk((n_slots,), torch.float32, 1.0)
-        if kind == "step":
-            self.t["over"] = mk((n_slots,), torch.bool, True)
-        if kind == "spec":
-            self.t["draft"] = mk((n_slots,), torch.bool, False)
-        if pages_per_row:
-            self.t["bt"] = mk((n_slots, pages_per_row), torch.int32, 0)
         self.np = {k: v.numpy() for k, v in self.t.items()}
+        self._fills = [(self.np[name], fill)
+                       for name, (_, _, fill) in fields.items()
+                       if fill is not None]
+
+    def reset(self) -> dict:
+        """Every field with a fill back to it; returns the numpy views."""
+        for view, fill in self._fills:
+            view.fill(fill)
+        return self.np
 
     def to(self, device):
         return {
             k: v.to(device, non_blocking=True) for k, v in self.t.items()
         }
 
-
-class _FinalStage:
-    """Host staging of one final prefill chunk's operands (pinned on the
-    card, so the graph's copies can be non_blocking): the chunk in the
-    first columns of a (1, max_seq) row, the row's block table, and the
-    0-dim start, write_from, prompt_len, temperature, top_k and top_p."""
-
-    def __init__(self, max_seq, pages_per_row, pin):
-        def mk(shape, dtype):
-            return torch.zeros(shape, dtype=dtype, pin_memory=pin)
-
-        self.t = {
-            "chunk": mk((1, max_seq), torch.int64),
-            "bt": mk((pages_per_row,), torch.int32),
-            "start": mk((), torch.int64),
-            "write_from": mk((), torch.int64),
-            "prompt_len": mk((), torch.int64),
-            "temp": mk((), torch.float32),
-            "top_k": mk((), torch.int64),
-            "top_p": mk((), torch.float32),
-        }
-
     def fill(self, chunk, bt_row, start, write_from, prompt_len, temp,
              top_k, top_p) -> dict:
-        """Stage one call; returns the seam's inputs (views of the
+        """Stage one final prefill chunk (a set of
+        `_final_chunk_fields`); returns the seam's inputs (views of the
         staging; top_k / top_p None when not given)."""
         t = self.t
         width = chunk.shape[1]
@@ -586,9 +558,39 @@ class _FinalStage:
         return inputs
 
 
+def _final_chunk_fields(max_seq, pages_per_row) -> dict:
+    """The staging table of one final prefill chunk's operands: the
+    chunk in the first columns of a (1, max_seq) row, the row's block
+    table, and the 0-dim start, write_from, prompt_len, temperature,
+    top_k and top_p."""
+    return {
+        "chunk": ((1, max_seq), torch.int64, None),
+        "bt": ((pages_per_row,), torch.int32, None),
+        "start": ((), torch.int64, None),
+        "write_from": ((), torch.int64, None),
+        "prompt_len": ((), torch.int64, None),
+        "temp": ((), torch.float32, None),
+        "top_k": ((), torch.int64, None),
+        "top_p": ((), torch.float32, None),
+    }
+
+
+def _lag_merged(step):
+    """The decode seam (cache, prev, tok, use, pos, act, bt, temp, gen,
+    **kw) over `step(cache, tok, pos, act, bt, temp, gen, **kw)`: a row
+    with `use` set takes its staged `tok`, the others the in-flight
+    `prev` (the lag merge)."""
+
+    def decode_fn(cache, prev, tok, use, pos, act, bt, temp, gen, **kw):
+        return step(cache, torch.where(use, tok, prev), pos, act, bt, temp,
+                    gen, **kw)
+
+    return decode_fn
+
+
 def _final_chunk_seam(weights, cache, inp, gen, key):
     """The bf16 paged engine's final prefill chunk as a SeamGraphs seam:
-    weights (model, scratch), `inp` a _FinalStage's inputs; the key
+    weights (model, scratch), `inp` what _Staging.fill returns; the key
     (width, top_k given, top_p given) is all that is static."""
     del key
     model, scratch = weights
@@ -801,37 +803,41 @@ class ContinuousBatchingEngine:
         # fused block.  The int8 engine prefills through the model with
         # DEQUANTIZED weights, so both engines run chunks on a float
         # model.  prefill_fn's `where` is the row's block table (paged)
-        # or its slot; decode_fn's `bt` is None when not paged.
+        # or its slot; decode_fn's `bt` is None when not paged.  Each
+        # seam is bound to the engine's layout and weight format here,
+        # once, and `_weights` is what the fused and verify seams run.
         self._prefill_chunk_fn = G.prefill_chunk
-        paged_ = self._paged
+        heads = model.heads
         if self.quant:
             self._qparams = QG.quantize_decode_params(model)
             self._deq = QG.dequantize_decode_params(self._qparams, model)
-            qp, deq, heads = self._qparams, self._deq, model.heads
-
-            def prefill_fn(cache, scratch, chunk, where, start, wfrom, plen,
-                           temp, gen, **kw):
-                if paged_:
+            qp, deq = self._qparams, self._deq
+            self._weights = qp
+            if self._paged:
+                def prefill_fn(cache, scratch, chunk, where, start, wfrom,
+                               plen, temp, gen, **kw):
                     return QG.quant_paged_prefill_finish(
                         deq, qp, cache, scratch, chunk, where, start,
                         wfrom, plen, temp, gen, **kw
                     )
-                return QG.quant_prefill_finish_into_slot(
-                    deq, qp, cache, scratch, chunk, where, start, plen,
-                    temp, gen, **kw
-                )
 
-            def decode_fn(cache, prev, tok, use, pos, act, bt, temp, gen,
-                          **kw):
-                tok = torch.where(use, tok, prev)
-                if paged_:
+                def step_fn(cache, tok, pos, act, bt, temp, gen, **kw):
                     return QG.quant_paged_engine_decode_step(
                         qp, cache, tok, pos, act, bt, temp, gen, heads,
                         **kw
                     )
-                return QG.quant_engine_decode_step(
-                    qp, cache, tok, pos, act, temp, gen, heads, **kw
-                )
+            else:
+                def prefill_fn(cache, scratch, chunk, where, start, wfrom,
+                               plen, temp, gen, **kw):
+                    return QG.quant_prefill_finish_into_slot(
+                        deq, qp, cache, scratch, chunk, where, start, plen,
+                        temp, gen, **kw
+                    )
+
+                def step_fn(cache, tok, pos, act, bt, temp, gen, **kw):
+                    return QG.quant_engine_decode_step(
+                        qp, cache, tok, pos, act, temp, gen, heads, **kw
+                    )
 
             def steps_fn(qp, cache, inp, gen, n):
                 return QG.quant_paged_engine_decode_steps(
@@ -848,30 +854,47 @@ class ContinuousBatchingEngine:
 
             self._preload_fn = QG.quant_paged_preload_scratch
         else:
-            def prefill_fn(cache, scratch, chunk, where, start, wfrom, plen,
-                           temp, gen, top_k=None, top_p=None):
-                if not paged_:
+            self._weights = model
+            if self._paged:
+                def prefill_fn(cache, scratch, chunk, where, start, wfrom,
+                               plen, temp, gen, top_k=None, top_p=None):
+                    # The final chunk's graph on staged operands.
+                    inputs = self._final_stage.fill(
+                        chunk, where, start, wfrom, plen, temp, top_k,
+                        top_p)
+                    key = (chunk.shape[1], top_k is not None,
+                           top_p is not None)
+                    return self._prefill_graphs.run((model, scratch),
+                                                    cache, inputs, key)
+
+                def step_fn(cache, tok, pos, act, bt, temp, gen, **kw):
+                    return G.paged_decode_step(
+                        model, cache, tok, pos, act, bt, temp, gen, **kw
+                    )
+
+                def verify_fn(model, cache, toks, inp, gen, greedy, kw):
+                    return G.paged_verify_step(
+                        model, cache, toks, inp["pos"], inp["active"],
+                        inp["bt"], inp["temps"], gen, greedy=greedy, **kw
+                    )
+            else:
+                def prefill_fn(cache, scratch, chunk, where, start, wfrom,
+                               plen, temp, gen, top_k=None, top_p=None):
                     return G.prefill_finish_into_slot(
                         model, cache, scratch, chunk, where, start, plen,
                         temp, gen, top_k, top_p
                     )
-                # The final chunk's graph on staged operands.
-                inputs = self._final_stage.fill(
-                    chunk, where, start, wfrom, plen, temp, top_k, top_p)
-                key = (chunk.shape[1], top_k is not None, top_p is not None)
-                return self._prefill_graphs.run((model, scratch), cache,
-                                                inputs, key)
 
-            def decode_fn(cache, prev, tok, use, pos, act, bt, temp, gen,
-                          **kw):
-                tok = torch.where(use, tok, prev)
-                if paged_:
-                    return G.paged_decode_step(
-                        model, cache, tok, pos, act, bt, temp, gen, **kw
+                def step_fn(cache, tok, pos, act, bt, temp, gen, **kw):
+                    return G.decode_step(
+                        model, cache, tok, pos, act, temp, gen, **kw
                     )
-                return G.decode_step(
-                    model, cache, tok, pos, act, temp, gen, **kw
-                )
+
+                def verify_fn(model, cache, toks, inp, gen, greedy, kw):
+                    return G.verify_step(
+                        model, cache, toks, inp["pos"], inp["active"],
+                        inp["temps"], gen, greedy=greedy, **kw
+                    )
 
             def steps_fn(model, cache, inp, gen, n):
                 return G.paged_decode_steps(
@@ -879,27 +902,17 @@ class ContinuousBatchingEngine:
                     inp["bt"], inp["temps"], gen, n
                 )
 
-            def verify_fn(model, cache, toks, inp, gen, greedy, kw):
-                if paged_:
-                    return G.paged_verify_step(
-                        model, cache, toks, inp["pos"], inp["active"],
-                        inp["bt"], inp["temps"], gen, greedy=greedy, **kw
-                    )
-                return G.verify_step(
-                    model, cache, toks, inp["pos"], inp["active"],
-                    inp["temps"], gen, greedy=greedy, **kw
-                )
-
             self._preload_fn = G.paged_preload_scratch
             if self._shards:
-                prefill_fn, decode_fn = self._mesh_seams()
+                prefill_fn, step_fn = self._mesh_seams()
         # The page seams of export / adopt and the tiers, as attributes
         # a fault injector can wrap: (cache, page ids) -> gathered
         # leaves on the device, and (cache, page ids, parts) -> cache.
         self._page_gather_fn = G.gather_kv_pages
         self._page_scatter_fn = G.scatter_kv_pages
         self._prefill_fn = prefill_fn
-        self._decode_fn = decode_fn
+        self._decode_fn = _lag_merged(step_fn)
+        pin = self.device.type == "cuda"
         # The bf16 paged engine's final prefill chunk (module docstring):
         # one CUDA graph per (width, top_k given, top_p given) on the
         # card, inside `_prefill_fn`.  ONE staging set is enough: the
@@ -909,9 +922,8 @@ class ContinuousBatchingEngine:
         if self._paged and not self.quant:
             self._prefill_graphs = SeamGraphs(_final_chunk_seam, self._gen,
                                               self.device)
-            self._final_stage = _FinalStage(
-                model.max_seq, self._pages_per_row,
-                pin=self.device.type == "cuda")
+            self._final_stage = _Staging(
+                _final_chunk_fields(model.max_seq, self._pages_per_row), pin)
         # Fused blocks (decode_steps > 1): widths on the power-of-two
         # ladder from 2, capped at and ending with decode_steps; one
         # CUDA graph per width on the card (serving/decode_graph.py).
@@ -943,7 +955,6 @@ class ContinuousBatchingEngine:
         self._spec_buckets: List[int] = []
         self._spec_last_width = 0
         if self._spec_k:
-            heads = model.heads
             self._draft_qparams = (
                 self._qparams if self.quant
                 else QG.quantize_decode_params(model)
@@ -1009,12 +1020,23 @@ class ContinuousBatchingEngine:
         self._side_jobs: "collections.deque[_SideJob]" = (  # guarded-by: _cv
             collections.deque()
         )
-        # Double-buffered host staging (module docstring): the set an
-        # in-flight step's copy reads is never rewritten before that
-        # step commits.  Scheduler-thread-private.
-        pin = self.device.type == "cuda"
+        # The decode staging sets, scheduler-thread-private: what every
+        # row of a dispatch reads, the sampling operands the one-token
+        # step and the window read, and the block tables when paged.
+        n, ppr = self.n_slots, self._pages_per_row
+        rows = {"tok": ((n,), torch.int32, 0),
+                "pos": ((n,), torch.int32, 0),
+                "active": ((n,), torch.bool, False),
+                "temps": ((n,), torch.float32, 0.0)}
+        sampling = {"top_k": ((n,), torch.int32, model.vocab),
+                    "top_p": ((n,), torch.float32, 1.0)}
+        bt = {"bt": ((n, ppr), torch.int32, None)} if ppr else {}
+        # The one-token step's, double-buffered (module docstring): the
+        # set an in-flight step's copy reads is never rewritten before
+        # that step commits.  `over` is the lag merge's mask.
         self._stages = tuple(
-            _StageSet(self.n_slots, self._pages_per_row, model.vocab, pin)
+            _Staging({**rows, **sampling,
+                      "over": ((n,), torch.bool, True), **bt}, pin)
             for _ in range(2)
         )
         self._stage_i = 0
@@ -1022,15 +1044,14 @@ class ContinuousBatchingEngine:
         # commits the outstanding window before it rewrites the set, and
         # that readback waited for every copy out of it.
         self._fused_stage = (
-            _StageSet(self.n_slots, self._pages_per_row, model.vocab, pin,
-                      kind="fused")
-            if self._fused is not None else None
+            _Staging({**rows, **bt}, pin) if self._fused is not None
+            else None
         )
-        # Speculative staging: ONE set, for the same reason (_step_spec
-        # commits the outstanding window before it rewrites the set).
+        # Speculative staging: ONE set, for the same reason; `draft` is
+        # the drafter's row mask.
         self._spec_stage = (
-            _StageSet(self.n_slots, self._pages_per_row, model.vocab, pin,
-                      kind="spec")
+            _Staging({**rows, **sampling,
+                      "draft": ((n,), torch.bool, None), **bt}, pin)
             if self._spec_k else None
         )
         # The `prev` operand when no step is in flight: every row
@@ -1082,7 +1103,7 @@ class ContinuousBatchingEngine:
             "kv_tier_load_skipped": 0,
             "kv_tier_load_failures": 0,
             # Fused blocks dispatched and the tokens they committed;
-            # "steps" counts commits (host round-trips) of both kinds.
+            # "steps" counts commits (host round-trips) of every kind.
             "fused_blocks": 0,
             "fused_steps": 0,  # decode steps dispatched inside blocks
             "fused_tokens": 0,
@@ -1173,8 +1194,9 @@ class ContinuousBatchingEngine:
         return shards
 
     def _mesh_seams(self):
-        """The dp mesh's final-chunk and decode seams over the shard
-        caches (`self._cache` is then a list of them, one a shard)."""
+        """The dp mesh's final-chunk seam and decode step (before the
+        lag merge, _lag_merged) over the shard caches (`self._cache` is
+        then a list of them, one a shard)."""
         shards, home = self._shards, self.device
 
         def prefill_fn(cache, scratch, chunk, where, start, wfrom, plen,
@@ -1186,9 +1208,7 @@ class ContinuousBatchingEngine:
             )
             return cache, tok0
 
-        def decode_fn(cache, prev, tok, use, pos, act, bt, temp, gen,
-                      **kw):
-            tok = torch.where(use, tok, prev)
+        def step_fn(cache, tok, pos, act, bt, temp, gen, **kw):
             outs = []
             for sh in shards:
                 def part(x, sh=sh):
@@ -1202,7 +1222,7 @@ class ContinuousBatchingEngine:
                 outs.append(nxt.to(home, non_blocking=True))
             return cache, torch.cat(outs)
 
-        return prefill_fn, decode_fn
+        return prefill_fn, step_fn
 
     def _shard_of(self, slot: int) -> _Shard:
         return self._shards[slot // self._shards[0].hi]
@@ -2677,8 +2697,9 @@ class ContinuousBatchingEngine:
             self._commit(pf.slot, seq, tok0, first=True)
 
     def _commit(self, slot: int, seq: _Seq, token: int, first=False,
-                now: Optional[float] = None):
-        """Append one generated token to a row; retire when done."""
+                now: Optional[float] = None) -> bool:
+        """Append one generated token to a row; retire when done (cancel,
+        stop token, max_new).  Returns whether it retired the row."""
         if now is None:
             now = time.monotonic()
         seq.tokens.append(token)
@@ -2708,11 +2729,15 @@ class ContinuousBatchingEngine:
                         seq.row_i, e,
                     )
         if seq.ticket.cancelled:
-            self._retire(slot, seq, reason="cancelled")
+            reason = "cancelled"
         elif seq.stop_token is not None and token == seq.stop_token:
-            self._retire(slot, seq, reason="stop")
+            reason = "stop"
         elif len(seq.tokens) >= seq.max_new:
-            self._retire(slot, seq, reason="done")
+            reason = "done"
+        else:
+            return False
+        self._retire(slot, seq, reason=reason)
+        return True
 
     def _retire(self, slot: int, seq: _Seq, reason: str = "done"):
         t = seq.ticket
@@ -2735,89 +2760,90 @@ class ContinuousBatchingEngine:
             self._fire_done_callbacks(t)
 
     def _step(self):  # hot-path
-        """One pipeline turn: DISPATCH the next decode step while the
-        previous step's tokens are in flight, then COMMIT the previous
-        step.  Rows continuing from the lag window take their input from
-        the in-flight device array; fresh rows override it through the
-        merge mask.  A failed dispatch retries with capped backoff;
-        exhausted retries drain the window, fail only the active rows
-        and crash the scheduler for a supervised revival.  With
-        decode_steps > 1 a quiet turn dispatches a fused block instead
-        (_step_fused); with spec_k > 0 a turn where some greedy row can
-        draft deeper than one token dispatches a speculative window
-        (_step_spec)."""
-        if self._spec_k:
-            if self._spec_turn_wants_window():
-                self._step_spec()
-                return
-            # An outstanding WINDOW commits first: its (B, W) tokens
-            # cannot ride the one-token dispatch's merge.
-            with self._cv:
-                pending = self._pending
-                if isinstance(pending, _SpecPending):
-                    self._pending = None
-                else:
-                    pending = None
-            if pending is not None:
-                self._commit_spec(pending)
-        if self._fused is not None:
+        """One pipeline turn of one kind: a speculative window when some
+        greedy row can draft deeper than one token (spec_k > 0), else a
+        fused block on a quiet turn (decode_steps > 1), else the
+        one-token step.  The turn DISPATCHES its window while the
+        previous one is still in flight, then COMMITS the previous one.
+        Only a one-token step rides the next step's merge (its rows take
+        their input from the in-flight device array, fresh rows override
+        it through the merge mask); any other outstanding window commits
+        before a turn stages, as does any window before a multi-token
+        turn, which starts from the last committed token (the accept
+        decision gates the next draft).  A failed dispatch retries with
+        capped backoff; exhausted retries drain the window, fail only
+        the active rows and crash the scheduler for a supervised
+        revival."""
+        kind, k = "step", 1
+        if self._spec_k and self._spec_turn_wants_window():
+            kind = "spec"
+        elif self._fused is not None:
             k = self._fused_turn_wants_block()
             if k:
-                self._step_fused(k)
-                return
-            # An outstanding FUSED block commits first: its (B, k)
-            # tokens cannot ride the one-token dispatch's merge.
+                kind = "fused"
+        with self._cv:
+            lag = self._pending
+            if lag is not None and kind == lag.kind == "step":
+                first = None
+            else:
+                first, lag, self._pending = lag, None, None
+        if first is not None:
+            self._commit_window(first)
+        if kind == "spec":
+            new = self._dispatch_spec()
+        elif kind == "fused":
+            new = self._dispatch_fused(k)
+        else:
+            new = self._dispatch_step(lag)
+        with self._cv:
+            self._pending = new
+        if lag is not None:
+            self._commit_window(lag)
+        if new is not None and not self._pipeline:
+            # Synchronous mode (the parity control).
             with self._cv:
-                pending = self._pending
-                if isinstance(pending, _FusedPending):
-                    self._pending = None
-                else:
-                    pending = None
-            if pending is not None:
-                self._commit_fused(pending)
+                self._pending = None
+            self._commit_window(new)
+
+    def _stage_rows(self, st, width, flying):  # hot-path
+        """Stage every live row into the set `st` for one dispatch: reset
+        the set, copy the block tables and walk the slots.  A cancelled
+        row retires here unless it rides the step in flight (its commit
+        retires it); a row mid-prefill or finished is skipped.
+        `width(seq)` is a row's width in the window.  `flying` maps a
+        slot to (seq, position) of the one-token step in flight: a row
+        riding it continues from the in-flight token through the lag
+        merge (`over` False, the next position), and is finished when
+        that token is its last.  Returns the live rows as (slot, seq,
+        base position, width) and whether any carries top-k / top-p."""
         self._clock.enter(_STAGE)
-        self._stage_i ^= 1
-        st = self._stages[self._stage_i]
-        s = st.np
-        s["tok"].fill(0)
-        s["pos"].fill(0)
-        s["active"].fill(False)
-        s["temps"].fill(0.0)
-        s["top_k"].fill(self._model.vocab)
-        s["top_p"].fill(1.0)
-        s["over"].fill(True)
-        adv = False
-        live = []
+        s = st.reset()
         with self._cv:
             occupants = list(enumerate(self._slots))
-            pending = self._pending
             if self._paged:
                 np.copyto(s["bt"], self._bt_master)
-        in_flight = {}
-        if pending is not None:
-            in_flight = {i: (q, d) for i, q, d in pending.rows}
+        live = []
+        adv = False
         for i, seq in occupants:
             if seq is None:
                 continue
-            fly = in_flight.get(i)
-            flying = fly is not None and fly[0] is seq
+            fly = flying.get(i)
+            ahead = 1 if fly is not None and fly[0] is seq else 0
             if seq.ticket.cancelled:
-                if not flying:
+                if not ahead:
                     self._retire(i, seq, reason="cancelled")
                 continue
-            if flying:
-                if len(seq.tokens) + 1 >= seq.max_new:
-                    continue  # the in-flight token is this row's last
+            if not seq.tokens or len(seq.tokens) + ahead >= seq.max_new:
+                # Mid-prefill, finished not retired, or its in-flight
+                # token is its last.
+                continue
+            if ahead:
                 p = fly[1] + 1
-                s["pos"][i] = p
                 s["over"][i] = False
             else:
-                if not seq.tokens or len(seq.tokens) >= seq.max_new:
-                    continue  # mid-prefill, or finished not retired
                 p = seq.pos
                 s["tok"][i] = seq.next_tok
-                s["pos"][i] = p
-            live.append((i, seq, p))
+            s["pos"][i] = p
             s["active"][i] = True
             s["temps"][i] = seq.temp
             if seq.top_k is not None:
@@ -2826,33 +2852,32 @@ class ContinuousBatchingEngine:
             if seq.top_p is not None:
                 s["top_p"][i] = seq.top_p
                 adv = True
-        if not live and pending is None:
-            return
-        new_pending = None
-        if live:
-            d = st.to(self.device)
-            kwargs = {"top_k": d["top_k"], "top_p": d["top_p"]} if adv else {}
-            prev = pending.nxt if pending is not None else self._last_nxt
-            self._dispatch_count += 1
-            nxt = self._with_retries(
-                "decode_step",
-                lambda: self._decode_fn(
-                    self._cache, prev, d["tok"], d["over"], d["pos"],
-                    d["active"], d.get("bt"), d["temps"], self._gen,
-                    **kwargs,
-                ),
-            )
-            self._last_nxt = nxt
-            new_pending = _Pending(live, nxt, time.monotonic())
-        with self._cv:
-            self._pending = new_pending
-        if pending is not None:
-            self._commit_pending(pending)
-        if new_pending is not None and not self._pipeline:
-            # Synchronous mode (the parity control).
-            with self._cv:
-                self._pending = None
-            self._commit_pending(new_pending)
+            live.append((i, seq, p, width(seq)))
+        return live, adv
+
+    def _dispatch_step(self, lag):  # hot-path
+        """Stage the live rows into the next step set and dispatch one
+        decode step; `lag` is the step in flight whose tokens its rows
+        take through the merge.  Returns the window, or None when no row
+        is live."""
+        self._stage_i ^= 1
+        st = self._stages[self._stage_i]
+        flying = {} if lag is None else {i: (q, p) for i, q, p, _ in lag.rows}
+        live, adv = self._stage_rows(st, lambda seq: 1, flying)
+        if not live:
+            return None
+        d = st.to(self.device)
+        kwargs = {"top_k": d["top_k"], "top_p": d["top_p"]} if adv else {}
+        prev = lag.nxt if lag is not None else self._last_nxt
+        nxt = self._with_retries(
+            "decode_step",
+            lambda: self._decode_fn(
+                self._cache, prev, d["tok"], d["over"], d["pos"],
+                d["active"], d.get("bt"), d["temps"], self._gen, **kwargs,
+            ),
+        )
+        self._last_nxt = nxt
+        return _Pending("step", live, nxt, time.monotonic())
 
     def _with_retries(self, what, dispatch, at=None):  # hot-path
         """Run `dispatch()` -> (cache, tokens) under the step-retry
@@ -2862,7 +2887,9 @@ class ContinuousBatchingEngine:
         drain the window, fail the active rows and raise StepFailure,
         which crashes the scheduler for revival.  Returns the tokens and
         keeps the cache.  `at` names the dispatch kind in the flight
-        recorder's events (None: the one-token step)."""
+        recorder's events (None: the one-token step).  Counts the
+        dispatch once, whatever its retries."""
+        self._dispatch_count += 1
         where = {} if at is None else {"at": at}
         delay = self._retry_backoff_s
         attempt = 0
@@ -2942,26 +2969,71 @@ class ContinuousBatchingEngine:
             )
             raise failure
 
-    def _commit_pending(self, pending):  # hot-path
-        """Commit one lagged step: the decode loop's ONE readback."""
-        nxt = self._readback(pending, "decode step", "commit_readback")
+    def _commit_window(self, pending):  # hot-path
+        """Commit one window of any kind at its one readback (a
+        speculative window's verify inputs with it).  Each surviving row
+        takes m tokens through _commit, and stops at the token that
+        retires it (cancel, stop token, max_new): m is 1 for a one-token
+        step, the width for a fused block, and for a speculative window
+        the accept-longest-greedy-prefix rule's: target tokens while the
+        draft agrees, plus the first disagreeing target token, capped at
+        the row's width.  The rest of a block or window is dead: the
+        row's position never passes its last committed token, so the
+        tail's KV stays invisible and the next dispatch rewrites it."""
+        what, at = _READBACK[pending.kind]
+        out = self._readback(pending, what, at)
+        if out.ndim == 1:
+            out = out[:, None]
+        drafts = None if pending.draft is None else pending.draft.cpu().numpy()
         now = time.monotonic()
         with self._cv:
             self.stats["steps"] += 1
             self.stats["step_rows"] += len(pending.rows)
             self._clock.fold(self.stats)
             # A row failed or retired-and-refilled inside the window
-            # must not receive this token.
+            # must not receive its tokens.
             survivors = [
-                (i, seq) for i, seq, _ in pending.rows
+                (i, seq, w) for i, seq, _, w in pending.rows
                 if self._slots[i] is seq
             ]
         self._obs.step_committed(
             len(pending.rows), now - pending.t_dispatch
         )
-        for i, seq in survivors:
-            # analysis: disable=host-sync -- nxt is already host-side (the step-boundary readback above)
-            self._commit(i, seq, int(nxt[i]), now=now)
+        drafted = accepted = committed = 0
+        for i, seq, w in survivors:
+            m = w
+            if drafts is not None:
+                m = 1
+                while m < w and drafts[i, m] == out[i, m - 1]:
+                    m += 1
+                if w > 1:
+                    # Depth and the accept-rate histogram follow the
+                    # drafter's accuracy (the whole agreeing prefix),
+                    # whatever truncated the commit.
+                    self._obs.spec_window(w - 1, m - 1)
+                    self._update_depth(seq, w, m)
+            c = 0
+            for j in range(m):
+                c += 1
+                # analysis: disable=host-sync -- out is already host-side (the window readback above)
+                if self._commit(i, seq, int(out[i, j]), now=now):
+                    break
+            committed += c
+            if drafts is not None and w > 1:
+                # The counters track delivery: a draft token counts as
+                # accepted only when it was committed.
+                drafted += w - 1
+                accepted += min(c, m - 1)
+        if pending.kind == "spec":
+            with self._cv:
+                self.stats["spec_window_rows"] += len(survivors)
+                self.stats["spec_window_tokens"] += committed
+                self.stats["spec_drafted_tokens"] += drafted
+                self.stats["spec_accepted_tokens"] += accepted
+                self.stats["spec_rejected_tokens"] += drafted - accepted
+        elif pending.kind == "fused" and committed:
+            with self._cv:
+                self.stats["fused_tokens"] += committed
 
     # -- fused multi-step decode (decode_steps > 1) ----------------------
     def _fused_turn_wants_block(self) -> int:  # hot-path
@@ -3003,120 +3075,27 @@ class ContinuousBatchingEngine:
                 k = b
         return k
 
-    def _step_fused(self, k: int):  # hot-path
-        """One fused turn: COMMIT the outstanding window (either kind;
-        the block's base token is the last committed one), dispatch k
-        chained steps as one block, and publish it as the new window.
-        Cancel / stop / max_new apply at its commit, and _drain_pending
-        drops it on every failure path, as for a one-token step."""
-        with self._cv:
-            pending, self._pending = self._pending, None
-        if pending is not None:
-            if isinstance(pending, _FusedPending):
-                self._commit_fused(pending)
-            else:
-                self._commit_pending(pending)
-        new_pending = self._dispatch_fused(k)
-        if new_pending is None:
-            return
-        with self._cv:
-            self._pending = new_pending
-        if not self._pipeline:
-            with self._cv:
-                self._pending = None
-            self._commit_fused(new_pending)
-
     def _dispatch_fused(self, k: int):  # hot-path
         """Stage every live row and dispatch one block of k steps.  Rows
-        cancelled since the gate retire here (nothing is in flight), and
-        the staged temperatures stay 0 (the gate passed only greedy
-        rows).  A failure retries and crashes as a one-token step
+        cancelled since the gate retire at staging (nothing is in
+        flight), and the staged temperatures are 0 (the gate passed only
+        greedy rows).  A failure retries and crashes as a one-token step
         does."""
-        self._clock.enter(_STAGE)
         st = self._fused_stage
-        s = st.np
-        s["tok"].fill(0)
-        s["pos"].fill(0)
-        s["active"].fill(False)
-        s["temps"].fill(0.0)
-        live = []
-        with self._cv:
-            occupants = list(enumerate(self._slots))
-            np.copyto(s["bt"], self._bt_master)
-        for i, seq in occupants:
-            if seq is None:
-                continue
-            if seq.ticket.cancelled:
-                self._retire(i, seq, reason="cancelled")
-                continue
-            if not seq.tokens or len(seq.tokens) >= seq.max_new:
-                continue
-            s["tok"][i] = seq.next_tok
-            s["pos"][i] = seq.pos
-            s["active"][i] = True
-            live.append((i, seq, seq.pos, k))
+        live, _ = self._stage_rows(st, lambda seq: k, {})
         if not live:
             return None
-        weights = self._qparams if self.quant else self._model
-        self._dispatch_count += 1
         toks = self._with_retries(
             "fused decode block",
-            lambda: self._fused_fn(weights, self._cache, st.t, k),
+            lambda: self._fused_fn(self._weights, self._cache, st.t, k),
             at="decode_fused",
         )
         with self._cv:
             self.stats["fused_blocks"] += 1
             self.stats["fused_steps"] += k
-        return _FusedPending(live, toks, time.monotonic())
-
-    def _commit_fused(self, pending):  # hot-path
-        """Commit one fused block: its one readback, then per row in
-        step order until a cancel, a stop token or max_new ends the row
-        (the rest of the block is dead: the row's position never
-        advances past its last committed token, so the tail's KV stays
-        invisible and is overwritten later)."""
-        toks = self._readback(pending, "fused decode block",
-                              "fused_commit_readback")
-        now = time.monotonic()
-        with self._cv:
-            self.stats["steps"] += 1
-            self.stats["step_rows"] += len(pending.rows)
-            self._clock.fold(self.stats)
-            survivors = [
-                (i, seq, w) for i, seq, _p, w in pending.rows
-                if self._slots[i] is seq
-            ]
-        self._obs.step_committed(
-            len(pending.rows), now - pending.t_dispatch
-        )
-        committed = 0
-        for i, seq, w in survivors:
-            for j in range(w):
-                # analysis: disable=host-sync -- toks is already host-side (the block readback above)
-                t = int(toks[i, j])
-                self._commit(i, seq, t, now=now)
-                committed += 1
-                if (seq.ticket.cancelled
-                        or (seq.stop_token is not None
-                            and t == seq.stop_token)
-                        or len(seq.tokens) >= seq.max_new):
-                    break
-        if committed:
-            with self._cv:
-                self.stats["fused_tokens"] += committed
+        return _Pending("fused", live, toks, time.monotonic())
 
     # -- speculative decoding (spec_k > 0) -------------------------------
-    def _commit_window(self, pending):  # hot-path
-        """Commit whichever window is outstanding: on a speculative
-        engine the turn types alternate (one-token turns serve sampled
-        and throttled stretches), and each has its own commit."""
-        if isinstance(pending, _SpecPending):
-            self._commit_spec(pending)
-        elif isinstance(pending, _FusedPending):
-            self._commit_fused(pending)
-        else:
-            self._commit_pending(pending)
-
     def _spec_turn_wants_window(self) -> bool:  # hot-path
         """The turn-type gate: True when some live greedy row could draft
         deeper than one token this turn; otherwise the turn falls through
@@ -3145,75 +3124,26 @@ class ContinuousBatchingEngine:
                     return True
         return False
 
-    def _step_spec(self):  # hot-path
-        """One speculative turn: COMMIT the outstanding window of either
-        kind (the accept decision gates the next draft), then draft and
-        dispatch the next window, which runs on the device while the host
-        takes the next admission turn.  Cancel / stop / max_new apply at
-        its commit, and _drain_pending drops it on every failure path."""
-        with self._cv:
-            pending, self._pending = self._pending, None
-        if pending is not None:
-            self._commit_window(pending)
-        new_pending = self._dispatch_spec()
-        if new_pending is None:
-            return
-        with self._cv:
-            self._pending = new_pending
-        if not self._pipeline:
-            with self._cv:
-                self._pending = None
-            self._commit_spec(new_pending)
+    def _spec_width(self, seq) -> int:
+        """A row's width in a speculative window: its adaptive depth
+        capped at its budget."""
+        if seq.temp > 0.0:
+            return 1  # the greedy accept rule cannot cover a draw
+        d = seq.spec_depth if seq.spec_depth > 0 else self._spec_k
+        return min(d, seq.max_new - len(seq.tokens))
 
     def _dispatch_spec(self):  # hot-path
         """Draft up to W tokens per greedy row with the int8 twin and
         dispatch ONE batched verify pass over the window.  The draft's
         output feeds the verify on the device and nothing is read back
-        until _commit_spec.  W is the bucketed max of the rows' widths
+        until _commit_window.  W is the bucketed max of the rows' widths
         (a greedy row's adaptive depth capped at its budget; sampled rows
         ride at width 1).  A failed drafter fill or draft chain degrades
         the window to width 1 and zeroes the drafter cache; a failed
         verify retries, then fails the active rows and crashes, as a
         one-token step does."""
-        self._clock.enter(_STAGE)
         st = self._spec_stage
-        s = st.np
-        s["tok"].fill(0)
-        s["pos"].fill(0)
-        s["active"].fill(False)
-        s["temps"].fill(0.0)
-        s["top_k"].fill(self._model.vocab)
-        s["top_p"].fill(1.0)
-        adv = False
-        live = []
-        with self._cv:
-            occupants = list(enumerate(self._slots))
-            if self._paged:
-                np.copyto(s["bt"], self._bt_master)
-        for i, seq in occupants:
-            if seq is None:
-                continue
-            if seq.ticket.cancelled:
-                self._retire(i, seq, reason="cancelled")
-                continue
-            if not seq.tokens or len(seq.tokens) >= seq.max_new:
-                continue
-            if seq.temp > 0.0:
-                w = 1  # the greedy accept rule cannot cover a draw
-            else:
-                d = seq.spec_depth if seq.spec_depth > 0 else self._spec_k
-                w = min(d, seq.max_new - len(seq.tokens))
-            s["tok"][i] = seq.next_tok
-            s["pos"][i] = seq.pos
-            s["active"][i] = True
-            s["temps"][i] = seq.temp
-            if seq.top_k is not None:
-                s["top_k"][i] = seq.top_k
-                adv = True
-            if seq.top_p is not None:
-                s["top_p"][i] = seq.top_p
-                adv = True
-            live.append((i, seq, seq.pos, w))
+        live, adv = self._stage_rows(st, self._spec_width, {})
         if not live:
             return None
         w_max = max(w for _, _, _, w in live)
@@ -3227,7 +3157,7 @@ class ContinuousBatchingEngine:
                 self._spec_last_width = 1
                 dcols = self._no_dcols
                 live = [(i, q, p, 1) for i, q, p, _w in live]
-        greedy = not adv and not bool((s["temps"] > 0.0).any())
+        greedy = not adv and not bool((st.np["temps"] > 0.0).any())
         t = st.t
         inputs = {
             "tok": t["tok"], "dcols": dcols, "pos": t["pos"],
@@ -3235,17 +3165,15 @@ class ContinuousBatchingEngine:
             "top_k": t["top_k"] if adv else None,
             "top_p": t["top_p"] if adv else None,
         }
-        weights = self._qparams if self.quant else self._model
-        self._dispatch_count += 1
         outs, toks = self._with_retries(
             "verify window",
-            lambda: self._verify_fn(weights, self._cache, inputs,
+            lambda: self._verify_fn(self._weights, self._cache, inputs,
                                     (W, greedy, adv)),
             at="spec_verify",
         )
         with self._cv:
             self.stats["spec_verify_passes"] += 1
-        return _SpecPending(live, outs, toks, time.monotonic())
+        return _Pending("spec", live, outs, time.monotonic(), toks)
 
     def _draft(self, st, live, W):  # hot-path
         """The draft phase of a window of width W > 1: refill the drafter
@@ -3302,65 +3230,6 @@ class ContinuousBatchingEngine:
             self.stats["spec_draft_chains"] += 1
             self.stats["spec_draft_passes"] += W
         return dcols
-
-    def _commit_spec(self, pending):  # hot-path
-        """Commit one window: its one readback (the verify outputs and
-        inputs), then per surviving row the accept-longest-greedy-prefix
-        rule: target tokens while the draft agrees, plus the first
-        disagreeing target token, capped at the row's width, and a stop
-        token, cancel or max_new ends the row early.  The rest is
-        rewound: the row's position never passes its last committed
-        token, so the rejected suffix's KV stays invisible and the next
-        window rewrites it."""
-        outs = self._readback(pending, "verify window",
-                              "spec_commit_readback")
-        drafts = pending.draft.cpu().numpy()
-        now = time.monotonic()
-        with self._cv:
-            self.stats["steps"] += 1
-            self.stats["step_rows"] += len(pending.rows)
-            self._clock.fold(self.stats)
-            survivors = [
-                (i, seq, w) for i, seq, _p, w in pending.rows
-                if self._slots[i] is seq
-            ]
-        self._obs.step_committed(
-            len(pending.rows), now - pending.t_dispatch
-        )
-        drafted = accepted = committed = 0
-        for i, seq, w in survivors:
-            m = 1
-            while m < w and drafts[i, m] == outs[i, m - 1]:
-                m += 1
-            if w > 1:
-                # Depth and the accept-rate histogram follow the
-                # drafter's accuracy (the whole agreeing prefix),
-                # whatever truncated the commit.
-                self._obs.spec_window(w - 1, m - 1)
-                self._update_depth(seq, w, m)
-            c = 0
-            for j in range(m):
-                # analysis: disable=host-sync -- outs is already host-side (the window readback above)
-                tok = int(outs[i, j])
-                self._commit(i, seq, tok, now=now)
-                c += 1
-                if (seq.ticket.cancelled
-                        or (seq.stop_token is not None
-                            and tok == seq.stop_token)
-                        or len(seq.tokens) >= seq.max_new):
-                    break
-            committed += c
-            if w > 1:
-                # The counters track delivery: a draft token counts as
-                # accepted only when it was committed.
-                drafted += w - 1
-                accepted += min(c, m - 1)
-        with self._cv:
-            self.stats["spec_window_rows"] += len(survivors)
-            self.stats["spec_window_tokens"] += committed
-            self.stats["spec_drafted_tokens"] += drafted
-            self.stats["spec_accepted_tokens"] += accepted
-            self.stats["spec_rejected_tokens"] += drafted - accepted
 
     def _update_depth(self, seq, w: int, m: int):
         """Per-row adaptive depth: fold this window's accept fraction into

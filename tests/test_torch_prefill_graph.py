@@ -295,7 +295,8 @@ def test_card_replay_equals_eager_first_call(width):
     buf, scratch = G.init_scratch(model, device="cuda")
     gen = torch.Generator(device="cuda")
     graphs = SeamGraphs(engine_mod._final_chunk_seam, gen, model.device)
-    stage = engine_mod._FinalStage(CFG["max_seq"], PAGES_PER_ROW, True)
+    stage = engine_mod._Staging(
+        engine_mod._final_chunk_fields(CFG["max_seq"], PAGES_PER_ROW), True)
     plen = width - 3
     prompt = _prompt(width, plen)
     prompt = np.pad(prompt, ((0, 0), (0, width - plen)))
@@ -343,7 +344,8 @@ def test_card_replay_at_a_later_start_equals_eager(width, case):
     buf, scratch = held
     gen = torch.Generator(device="cuda")
     graphs = SeamGraphs(engine_mod._final_chunk_seam, gen, model.device)
-    stage = engine_mod._FinalStage(CFG["max_seq"], PAGES_PER_ROW, True)
+    stage = engine_mod._Staging(
+        engine_mod._final_chunk_fields(CFG["max_seq"], PAGES_PER_ROW), True)
     plen0 = width - 3
     fresh = np.pad(_prompt(width, plen0), ((0, 0), (0, 3)))
     _seam_call(graphs, stage, model, pool, scratch, fresh, width,
@@ -388,7 +390,8 @@ def test_card_reset_recaptures_and_refuses_a_foreign_cache():
     buf, scratch = G.init_scratch(model, device="cuda")
     graphs = SeamGraphs(engine_mod._final_chunk_seam,
                         torch.Generator(device="cuda"), model.device)
-    stage = engine_mod._FinalStage(CFG["max_seq"], PAGES_PER_ROW, True)
+    stage = engine_mod._Staging(
+        engine_mod._final_chunk_fields(CFG["max_seq"], PAGES_PER_ROW), True)
     prompt, bt = _prompt(3, 64), _block_table(61, 0)
     pool = _pool(model)
     tok = _seam_call(graphs, stage, model, pool, scratch, prompt, 64, bt, 61)

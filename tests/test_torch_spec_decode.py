@@ -117,13 +117,14 @@ def test_greedy_parity_contiguous_with_retire_and_refill(setup, solo):
     assert snap["spec_accepted_tokens"] > 0
 
 
-def test_greedy_parity_paged_with_prefix_hits(setup, solo):
+@pytest.mark.parametrize("pipeline", [True, False], ids=["lag", "sync"])
+def test_greedy_parity_paged_with_prefix_hits(setup, solo, pipeline):
     # The paged engine with the radix prefix cache: a repeated prompt
     # admits through a prefix hit, then speculates; a divergent
     # continuation still matches (speculative writes never touch a
-    # shared page).
+    # shared page).  With pipeline=False each window commits at once.
     pm = setup[1]
-    eng = _spec_engine(pm, 2)
+    eng = _spec_engine(pm, 2, pipeline=pipeline)
     try:
         p = rand_prompt(41, 24)  # 3 full pages
         cold = eng.submit(p, 6, 0.0, timeout=300)
